@@ -1,0 +1,62 @@
+"""Architecture registry of the port: ``get_config`` / ``reduced_config``.
+
+Only the architectures whose every block kind the port runs are registered;
+the others are ROADMAP item 9.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.gemma2_2b import CONFIG as _gemma2
+
+REGISTRY: Dict[str, ModelConfig] = {c.name: c for c in (_gemma2,)}
+
+ARCH_NAMES: List[str] = list(REGISTRY)
+
+
+def get_config(name: str) -> ModelConfig:
+    try:
+        return REGISTRY[name]
+    except KeyError:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported; ported: {ARCH_NAMES} "
+            "(the rest of the model zoo is ROADMAP item 9)") from None
+
+
+def reduced_config(name: str) -> ModelConfig:
+    """Tiny same-family variant for CPU tests: the reference's reduction
+    rule, field for field."""
+    cfg = get_config(name)
+    pat = len(cfg.pattern)
+    rem = cfg.num_layers % pat
+    num_layers = 2 * pat + rem
+    num_kv = min(cfg.num_kv_heads, 2) if cfg.num_kv_heads else 0
+    q_per_kv = cfg.q_per_kv if cfg.num_heads else 0
+    num_heads = num_kv * min(q_per_kv, 2) if cfg.num_heads else 0
+    head_dim = 32 if cfg.head_dim else 0
+    experts = min(cfg.num_experts, 8)
+    top_k = min(cfg.num_experts_per_tok, max(experts // 2, 1)) if experts else 0
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        num_layers=num_layers,
+        d_model=128,
+        num_heads=num_heads,
+        num_kv_heads=num_kv,
+        head_dim=head_dim,
+        d_ff=256 if cfg.d_ff else 0,
+        vocab_size=512,
+        local_window=16 if cfg.local_window else 0,
+        num_experts=experts,
+        num_experts_per_tok=top_k,
+        moe_d_ff=64 if cfg.moe_d_ff else 0,
+        ssm_state_dim=16 if cfg.ssm_state_dim else 0,
+        ssm_head_dim=16 if cfg.ssm_state_dim else cfg.ssm_head_dim,
+        ssm_chunk=8,
+        rglru_width=128 if cfg.rglru_width else 0,
+        num_encoder_layers=2 if cfg.num_encoder_layers else 0,
+        frontend_len=8 if cfg.frontend == "vision" else cfg.frontend_len,
+        query_scale=0.0,
+    )

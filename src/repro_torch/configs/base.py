@@ -1,0 +1,118 @@
+"""Configuration dataclasses of the port.
+
+The port's own copy of ``repro``'s ``ModelConfig``: the same fields with the
+same defaults, so a configuration compares equal field by field with the
+reference's. The reference's ``RunConfig`` (training and sharding knobs) is
+left out until a slice of the port reads it. Hardware constants do not
+belong here; the card's peak rates live with the script that measures
+against them (``chip_smoke.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple
+
+BLOCK_GLOBAL_ATTN = "global"  # full (causal/prefix) attention
+BLOCK_LOCAL_ATTN = "local"    # sliding-window attention
+BLOCK_RGLRU = "rglru"         # RG-LRU recurrent block (recurrentgemma)
+BLOCK_SSD = "ssd"             # Mamba-2 state-space duality block
+VALID_BLOCKS = (BLOCK_GLOBAL_ATTN, BLOCK_LOCAL_ATTN, BLOCK_RGLRU, BLOCK_SSD)
+
+ATTN_BLOCKS = (BLOCK_GLOBAL_ATTN, BLOCK_LOCAL_ATTN)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description. One instance per architecture."""
+
+    name: str
+    family: str                      # dense | hybrid | moe | vlm | ssm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+
+    # Layer stack: a repeating pattern of block kinds; the remainder layers
+    # (num_layers % len(pattern)) continue the pattern at the top.
+    pattern: Tuple[str, ...] = (BLOCK_GLOBAL_ATTN,)
+    local_window: int = 0            # sliding window for BLOCK_LOCAL_ATTN
+
+    # Attention variants
+    use_qk_norm: bool = False
+    attn_logit_softcap: float = 0.0  # gemma2: tanh softcap on attn logits
+    final_logit_softcap: float = 0.0 # gemma2: tanh softcap on lm logits
+    query_scale: float = 0.0         # 0 -> 1/sqrt(head_dim)
+    rope_theta: float = 10000.0
+    parallel_block: bool = False
+    attn_bias: bool = False
+
+    # MLP
+    mlp_activation: str = "swiglu"   # swiglu | geglu | gelu | squared_relu
+
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_d_ff: int = 0
+    moe_dense_residual: bool = False
+    moe_parallelism: str = "ep"
+
+    # SSM / recurrent
+    ssm_state_dim: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    conv_width: int = 4
+    rglru_width: int = 0
+
+    # Encoder-decoder
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+
+    # Modality frontend
+    frontend: str = ""
+    frontend_len: int = 256
+    prefix_lm: bool = False
+
+    # Embeddings
+    tie_embeddings: bool = True
+    embed_scale: bool = True         # gemma-style sqrt(d_model) embed scaling
+    norm_eps: float = 1e-6
+
+    # Runtime knobs carried for field-by-field parity with the reference
+    sharding_overrides: Tuple[Tuple[str, Any], ...] = ()
+    optimizer: str = "adamw"
+    supports_long_context: bool = False
+
+    def __post_init__(self):
+        for b in self.pattern:
+            if b not in VALID_BLOCKS:
+                raise ValueError(f"unknown block kind {b!r} in pattern")
+        if self.num_heads and self.num_heads % max(self.num_kv_heads, 1):
+            raise ValueError("num_heads must be a multiple of num_kv_heads")
+        if self.num_experts and self.num_experts_per_tok <= 0:
+            raise ValueError("MoE config needs num_experts_per_tok > 0")
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // max(self.num_kv_heads, 1)
+
+    @property
+    def scan_repeats(self) -> int:
+        return self.num_layers // len(self.pattern)
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Block kind of every layer, bottom to top: the pattern repeated,
+        then the remainder blocks (layer ``r*len(pattern)+i`` is
+        ``pattern[i]``)."""
+        p = self.pattern
+        return tuple(p[i % len(p)] for i in range(self.num_layers))
+
+    def param_count(self) -> int:
+        """Parameters of the port's dense decoder: tied embedding, per block
+        q/k/v/o projections, two norms and a geglu MLP, and a final norm."""
+        d, ff = self.d_model, self.d_ff
+        qkvo = d * self.head_dim * (2 * self.num_heads + 2 * self.num_kv_heads)
+        return self.vocab_size * d + self.num_layers * (qkvo + 2 * d + 3 * d * ff) + d

@@ -1,0 +1,44 @@
+"""Convert the reference's parameter tree (as numpy arrays) to the port's.
+
+The reference stacks each position of its block pattern along a leading
+layer axis (``stack/b{i}`` of shape (repeats, ...)) and keeps remainder
+layers in ``rem``. Layer ``r*len(pattern)+i`` of the port is
+``stack/b{i}[r]``; remainder layer ``i`` follows the stack.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import check_supported
+
+
+def to_torch(a) -> torch.Tensor:
+    """A copy of a numpy array (bf16 from ml_dtypes included) as a CPU
+    torch tensor."""
+    a = np.array(a)   # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _tree(tree, r=None):
+    """A sub-tree as torch tensors; layer ``r`` of it when it is stacked."""
+    return {k: _tree(v, r) if isinstance(v, dict) else to_torch(v if r is None else v[r])
+            for k, v in tree.items()}
+
+
+def params_from_jax(np_tree, cfg: ModelConfig) -> Dict[str, Any]:
+    """``np_tree``: the reference's ``init_params`` output with every leaf
+    turned into a numpy array. Returns the port's parameter dictionary, on
+    the CPU; a block keeps the reference's keys (ln1, attn, ln2, mlp)."""
+    check_supported(cfg)
+    stack = np_tree.get("stack", {})
+    layers = [_tree(stack[f"b{i}"], r)
+              for r in range(cfg.scan_repeats) for i in range(len(cfg.pattern))]
+    layers += [_tree(rem) for rem in np_tree.get("rem", ())]
+    return {"embed": _tree(np_tree["embed"]), "layers": layers,
+            "final_norm": _tree(np_tree["final_norm"])}

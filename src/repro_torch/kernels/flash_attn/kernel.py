@@ -1,0 +1,61 @@
+"""ctypes wrapper of the CUDA flash attention kernel (``csrc/flash_attn.cu``).
+
+``flash_attention_cuda.launches`` counts the calls that launched the
+kernel; nothing else changes it.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128, 256)
+
+
+@functools.cache
+def _entry():
+    lib = _build.load("flash_attn")
+    fn = lib.flash_attn_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def flash_attention_cuda(q, k, v, *, scale: float, causal: bool = True,
+                         window: int = 0, softcap: float = 0.0):
+    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), one dtype (f32 or bf16).
+    Returns (B, Sq, Hq, D)."""
+    if not all(t.is_cuda for t in (q, k, v)):
+        raise ValueError("flash_attention_cuda takes CUDA tensors only")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or hq % hkv:
+        raise ValueError("q and k/v disagree in batch, head_dim or heads")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"unsupported head_dim {d}")
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"unsupported dtypes {q.dtype} {k.dtype} {v.dtype}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("flash_attention_cuda needs 16-byte aligned tensors")
+
+    out = torch.empty_like(q)
+    lib, fn = _entry()
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              b, sq, skv, hq, hkv, d, float(scale), float(softcap), int(causal),
+              int(window) if causal else 0, DTYPE_CODES[q.dtype],
+              torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "flash_attn", code)
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0

@@ -1,0 +1,31 @@
+"""Plain torch oracle for flash attention (mirrors the reference's
+``kernels/flash_attn/ref.py``: an independent full-softmax version)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attention_ref(q, k, v, *, scale: float = 0.0, causal: bool = True,
+                  window: int = 0, softcap: float = 0.0):
+    """q: (BH, Sq, D); k, v: (BH, Skv, D). f32 softmax over all keys."""
+    d = q.shape[-1]
+    scale = scale or 1.0 / math.sqrt(d)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    sq, skv = q.shape[1], k.shape[1]
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    valid = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= kpos <= qpos
+        if window:
+            valid &= (qpos - kpos) < window
+    s = torch.where(valid[None], s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)

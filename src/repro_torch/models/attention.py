@@ -1,0 +1,105 @@
+"""GQA attention: projections, prefill attention, KV caches, decode.
+
+Counterparts of the reference's ``models/attention.py`` for the dense
+decoder. ``attention_core`` computes what the reference's flash-attention
+kernel computes and goes through ``kernels/flash_attn``; ``decode_attend``
+computes what its decode kernel computes and goes through
+``kernels/decode_attn``. On CUDA tensors both launch the port's kernels, on
+CPU tensors their plain torch versions.
+
+The cache writers update the cache tensors in place (the reference returns
+new arrays) and return them, so a step allocates no second cache.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.decode_attn.ops import decode_attention
+from repro_torch.kernels.flash_attn.ops import flash_attention
+from repro_torch.models.layers import rope
+
+
+def _scale(cfg) -> float:
+    return cfg.query_scale or 1.0 / math.sqrt(cfg.head_dim)
+
+
+def project_qkv(cfg, params, x, *, positions):
+    """(B, S, d) -> q (B, S, Hq, Dh), k, v (B, S, Hkv, Dh), RoPE applied at
+    absolute positions so cached K never needs re-rotation."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+
+
+def output_proj(params, o):
+    return torch.einsum("bshk,hkd->bsd", o, params["wo"])
+
+
+def attention_core(cfg, q, k, v, *, mask_kind: str):
+    """Prefill attention, q: (B, Sq, Hq, Dh); k, v: (B, Skv, Hkv, Dh).
+
+    ``mask_kind`` is "causal" or "local" (causal within ``cfg.local_window``).
+    The reference's "full" and "prefix" masks serve the encoder-decoder and
+    paligemma, which are not ported (ROADMAP item 9).
+    """
+    if mask_kind not in ("causal", "local"):
+        raise NotImplementedError(
+            f"mask_kind {mask_kind!r}: encoder and prefix-LM attention are ROADMAP item 9")
+    window = cfg.local_window if mask_kind == "local" else 0
+    return flash_attention(q, k, v, causal=True, window=window,
+                           softcap=cfg.attn_logit_softcap, scale=_scale(cfg))
+
+
+def write_full_cache(cache_k, cache_v, k, v):
+    """Write a prefill's k/v into slots [0, S) of a full-length cache."""
+    s = k.shape[1]
+    cache_k[:, :s] = k.to(cache_k.dtype)
+    cache_v[:, :s] = v.to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def write_ring_cache(cache_k, cache_v, k, v):
+    """Write the tail of a prefill's k/v into a ring buffer of size W; the
+    slot of absolute position p is p % W."""
+    w, s = cache_k.shape[1], k.shape[1]
+    n = min(s, w)
+    idx = torch.arange(s - n, s, device=k.device) % w
+    cache_k[:, idx] = k[:, s - n:].to(cache_k.dtype)
+    cache_v[:, idx] = v[:, s - n:].to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def decode_write(cache_k, cache_v, k_t, v_t, pos, ring: bool):
+    """Insert one token per sequence. k_t: (B, 1, H, D); pos: (B,) absolute
+    position of the new token (slot ``pos % W`` in a ring)."""
+    w = cache_k.shape[1]
+    slots = pos % w if ring else pos
+    rows = torch.arange(cache_k.shape[0], device=cache_k.device)
+    cache_k[rows, slots] = k_t[:, 0].to(cache_k.dtype)
+    cache_v[rows, slots] = v_t[:, 0].to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def decode_lengths(pos, slots: int, *, ring: bool):
+    """Valid cache slots per sequence as a prefix length, for the decode
+    kernel's mask ``slot < length``.
+
+    * ring cache of W slots: the filled slots, min(pos+1, W). ``init_cache``
+      sizes the ring to min(window, max_len), so it holds only positions
+      inside the window, and attention does not depend on slot order;
+    * full cache (a global layer, no window): slots 0..pos.
+    """
+    if ring:
+        return torch.clamp(pos + 1, max=slots).to(torch.int32)
+    return (pos + 1).to(torch.int32)
+
+
+def decode_attend(cfg, q_t, cache_k, cache_v, pos, *, ring: bool):
+    """One-token attention against a cache. q_t: (B, 1, Hq, Dh); cache:
+    (B, S, Hkv, Dh); pos: (B,) position of the new token, already written."""
+    lengths = decode_lengths(pos, cache_k.shape[1], ring=ring)
+    return decode_attention(q_t, cache_k, cache_v, lengths,
+                            softcap=cfg.attn_logit_softcap, scale=_scale(cfg))

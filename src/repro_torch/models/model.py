@@ -1,0 +1,162 @@
+"""Dense decoder LM: parameters, KV cache, prefill and decode.
+
+The counterpart of the reference's ``models/model.py`` for stacks of
+attention blocks (gemma2's alternating local/global pattern and other dense
+decoders). The reference scans over the repeating block pattern; here the
+layers are a list, and layer ``r*len(pattern)+i`` has kind ``pattern[i]``.
+
+Parameters are a plain dictionary::
+
+    {"embed": {"table": (V, d)},
+     "layers": [{"ln1": {"scale"}, "attn": {"wq", "wk", "wv", "wo"},
+                 "ln2": {"scale"}, "mlp": {"w_in", "w_gate", "w_out"}}, ...],
+     "final_norm": {"scale"}}
+
+with the reference's shapes (``wq`` (d, Hq, Dh), ``wo`` (Hq, Dh, d)) and its
+dtypes (norm scales in f32). The cache is a list with one ``{"k", "v"}``
+entry of (B, L, Hkv, Dh) per layer: L = max_len for global layers and
+min(local_window, max_len) slots of a ring for local ones.
+
+Not ported yet (ROADMAP item 9): RG-LRU, SSD and MoE blocks, the
+encoder-decoder, vision prefixes, parallel blocks, attention biases,
+qk-norm, MLPs other than geglu and untied heads; they raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch.configs.base import ATTN_BLOCKS, BLOCK_LOCAL_ATTN, ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for the parts of the reference's model zoo the port lacks."""
+    missing = [what for what, present in (
+        ("RG-LRU/SSD blocks", any(k not in ATTN_BLOCKS for k in cfg.pattern)),
+        ("MoE", bool(cfg.num_experts)),
+        ("encoder-decoder", cfg.is_encoder_decoder),
+        ("vision prefix-LM", bool(cfg.frontend) or cfg.prefix_lm),
+        ("parallel blocks", cfg.parallel_block),
+        ("attention bias", cfg.attn_bias),
+        (f"{cfg.mlp_activation} MLP", cfg.mlp_activation != "geglu"),
+        ("qk-norm", cfg.use_qk_norm),
+        ("untied lm head", not cfg.tie_embeddings),
+    ) if present]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP item 9)")
+
+
+# ================================================================== params
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
+                dtype=torch.bfloat16) -> Dict[str, Any]:
+    """Random parameters: truncated normal (+-3 sigma, sigma = 1/sqrt(fan_in))
+    for weights, zeros for the f32 norm scales, as the reference inits. On
+    the card unless ``device="cpu"``; the generator must live there too."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    d, hq, hkv, dh, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.head_dim, cfg.d_ff)
+
+    def w(shape, fan_in):
+        return L.nd_init(shape, fan_in, dtype, generator, device)
+
+    def norm():
+        return {"scale": torch.zeros(d, dtype=torch.float32, device=device)}
+
+    layers = []
+    for _ in range(cfg.num_layers):
+        layers.append({
+            "ln1": norm(),
+            "attn": {"wq": w((d, hq, dh), d), "wk": w((d, hkv, dh), d),
+                     "wv": w((d, hkv, dh), d), "wo": w((hq, dh, d), hq * dh)},
+            "ln2": norm(),
+            "mlp": {"w_in": w((d, ff), d), "w_out": w((ff, d), ff),
+                    "w_gate": w((d, ff), d)},
+        })
+    return {"embed": {"table": w((cfg.vocab_size, d), d)},
+            "layers": layers, "final_norm": norm()}
+
+
+# =================================================================== cache
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               kv_dtype=torch.bfloat16, device=None) -> List[Dict[str, Any]]:
+    """A zeroed cache, on the card unless ``device="cpu"``."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    cache = []
+    for kind in cfg.layer_kinds():
+        length = (min(cfg.local_window or max_len, max_len)
+                  if kind == BLOCK_LOCAL_ATTN else max_len)
+        shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
+        cache.append({"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+                      "v": torch.zeros(shape, dtype=kv_dtype, device=device)})
+    return cache
+
+
+# ================================================================== blocks
+def _ffn(cfg, lp, x):
+    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(lp["mlp"], h)
+
+
+def _block_prefill(cfg, kind, lp, x, entry, positions):
+    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    q, k, v = attn.project_qkv(cfg, lp["attn"], h, positions=positions)
+    mask = "local" if kind == BLOCK_LOCAL_ATTN else "causal"
+    o = attn.attention_core(cfg, q, k, v, mask_kind=mask)
+    x = x + attn.output_proj(lp["attn"], o)
+    if kind == BLOCK_LOCAL_ATTN and entry["k"].shape[1] < k.shape[1]:
+        attn.write_ring_cache(entry["k"], entry["v"], k, v)
+    else:
+        attn.write_full_cache(entry["k"], entry["v"], k, v)
+    return _ffn(cfg, lp, x)
+
+
+def _block_decode(cfg, kind, lp, x_t, entry, pos):
+    h = L.rmsnorm(lp["ln1"], x_t, cfg.norm_eps)
+    q, k, v = attn.project_qkv(cfg, lp["attn"], h, positions=pos[:, None])
+    ring = kind == BLOCK_LOCAL_ATTN
+    attn.decode_write(entry["k"], entry["v"], k, v, pos, ring)
+    o = attn.decode_attend(cfg, q, entry["k"], entry["v"], pos, ring=ring)
+    x_t = x_t + attn.output_proj(lp["attn"], o)
+    return _ffn(cfg, lp, x_t)
+
+
+def _logits(cfg, params, x):
+    return L.unembed(params["embed"], x, cap=cfg.final_logit_softcap)
+
+
+# ========================================================= prefill/decode
+def prefill(cfg: ModelConfig, params, batch, max_len: int = 0,
+            kv_dtype=torch.bfloat16):
+    """Run the prompt ``batch["tokens"]`` (B, S), fill a new cache, return
+    (last_logits (B, V), cache, pos) with pos = S-1 for every row. The next
+    token's position is pos+1, and decode step i (from 0) passes pos+1+i."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = L.embed_lookup(params["embed"], tokens, cfg.embed_scale)
+    positions = torch.arange(s, device=tokens.device)
+    cache = init_cache(cfg, b, max(max_len or s, s), kv_dtype, tokens.device)
+    for kind, lp, entry in zip(cfg.layer_kinds(), params["layers"], cache):
+        x = _block_prefill(cfg, kind, lp, x, entry, positions)
+    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    logits = _logits(cfg, params, x)[:, 0]
+    pos = torch.full((b,), s - 1, dtype=torch.int32, device=tokens.device)
+    return logits, cache, pos
+
+
+def decode_step(cfg: ModelConfig, params, token, pos, cache):
+    """One decode step. token: (B, 1) int; pos: (B,) absolute position of
+    the new token. Updates ``cache`` in place; returns (logits (B, V), cache)."""
+    x = L.embed_lookup(params["embed"], token, cfg.embed_scale)
+    for kind, lp, entry in zip(cfg.layer_kinds(), params["layers"], cache):
+        x = _block_decode(cfg, kind, lp, x, entry, pos)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _logits(cfg, params, x)[:, 0], cache

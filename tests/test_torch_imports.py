@@ -1,0 +1,76 @@
+"""Rules of the port: it imports neither JAX nor the reference package, its
+configurations equal the reference's field by field, and it runs on the card
+unless told otherwise."""
+import ast
+import dataclasses
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.configs import reduced_config as ref_reduced_config
+from repro_torch import configs as C
+from repro_torch import resolve_device
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module":
+            yield from (a.value for a in node.args if isinstance(a, ast.Constant))
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_import_check_sees_imports(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import jax\nfrom repro.models import model\nimport repro_torch\n"
+                     "importlib.import_module('repro.configs')\n")
+    found = [m for m in _imported_modules(probe) if m.split(".")[0] in FORBIDDEN]
+    assert found == ["jax", "repro.models", "repro.configs"]
+
+
+@pytest.mark.parametrize("ops", sorted((ROOT / "src" / "repro_torch" / "kernels").glob("*/ops.py")),
+                         ids=lambda p: p.parent.name)
+def test_kernel_dispatch_has_no_fallback(ops):
+    """No try/except in a kernel's dispatch: a CUDA tensor goes to the
+    kernel or the call raises."""
+    tree = ast.parse(ops.read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_gemma2_config_equals_the_reference(reduced):
+    get = C.reduced_config if reduced else C.get_config
+    ref_get = ref_reduced_config if reduced else ref_get_config
+    assert dataclasses.asdict(get("gemma2-2b")) == dataclasses.asdict(ref_get("gemma2-2b"))
+
+
+def test_param_count_counts_init_params():
+    from repro_torch.models.model import init_params
+    cfg = C.reduced_config("gemma2-2b")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
+    leaves = [params["embed"]["table"], params["final_norm"]["scale"]]
+    leaves += [t for lp in params["layers"] for sub in lp.values() for t in sub.values()]
+    assert cfg.param_count() == sum(t.numel() for t in leaves)
+
+
+def test_resolve_device_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")

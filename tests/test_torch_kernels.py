@@ -1,0 +1,169 @@
+"""The port's attention kernel modules against the reference's Pallas kernels.
+
+On the CPU the port's ``ops`` take their plain torch versions; the
+reference's kernels run in interpret mode. Inputs are drawn with numpy from a
+seed and rounded to the test dtype identically on both sides. Tolerances
+are the reference's kernel tests': f32 2e-5, bf16 3e-2 (one bf16 rounding
+of outputs of magnitude up to ~4). The CUDA kernels themselves run only on
+the card (``chip_smoke.py``); here their dispatch, argument checks and
+error paths are tested.
+"""
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attn.ops import decode_attention as ref_decode
+from repro.kernels.flash_attn.ops import flash_attention as ref_flash
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attn import kernel as DK
+from repro_torch.kernels.decode_attn import ops as DO
+from repro_torch.kernels.flash_attn import kernel as FK
+from repro_torch.kernels.flash_attn import ops as FO
+from repro_torch.models.attention import decode_lengths
+
+DTYPES = [("float32", 2e-5), ("bfloat16", 3e-2)]
+
+
+def _both(x, dtype):
+    """One numpy f32 array as a jax array and a torch tensor of ``dtype``."""
+    return (jnp.asarray(x, dtype=getattr(jnp, dtype)),
+            torch.from_numpy(x).to(getattr(torch, dtype)))
+
+
+def _close(port, ref, atol):
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)), atol=atol)
+
+
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal,window,cap", [
+    (1, 128, 2, 2, 64, True, 0, 0.0),
+    (2, 256, 4, 2, 64, True, 0, 0.0),       # GQA
+    (1, 128, 8, 1, 32, True, 64, 50.0),     # MQA + local + softcap
+    (2, 192, 4, 4, 128, True, 0, 0.0),      # not a multiple of the block
+    (1, 128, 2, 2, 64, False, 0, 0.0),      # bidirectional
+    (1, 128, 8, 4, 256, True, 64, 50.0),    # gemma2-2b's heads, local + softcap
+])
+def test_flash_attention_matches_reference(b, s, hq, hkv, d, causal, window,
+                                           cap, dtype, atol):
+    rng = np.random.default_rng(0)
+    qj, qt = _both(rng.standard_normal((b, s, hq, d), np.float32), dtype)
+    kj, kt = _both(rng.standard_normal((b, s, hkv, d), np.float32), dtype)
+    vj, vt = _both(rng.standard_normal((b, s, hkv, d), np.float32), dtype)
+    ref = ref_flash(qj, kj, vj, causal=causal, window=window, softcap=cap,
+                    interpret=True)
+    out = FO.flash_attention(qt, kt, vt, causal=causal, window=window, softcap=cap)
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    _close(out, ref, atol)
+
+
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("b,s,hq,hkv,d", [
+    (2, 256, 4, 2, 64),
+    (3, 512, 4, 4, 128),
+    (1, 300, 8, 2, 32),                     # not a multiple of the block
+    (2, 300, 8, 4, 256),                    # gemma2-2b's heads
+])
+def test_decode_attention_matches_reference(b, s, hq, hkv, d, dtype, atol):
+    rng = np.random.default_rng(1)
+    qj, qt = _both(rng.standard_normal((b, 1, hq, d), np.float32), dtype)
+    kj, kt = _both(rng.standard_normal((b, s, hkv, d), np.float32), dtype)
+    vj, vt = _both(rng.standard_normal((b, s, hkv, d), np.float32), dtype)
+    lens = rng.integers(1, s + 1, b).astype(np.int32)
+    ref = ref_decode(qj, kj, vj, jnp.asarray(lens), interpret=True)
+    out = DO.decode_attention(qt, kt, vt, torch.from_numpy(lens))
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    _close(out, ref, atol)
+
+
+@pytest.mark.parametrize("cache_dtype,atol", DTYPES)
+def test_decode_attention_wrapped_ring_lengths(cache_dtype, atol):
+    """Lengths from a local layer's ring: rows before, at and past the wrap
+    of a 16-slot ring; f32 queries against an f32 or bf16 cache, softcap."""
+    rng = np.random.default_rng(2)
+    b, w, hq, hkv, d = 4, 16, 4, 2, 32
+    pos = torch.tensor([3, 15, 16, 40])
+    lens = decode_lengths(pos, w, ring=True)
+    assert lens.tolist() == [4, 16, 16, 16]
+    qj, qt = _both(rng.standard_normal((b, 1, hq, d), np.float32), "float32")
+    kj, kt = _both(rng.standard_normal((b, w, hkv, d), np.float32), cache_dtype)
+    vj, vt = _both(rng.standard_normal((b, w, hkv, d), np.float32), cache_dtype)
+    ref = ref_decode(qj, kj, vj, jnp.asarray(lens.numpy()), softcap=50.0,
+                     interpret=True)
+    out = DO.decode_attention(qt, kt, vt, lens, softcap=50.0)
+    _close(out, ref, atol)
+
+
+def _fake_cuda(shape):
+    return types.SimpleNamespace(shape=shape, device=torch.device("cuda"))
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("a CUDA tensor reached the plain version")
+
+
+def test_ops_send_cuda_tensors_to_the_kernels_only(monkeypatch):
+    calls = []
+    monkeypatch.setattr(FK, "flash_attention_cuda",
+                        lambda *a, **k: calls.append(("flash", k)) or "flash-out")
+    monkeypatch.setattr(DK, "decode_attention_cuda",
+                        lambda *a, **k: calls.append(("decode", k)) or "decode-out")
+    monkeypatch.setattr(FO, "flash_attention_plain", _refuse)
+    monkeypatch.setattr(FO, "attention_ref", _refuse)
+    monkeypatch.setattr(DO, "decode_attention_plain", _refuse)
+    monkeypatch.setattr(DO, "decode_ref", _refuse)
+    q = _fake_cuda((1, 4, 2, 64))
+    assert FO.flash_attention(q, q, q, window=8, softcap=5.0) == "flash-out"
+    assert DO.decode_attention(q, q, q, q) == "decode-out"
+    assert calls[0] == ("flash", {"scale": 0.125, "causal": True, "window": 8,
+                                  "softcap": 5.0})
+    assert calls[1] == ("decode", {"scale": 0.125, "softcap": 0.0})
+    # one CUDA argument among CPU ones goes to the kernel too (which refuses it)
+    cpu = torch.zeros((1, 4, 2, 64))
+    assert FO.flash_attention(cpu, q, cpu) == "flash-out"
+    assert DO.decode_attention(cpu, cpu, cpu, q) == "decode-out"
+
+
+def test_ops_refuse_other_devices():
+    q = torch.empty((1, 4, 2, 32), device="meta")
+    with pytest.raises(ValueError):
+        FO.flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        DO.decode_attention(q[:, :1], q, q, torch.ones(1, dtype=torch.int32, device="meta"))
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    q = torch.zeros((1, 4, 2, 32))
+    before = (FK.flash_attention_cuda.launches, DK.decode_attention_cuda.launches)
+    with pytest.raises(ValueError):
+        FK.flash_attention_cuda(q, q, q, scale=1.0)
+    with pytest.raises(ValueError):
+        DK.decode_attention_cuda(q[:, :1], q, q, torch.ones(1, dtype=torch.int32), scale=1.0)
+    assert (FK.flash_attention_cuda.launches, DK.decode_attention_cuda.launches) == before
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    """A compiler that fails makes the build raise, with its output."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "false")
+    with pytest.raises(RuntimeError, match="build failed"):
+        _build.build(["decode_attn", "flash_attn"])
+    assert not list(tmp_path.glob("*.so"))
+
+
+def test_failed_launch_raises():
+    lib = types.SimpleNamespace(k_error_string=lambda code: b"invalid argument")
+    _build.check(lib, "k", 0)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        _build.check(lib, "k", 1)
+
+
+@pytest.mark.parametrize("batch,hkv,s", [(4, 4, 4096), (4, 4, 4640), (1, 1, 7),
+                                         (2, 2, 300), (64, 8, 2048)])
+def test_decode_split_plan_covers_the_cache(batch, hkv, s):
+    splits, chunk = DK.split_plan(batch, hkv, s, sm_count=132)
+    assert chunk % DK.KEYS_PER_STEP == 0
+    assert (splits - 1) * chunk < s <= splits * chunk

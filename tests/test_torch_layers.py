@@ -1,0 +1,243 @@
+"""The port's layers and attention functions against the reference's.
+
+Inputs are drawn with numpy from a seed and handed to both. f32 results
+agree to 1e-5 (the same f32 arithmetic in another order); bf16 ones to one
+bf16 rounding (3e-2 at the magnitudes here). The port's attention runs the
+plain versions of its kernels here (CPU tensors).
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import reduced_config as ref_reduced_config
+from repro.models import attention as RA
+from repro.models import layers as RL
+from repro.models import model as RM
+from repro_torch.configs import reduced_config
+from repro_torch.convert import to_torch
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+CFG = reduced_config("gemma2-2b")          # window 16, softcap 50, 4q/2kv x 32
+REF_CFG = ref_reduced_config("gemma2-2b")
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _both(x, dtype="float32"):
+    return (jnp.asarray(x, dtype=getattr(jnp, dtype)),
+            torch.from_numpy(np.array(x)).to(getattr(torch, dtype)))
+
+
+def _close(port, ref, atol):
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(jnp.asarray(ref, jnp.float32)), atol=atol)
+
+
+# ------------------------------------------------------------------- layers
+@pytest.mark.parametrize("cap", [0.0, 50.0, 1.0])
+def test_softcap(cap):
+    xj, xt = _both(60 * _rng(0).standard_normal((4, 64), np.float32))
+    _close(L.softcap(xt, cap), RL.softcap(xj, cap), 1e-5)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5), ("bfloat16", 3e-2)])
+def test_rmsnorm(dtype, atol):
+    rng = _rng(1)
+    xj, xt = _both(3 * rng.standard_normal((2, 5, 128), np.float32), dtype)
+    scale = rng.standard_normal(128).astype(np.float32)
+    ref = RL.rmsnorm({"scale": jnp.asarray(scale)}, xj)
+    out = L.rmsnorm({"scale": torch.from_numpy(scale)}, xt)
+    assert out.dtype == xt.dtype
+    _close(out, ref, atol)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5), ("bfloat16", 3e-2)])
+def test_rope_prefill_and_decode_positions(dtype, atol):
+    rng = _rng(2)
+    xj, xt = _both(rng.standard_normal((2, 24, 4, 32), np.float32), dtype)
+    pos = np.arange(24)
+    _close(L.rope(xt, torch.from_numpy(pos), 10000.0),
+           RL.rope(xj, jnp.asarray(pos), 10000.0), atol)
+    # decode: one token per row at its own position, positions (B, 1)
+    pos_b = np.array([[5], [4100]])
+    _close(L.rope(xt[:, :1], torch.from_numpy(pos_b), 10000.0),
+           RL.rope(xj[:, :1], jnp.asarray(pos_b), 10000.0), atol)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5), ("bfloat16", 3e-2)])
+def test_mlp_apply_geglu(env, dtype, atol):
+    rng = _rng(3)
+    d, ff = 64, 96
+    shapes = {"w_in": (d, ff), "w_gate": (d, ff), "w_out": (ff, d)}
+    pairs = {k: _both(rng.standard_normal(s, np.float32) / 8, dtype) for k, s in shapes.items()}
+    xj, xt = _both(rng.standard_normal((2, 3, d), np.float32), dtype)
+    ref = RL.mlp_apply(env, {k: p[0] for k, p in pairs.items()}, xj, "geglu")
+    out = L.mlp_apply({k: p[1] for k, p in pairs.items()}, xt)
+    assert out.dtype == xt.dtype
+    _close(out, ref, atol)
+
+
+@pytest.mark.parametrize("dtype,d", [("float32", 128), ("bfloat16", 128), ("bfloat16", 2304)])
+@pytest.mark.parametrize("scale", [True, False])
+def test_embed_lookup(env, dtype, d, scale):
+    rng = _rng(4)
+    tj, tt = _both(rng.standard_normal((50, d), np.float32) / 8, dtype)
+    toks = rng.integers(0, 50, (2, 7))
+    ref = RL.embed_lookup(env, {"table": tj}, jnp.asarray(toks), scale)
+    out = L.embed_lookup({"table": tt}, torch.from_numpy(toks), scale)
+    assert out.dtype == tt.dtype
+    # the same bf16 product of the same rounded operands: equal bits
+    np.testing.assert_array_equal(out.float().numpy(), np.asarray(ref, np.float32))
+
+
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+def test_unembed_tied(env, cap):
+    rng = _rng(5)
+    tj, tt = _both(rng.standard_normal((512, 128), np.float32) / 4)
+    xj, xt = _both(rng.standard_normal((2, 3, 128), np.float32))
+    _close(L.unembed({"table": tt}, xt, cap=cap),
+           RL.unembed(env, {"table": tj}, xj, True, cap=cap), 1e-4)
+
+
+def test_nd_init_is_a_truncated_normal():
+    g = torch.Generator().manual_seed(0)
+    w = L.nd_init((512, 512), 256, torch.float32, g, "cpu")
+    sigma = 1 / 16
+    assert w.abs().max().item() <= 3 * sigma
+    assert abs(w.mean().item()) < 0.01 * sigma
+    # the std of N(0, 1) truncated to +-3 is 0.98659
+    assert abs(w.std().item() / sigma - 0.98659) < 0.01
+    again = L.nd_init((512, 512), 256, torch.float32,
+                      torch.Generator().manual_seed(0), "cpu")
+    assert torch.equal(w, again)
+
+
+# ---------------------------------------------------------------- attention
+@pytest.fixture(scope="module")
+def attn_params():
+    """The reference's attention init for the reduced config, both ways."""
+    import jax
+    ref = RA.attn_init(REF_CFG, jax.random.PRNGKey(7), jnp.float32)[0]
+    return ref, {k: to_torch(np.asarray(v)) for k, v in ref.items()}
+
+
+def test_project_qkv_and_output_proj(env, attn_params):
+    ref_p, port_p = attn_params
+    xj, xt = _both(_rng(6).standard_normal((2, 20, 128), np.float32))
+    pos = np.arange(20)
+    ref = RA.project_qkv(env, REF_CFG, ref_p, xj, positions=jnp.asarray(pos))
+    out = A.project_qkv(CFG, port_p, xt, positions=torch.from_numpy(pos))
+    for o, r in zip(out, ref):
+        _close(o, r, 1e-5)
+    _close(A.output_proj(port_p, out[0]),
+           RA.output_proj(env, REF_CFG, ref_p, ref[0]), 1e-5)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 2e-5), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("mask", ["causal", "local"])
+def test_attention_core(env, mask, dtype, atol):
+    """S = 40 > window 16, so "local" masks; softcap 50 is on."""
+    rng = _rng(8)
+    qj, qt = _both(rng.standard_normal((2, 40, 4, 32), np.float32), dtype)
+    kj, kt = _both(rng.standard_normal((2, 40, 2, 32), np.float32), dtype)
+    vj, vt = _both(rng.standard_normal((2, 40, 2, 32), np.float32), dtype)
+    ref = RA.attention_core(env, REF_CFG, qj, kj, vj, mask_kind=mask)
+    out = A.attention_core(CFG, qt, kt, vt, mask_kind=mask)
+    _close(out, ref, atol)
+
+
+def test_attention_core_local_differs_from_causal():
+    rng = _rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               for s in ((1, 40, 4, 32), (1, 40, 2, 32), (1, 40, 2, 32)))
+    local = A.attention_core(CFG, q, k, v, mask_kind="local")
+    causal = A.attention_core(CFG, q, k, v, mask_kind="causal")
+    assert torch.equal(local[:, :16], causal[:, :16])
+    assert (local[:, 16:] - causal[:, 16:]).abs().max() > 1e-3
+
+
+@pytest.mark.parametrize("mask", ["prefix", "full"])
+def test_attention_core_encoder_and_prefix_masks_are_not_ported(mask):
+    q = torch.zeros((1, 4, 4, 32))
+    with pytest.raises(NotImplementedError):
+        A.attention_core(CFG, q, q[:, :, :2], q[:, :, :2], mask_kind=mask)
+
+
+@pytest.mark.parametrize("s", [24, 10])
+def test_write_caches(s):
+    """A prompt longer than the 16-slot ring keeps only its tail."""
+    rng = _rng(10)
+    kj, kt = _both(rng.standard_normal((2, s, 2, 32), np.float32))
+    vj, vt = _both(rng.standard_normal((2, s, 2, 32), np.float32))
+    zeros = np.zeros((2, 16, 2, 32), np.float32)
+    ref = RA.write_ring_cache(jnp.asarray(zeros), jnp.asarray(zeros), kj, vj)
+    out = A.write_ring_cache(torch.zeros(2, 16, 2, 32), torch.zeros(2, 16, 2, 32), kt, vt)
+    for o, r in zip(out, ref):
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+    full = np.zeros((2, 40, 2, 32), np.float32)
+    ref = RA.write_full_cache(jnp.asarray(full), jnp.asarray(full), kj, vj, 0)
+    out = A.write_full_cache(torch.zeros(2, 40, 2, 32), torch.zeros(2, 40, 2, 32), kt, vt)
+    for o, r in zip(out, ref):
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("ring", [True, False])
+def test_decode_write(ring):
+    rng = _rng(11)
+    cache = rng.standard_normal((3, 16, 2, 32), np.float32)
+    kj, kt = _both(rng.standard_normal((3, 1, 2, 32), np.float32))
+    vj, vt = _both(rng.standard_normal((3, 1, 2, 32), np.float32))
+    pos = np.array([2, 15, 37] if ring else [0, 7, 15], np.int32)
+    ref = RM._decode_write_vec(jnp.asarray(cache), jnp.asarray(cache), kj, vj,
+                               jnp.asarray(pos), ring)
+    out = A.decode_write(torch.from_numpy(cache.copy()), torch.from_numpy(cache.copy()),
+                         kt, vt, torch.from_numpy(pos), ring)
+    for o, r in zip(out, ref):
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+    # the reference's one-position writer is the same with a shared pos
+    ref1 = RA.decode_write(jnp.asarray(cache), jnp.asarray(cache), kj, vj, 37, ring=True)
+    out1 = A.decode_write(torch.from_numpy(cache.copy()), torch.from_numpy(cache.copy()),
+                          kt, vt, torch.full((3,), 37), ring=True)
+    np.testing.assert_array_equal(out1[0].numpy(), np.asarray(ref1[0]))
+
+
+@pytest.mark.parametrize("cache_dtype,atol", [("float32", 2e-5), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("kind", ["ring_wrapped", "ring_filling", "global"])
+def test_decode_attend(env, kind, cache_dtype, atol):
+    """f32 queries against the cache of a local layer (a 16-slot ring,
+    filling or wrapped) or of a global layer. With a bf16
+    cache the reference rounds p to bf16 before PV and the port's kernel
+    does not; one bf16 rounding apart."""
+    rng = _rng(12)
+    slots = 16 if kind.startswith("ring") else 40
+    qj, qt = _both(rng.standard_normal((3, 1, 4, 32), np.float32))
+    kj, kt = _both(rng.standard_normal((3, slots, 2, 32), np.float32), cache_dtype)
+    vj, vt = _both(rng.standard_normal((3, slots, 2, 32), np.float32), cache_dtype)
+    pos = np.array({"ring_wrapped": [16, 29, 100], "ring_filling": [0, 7, 15],
+                    "global": [0, 20, 39]}[kind], np.int32)
+    ring, window = kind.startswith("ring"), (16 if kind.startswith("ring") else 0)
+    ref = RA.decode_attend(env, REF_CFG, qj, kj, vj, jnp.asarray(pos), ring=ring,
+                           window=window)
+    out = A.decode_attend(CFG, qt, kt, vt, torch.from_numpy(pos), ring=ring)
+    assert out.dtype == qt.dtype
+    _close(out, ref, atol)
+
+
+@pytest.mark.parametrize("ring,slots,want", [
+    (True, 16, [1, 16, 16, 16]),     # a ring of 16: filling, full, wrapped
+    (False, 40, [1, 16, 17, 31]),    # a global cache: slots 0..pos
+])
+def test_decode_lengths_are_the_filled_prefix(ring, slots, want):
+    pos = torch.tensor([0, 15, 16, 30])
+    lens = A.decode_lengths(pos, slots, ring=ring)
+    assert lens.dtype == torch.int32 and lens.tolist() == want
+
+
+def test_reduced_config_matches_reference_here():
+    assert dataclasses.asdict(CFG) == dataclasses.asdict(REF_CFG)
