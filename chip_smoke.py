@@ -8,15 +8,24 @@ Phases, each of which exits non-zero on failure:
     sources in this checkout (one nvcc each, in parallel) and print nvcc's
     -Xptxas -v report;
  2. each kernel against its plain torch version on the card, at the kernel
-    tests' grids and at the serving path's shapes, in f32 and bf16;
+    tests' grids and at the serving path's shapes, in f32 and bf16; the
+    CIAO gather (K1) exactly, at the reference's test shapes, with no
+    isolated slots, at rows the 16-byte copy does not divide, with
+    requests out of range, and at the isolation case, where isolating the
+    sweeping stream must cut the others' misses by more than 3x;
  3. reduced gemma2-2b: the port's CPU plain path against its CUDA kernel
     path, logits and greedy tokens;
  4. full-width gemma2-2b in bf16 with random weights from a seeded
     generator: 4 requests of 4608-token prompts (longer than the 4096-token
     local window), 32 greedy decode steps through ``generate``; the launch
     counts show the path went through the kernels;
- 5. kernel times at the serving path's shapes beside their bounds, the
-    plain versions and one PyTorch library call of the same function.
+ 5. the CIAO gather path at full width: the gather workload's index stream
+    (72,000 requests of 48 streams, 6 of them isolated) against a bf16 table
+    of gemma2-2b's vocab x d_model, through ``ciao_gather`` with the trace's
+    isolation bits and with none; rows byte-equal and counts equal to the
+    plain version, and the launch count shows the path went through K1;
+ 6. kernel times at the main paths' shapes beside their bounds, the plain
+    versions and one PyTorch library call of the same function.
 
 The line before the last is one JSON object of per-kernel numbers; the last
 line is {"ok": true, "device": {...}}. Without a card, or outside a checkout
@@ -93,7 +102,7 @@ def max_err(a, b) -> float:
 def build_kernels():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    built = _build.build(["decode_attn", "flash_attn"])
+    built = _build.build(["decode_attn", "flash_attn", "ciao_gather"])
     log(f"[1] kernels built in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{b.name} {b.seconds:.1f} s' for b in built.values())})")
     for b in built.values():
@@ -161,7 +170,7 @@ def check_kernels():
     from repro_torch.kernels.decode_attn import kernel as DK, ops as DO
     from repro_torch.kernels.flash_attn import kernel as FK, ops as FO
     gen = torch.Generator(device="cuda").manual_seed(1)
-    errs = {"flash_attn": {}, "decode_attn": {}}
+    errs = {"flash_attn": {}, "decode_attn": {}, "ciao_gather": {}}
     failed = []
 
     def hold(name, case, out, plain, v):
@@ -214,9 +223,98 @@ def check_kernels():
                  lambda w: DO.decode_attention_plain(dq, ck, w, lens, **args), cv)
         del q, k, v, decode
         torch.cuda.empty_cache()
+    check_gather(gen, errs["ciao_gather"], failed)
     if failed:
         fail(f"{len(failed)} kernel checks disagree with the plain versions: {failed}")
     return errs
+
+
+# (n, d, t, c_main, c_iso, dtypes): the reference's kernel tests, then no
+# isolated slots, then rows of 260, 194 and 392 bytes (4-, 2- and 8-byte
+# copy units)
+GATHER_GRID = [(500, 128, 384, 64, 16, "both"), (1000, 256, 640, 128, 32, "both"),
+               (64, 128, 130, 16, 8, "both"), (500, 128, 384, 64, 0, "both"),
+               (300, 130, 500, 16, 8, "bfloat16"), (300, 97, 500, 16, 8, "bfloat16"),
+               (300, 98, 500, 16, 8, "float32")]
+
+
+def byte_equal(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(-1).view(torch.uint8), b.contiguous().view(-1).view(torch.uint8))
+
+
+def hold_gather(case, table, idx, streams, iso, c_main, c_iso, errs, failed, want=None):
+    """K1 against its plain version on the same inputs: rows byte-equal,
+    counts equal. ``want`` overrides the plain version's (out, stats)."""
+    from repro_torch.kernels.ciao_gather import kernel as CK, ops as CO
+    out, stats = CK.ciao_gather_cuda(table, idx, streams, iso, c_main=c_main, c_iso=c_iso)
+    ref_out, ref_stats = want or CO.ciao_gather_plain(table, idx, streams, iso,
+                                                       c_main=c_main, c_iso=c_iso)
+    same_rows = byte_equal(out, ref_out)
+    same_stats = stats.shape == ref_stats.shape and bool((stats.cpu() == ref_stats.cpu()).all())
+    err = max_err(out, ref_out)
+    log(f"  ciao_gather {case}: rows byte-equal {same_rows} (max|err| {err:.3g}), "
+        f"stats equal {same_stats} ({int(stats[:, 1].sum())} misses)")
+    if not (same_rows and same_stats):
+        failed.append(f"ciao_gather {case}")
+    errs[case] = err
+    return stats
+
+
+def check_gather(gen, errs, failed):
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ciao_gather import ops as CO
+
+    def on_card(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda() for a in arrays]
+
+    for (n, d, t, c_main, c_iso, which) in GATHER_GRID:
+        for dtype in (torch.float32, torch.bfloat16):
+            if which not in ("both", str(dtype).split(".")[1]):
+                continue
+            rng = np.random.default_rng(0)     # the reference kernel test's trace
+            streams = rng.integers(0, 4, t)
+            idx = np.where(streams == 3, rng.integers(0, 8, t), rng.integers(0, n, t))
+            table = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+            hold_gather(f"{dtype} grid {(n, d, t, c_main, c_iso)}", table,
+                        *on_card(idx, streams, [0, 0, 0, 1]), c_main, c_iso, errs, failed)
+    # a view one row into the table: its base is 2-byte aligned at D = 129
+    table = torch.randn(301, 129, generator=gen, device="cuda").to(torch.bfloat16)[1:]
+    rng = np.random.default_rng(1)
+    streams, idx = rng.integers(0, 4, 500), rng.integers(0, 300, 500)
+    hold_gather("bfloat16 unaligned view (300, 129)", table,
+                *on_card(idx, streams, [0, 1, 0, 1]), 16, 8, errs, failed)
+    # requests out of range: zero rows, counted nowhere; the rest as the
+    # plain version has them without those requests
+    bad = np.zeros(500, bool)
+    bad[[3, 50, 51, 499]] = True
+    idx_bad, streams_bad = idx.copy(), streams.copy()
+    idx_bad[[3, 499]], streams_bad[[50, 51]] = [-1, 300], [4, -2]
+    i_ok, s_ok, iso = on_card(idx[~bad], streams[~bad], [0, 1, 0, 1])
+    ref_rows, ref_stats = CO.ciao_gather_plain(table, i_ok, s_ok, iso, c_main=16, c_iso=8)
+    want = torch.zeros((500, 129), dtype=table.dtype, device="cuda")
+    want[torch.from_numpy(~bad).cuda()] = ref_rows
+    hold_gather("bfloat16 requests out of range", table, *on_card(idx_bad, streams_bad),
+                iso, 16, 8, errs, failed, want=(want, ref_stats))
+    # the reference's isolation test: streams 0-2 loop over 8 private rows
+    # each, stream 3 sweeps the table
+    rng = np.random.default_rng(1)
+    n, d, t = 256, 128, 2048
+    streams = rng.integers(0, 4, t)
+    priv = (streams[:, None] * 8 + rng.integers(0, 8, (t, 1))).ravel()
+    idx = np.where(streams == 3, rng.integers(0, n, t), priv)
+    table = torch.ones(n, d, device="cuda")
+    misses = {}
+    for bit in (0, 1):
+        stats = hold_gather(f"float32 isolation case, stream 3 isolated {bool(bit)}", table,
+                            *on_card(idx, streams, [0, 0, 0, bit]), 32, 16, errs, failed)
+        misses[bit] = int(stats[:3, 1].sum())
+    log(f"  ciao_gather isolation case: streams 0-2 miss {misses[0]} times, "
+        f"{misses[1]} with stream 3 isolated (want fewer than {misses[0] / 3:.1f})")
+    if not misses[1] < misses[0] / 3:
+        failed.append("ciao_gather isolation does not protect the main partition")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -372,6 +470,55 @@ def serve_full_width(card: str):
 
 
 # ------------------------------------------------------------------ phase 5
+def gather_full_width(errs):
+    """The CIAO gather path at full width; returns its launch count and its
+    inputs, (table, indices, streams, {label: iso_map})."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ciao_gather import kernel as CK, ops as CO
+    from repro_torch.workloads import gather_index_stream
+    cfg = get_config("gemma2-2b")
+    rows, d = cfg.vocab_size, cfg.d_model
+    indices, streams, iso = gather_index_stream(0, 1.0, table_rows=rows)
+    log(f"[5] CIAO gather path: {len(indices)} requests of {len(iso)} streams "
+        f"({int(iso.sum())} isolated), {len(np.unique(indices))} distinct rows of a bf16 "
+        f"{rows} x {d} table (gemma2-2b's vocab x d_model), c_main 256, c_iso 64")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    table = torch.randn(rows, d, generator=gen, device="cuda", dtype=torch.bfloat16)
+    idx, st = (torch.from_numpy(a.astype(np.int32)).cuda() for a in (indices, streams))
+    isos = {"isolated": torch.from_numpy(iso).cuda(),
+            "not isolated": torch.zeros_like(torch.from_numpy(iso)).cuda()}
+    sync()
+    CK.ciao_gather_cuda.launches = 0
+    t0 = time.perf_counter()
+    runs = {label: CO.ciao_gather(table, idx, st, bits) for label, bits in isos.items()}
+    sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = CK.ciao_gather_cuda.launches
+    log(f"  two ciao_gather calls: {wall_ms:.2f} ms, launches {launches} (want {len(runs)})")
+    if launches != len(runs):
+        fail(f"ciao_gather launch count {launches}, want {len(runs)}")
+    regular = torch.from_numpy(iso == 0).cuda()
+    for label, (out, stats) in runs.items():
+        ref_out, ref_stats = CO.ciao_gather_plain(table, idx, st, isos[label])
+        same_rows = byte_equal(out, ref_out)
+        same_stats = stats.shape == ref_stats.shape and bool((stats == ref_stats).all())
+        errs["ciao_gather"][f"bfloat16 main {label}"] = max_err(out, ref_out)
+        log(f"  {label}: rows byte-equal to table[indices] {same_rows}, stats equal to the "
+            f"plain cache_sim_ref {same_stats}; misses regular streams "
+            f"{int(stats[regular, 1].sum())}, irregular {int(stats[~regular, 1].sum())}, "
+            f"hits {int(stats[:, 0].sum())}")
+        if not (same_rows and same_stats):
+            fail(f"the CIAO gather path ({label}) disagrees with the plain version")
+        if tuple(out.shape) != (len(indices), d) or int(stats.sum()) != len(indices):
+            fail(f"the CIAO gather path ({label}) gave out {tuple(out.shape)}, "
+                 f"{int(stats.sum())} counted requests")
+    del runs
+    return launches, (table, idx, st, isos)
+
+
+# ------------------------------------------------------------------ phase 6
 def flash_bound(q, k, v, window):
     b, s, hq, d = q.shape
     pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
@@ -421,11 +568,47 @@ def library_flash(q, k, v, window, lengths=None):
                       enable_gqa=True), lambda out: out.transpose(1, 2)
 
 
-def time_kernels(errs, launches, card):
+def gather_bound(table, idx, streams, iso):
+    """Bytes K1 must move: out written, each distinct row read once, the
+    requests, the isolation bits and the counts."""
+    import torch
+    row = table.shape[1] * table.element_size()
+    distinct = torch.unique(idx).numel()
+    return 0, (idx.numel() + distinct) * row + 4 * (idx.numel() + streams.numel()) \
+        + 4 * iso.numel() + 8 * iso.numel()
+
+
+def time_gather(table, idx, st, isos):
+    """K1 at the gather path's inputs: kernel, plain version and
+    ``torch.index_select`` (which computes out only) per call, and the
+    kernel's launches (pre-pass and gather) by device time."""
+    import torch
+    from repro_torch.kernels.ciao_gather import kernel as CK, ops as CO
+    rows = {}
+    for label, iso in isos.items():
+        def call():
+            return CK.ciao_gather_cuda(table, idx, st, iso, c_main=256, c_iso=64)
+
+        ms = cuda_ms(call, 20, warmup=2)
+        prof = device_profile(call)
+        plain = cuda_ms(lambda: CO.ciao_gather_plain(table, idx, st, iso), 1)
+        lib = cuda_ms(lambda: torch.index_select(table, 0, idx), 20, warmup=2)
+        b_ms, by = bound_ms(*gather_bound(table, idx, st, iso))
+        rows[label] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                       "bound_by": by, "profile": prof}
+        log(f"  ciao_gather {label}: kernel {ms:.4f} ms, plain {plain:.2f} ms, "
+            f"index_select (out only) {lib:.4f} ms, bound {b_ms:.4f} ms ({by}); one call "
+            f"under the profiler, device busy {prof['device_busy_ms']} ms:")
+        for name, k_ms, calls in prof["top"]:
+            log(f"    {k_ms:9.4f} ms {calls:3d}x  {name}")
+    return rows
+
+
+def time_kernels(errs, launches, card, gather):
     import torch
     from repro_torch.kernels.decode_attn import kernel as DK, ops as DO
     from repro_torch.kernels.flash_attn import kernel as FK, ops as FO
-    log("[5] kernel times at the serving path's shapes, bf16")
+    log("[6] kernel times at the main paths' shapes, bf16")
     gen = torch.Generator(device="cuda").manual_seed(2)
     (q, k, v), decode = main_path_inputs(torch.bfloat16, gen)
     rows = {"flash_attn": [], "decode_attn": []}
@@ -485,6 +668,18 @@ def time_kernels(errs, launches, card):
                                       "bound_ms": x[3], "bound_by": x[4]}
                                for kind, x in zip(("local", "global"), r)},
             "card": card})
+    g = time_gather(*gather)
+    kernels.append({
+        "name": "ciao_gather", "route": "cuda",
+        "source": "src/repro_torch/kernels/ciao_gather/csrc/ciao_gather.cu",
+        "replaces": "src/repro/kernels/ciao_gather/kernel.py:84",
+        "launches": launches["ciao_gather"], "max_abs_err": max(e for c, e in errs["ciao_gather"].items() if "bfloat16 main" in c),
+        **{key: mean([r[key] for r in g.values()])
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": "bytes",
+        "library_call": "torch.index_select(table, 0, indices): computes out only; no "
+                        "library call computes the hit and miss counts",
+        "per_call": g, "card": card})
     return kernels
 
 
@@ -507,7 +702,8 @@ def main() -> None:
     errs = check_kernels()
     check_reduced()
     launches = serve_full_width(card)
-    kernels = time_kernels(errs, launches, card)
+    launches["ciao_gather"], gather = gather_full_width(errs)
+    kernels = time_kernels(errs, launches, card, gather)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
