@@ -8,7 +8,8 @@ Phases, each of which exits non-zero on failure:
     sources in this checkout (one nvcc each, in parallel) and print nvcc's
     -Xptxas -v report;
  2. each kernel against its plain torch version on the card, at the kernel
-    tests' grids and at the serving path's shapes, in f32 and bf16; the
+    tests' grids and at the serving path's shapes, in f32 and bf16 (K3
+    also at the edges of its bf16 kernel's tiling); the
     CIAO gather (K1) exactly, at the reference's test shapes, with no
     isolated slots, at rows the 16-byte copy does not divide, with
     requests out of range, and at the isolation case, where isolating the
@@ -133,13 +134,22 @@ def demangle(symbols):
 
 
 # ------------------------------------------------------------------ phase 2
-# (b, s, hq, hkv, d, causal, window, softcap): the kernel tests' grid, then
-# gemma2-2b's heads (G = 2, D = 256) with a window and at a ragged length
+# (b, sq, skv, hq, hkv, d, causal, window, softcap): the kernel tests' grid;
+# gemma2-2b's heads (G = 2, D = 256) with a window and at a ragged length;
+# then the edges of the bf16 kernel's tiling (128 query rows a block, 64
+# keys a tile) at D = 256: one query row, 63, 129 (past one block), a window
+# of 100 (not a multiple of the tile), a window at least as long as Sq,
+# non-causal with Skv != Sq and both ragged; and D = 32 (the 64-byte
+# swizzle) with a softcap at ragged lengths
 FLASH_GRID = [
-    (1, 128, 2, 2, 64, True, 0, 0.0), (2, 256, 4, 2, 64, True, 0, 0.0),
-    (1, 128, 8, 1, 32, True, 64, 50.0), (2, 192, 4, 4, 128, True, 0, 0.0),
-    (1, 128, 2, 2, 64, False, 0, 0.0),
-    (1, 256, 8, 4, 256, True, 64, 50.0), (2, 200, 8, 4, 256, True, 0, 50.0)]
+    (1, 128, 128, 2, 2, 64, True, 0, 0.0), (2, 256, 256, 4, 2, 64, True, 0, 0.0),
+    (1, 128, 128, 8, 1, 32, True, 64, 50.0), (2, 192, 192, 4, 4, 128, True, 0, 0.0),
+    (1, 128, 128, 2, 2, 64, False, 0, 0.0),
+    (1, 256, 256, 8, 4, 256, True, 64, 50.0), (2, 200, 200, 8, 4, 256, True, 0, 50.0),
+    (2, 1, 1, 8, 4, 256, True, 0, 50.0), (1, 63, 63, 8, 4, 256, True, 0, 50.0),
+    (2, 129, 129, 8, 4, 256, True, 0, 50.0), (1, 300, 300, 8, 4, 256, True, 100, 50.0),
+    (1, 200, 200, 8, 4, 256, True, 256, 50.0), (2, 100, 177, 8, 4, 256, False, 0, 50.0),
+    (2, 150, 150, 4, 2, 32, True, 0, 30.0)]
 DECODE_GRID = [(2, 256, 4, 2, 64), (3, 512, 4, 4, 128), (1, 300, 8, 2, 32),
                (2, 700, 8, 4, 256)]
 SCALE = 256 ** -0.5
@@ -191,12 +201,13 @@ def check_kernels():
 
     log("[2] kernels against their plain versions on the card")
     for dtype in (torch.float32, torch.bfloat16):
-        for (b, s, hq, hkv, d, causal, window, cap) in FLASH_GRID:
-            q = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dtype)
-            k = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dtype)
-            v = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dtype)
+        for case in FLASH_GRID:
+            b, sq, skv, hq, hkv, d, causal, window, cap = case
+            q = torch.randn(b, sq, hq, d, generator=gen, device="cuda").to(dtype)
+            k = torch.randn(b, skv, hkv, d, generator=gen, device="cuda").to(dtype)
+            v = torch.randn(b, skv, hkv, d, generator=gen, device="cuda").to(dtype)
             args = dict(scale=d ** -0.5, causal=causal, window=window, softcap=cap)
-            hold("flash_attn", f"{dtype} grid {(b, s, hq, hkv, d, causal, window, cap)}",
+            hold("flash_attn", f"{dtype} grid {case}",
                  FK.flash_attention_cuda(q, k, v, **args),
                  lambda w: FO.flash_attention_plain(q, k, w, **args), v)
         kv_dtypes = (torch.float32, torch.bfloat16) if dtype == torch.float32 else (dtype,)

@@ -9,29 +9,49 @@
 // outside the window, a block here runs its KV loop only over [lo, hi).
 // GQA is an index map (q head h reads kv head h / (Hq/Hkv)); no repeated
 // copy of K or V is built, and no padded copy either: rows past Sq or Skv
-// are zero-filled in shared memory.
+// arrive as zeros in shared memory.
 //
-// Bound: operations. At gemma2-2b's prefill (S = 4608, D = 256) a (q, k)
-// pair costs 4*D operations against a few bytes of input, so the tensor
-// cores are the ceiling. Two kernels:
-//  * bf16: flash_mma_kernel runs both products on the tensor cores with
-//    mma.sync m16n8k16 (bf16 in, f32 accumulate). A block of 4 warps owns
-//    64 query rows (16 a warp) and streams 64-key K/V tiles through shared
-//    memory; rows are padded by 8 elements so the fragment loads are free
-//    of bank conflicts. P is rounded to bf16 for the PV product, as the
-//    reference's attention_core rounds p to V's dtype. The running max and
-//    sum stay in f32 registers; the (16 x D) f32 accumulator is D/2
-//    registers a thread (128 at D = 256), which is why a warp owns only 16
-//    rows and the block is launched with one block's registers per SM in
-//    mind (__launch_bounds__(128, 1)).
+// Two kernels, chosen by dtype:
+//  * bf16: flash_wgmma_kernel, for the serving path. Two bounds at
+//    gemma2-2b's prefill (S = 4608, D = 256, softcap 50). The tensor cores:
+//    a (q, k) pair costs 4*D operations against a few bytes of input. And
+//    the special-function units under the softcap: a score costs an ex2
+//    and a rcp for the tanh (tanh.approx.f32 is too coarse at a cap of
+//    50) and an ex2 for the softmax, 3 of the SM's 16 a clock, about 3/4 of
+//    the tensor-core time. So the softmax has to run beside the products,
+//    not after them. The design:
+//    - a block owns 128 query rows of one (batch, q head); one producer
+//      warp streams 64-key K and V tiles with TMA (4-D tensor maps over
+//      (D, H, S, B), 128-byte swizzle, boxes of 64 columns) into a ring of
+//      2 stages behind full/empty mbarriers, K of the next tile ahead of V
+//      of this one;
+//    - two consumer warpgroups (64 rows each, 240 registers a thread after
+//      setmaxnreg; the producer's warpgroup keeps 24) run S = Q K^T as
+//      wgmma m64n64k16 from shared memory and O += P V as m64nDk16 with P
+//      from registers (the S accumulator is the A fragment) and V
+//      MN-major;
+//    - step i issues S_i and P_{i-1} V_{i-1} together and runs the softmax
+//      of S_i while the PV product is in flight; the two warpgroups take
+//      turns to issue (named barriers), so one's softmax overlaps the
+//      other's products;
+//    - scale*log2e is folded into the exponent (ex2), only tiles that
+//      cross the diagonal, the window's edge or Skv apply the mask, and O
+//      is rescaled only when a row's maximum grows by more than 2^8;
+//    - the blocks late in the sequence, which have the most tiles, launch
+//      first.
+//    P is rounded to bf16 for the PV product, as the reference's
+//    attention_core rounds p to V's dtype. On an H100 the products alone
+//    run at ~89% of the tensor-core rate; what holds the kernel near half
+//    its bound is the softmax, which runs at about half speed beside the
+//    other warpgroup's products (PERF.md).
 //  * f32: flash_f32_kernel keeps f32 end to end (TF32 would miss the f32
 //    tolerance of 2e-5). A lane scores one key of a 32-key tile against 8
 //    query rows with float4 reads of shared memory, and the PV product
 //    broadcasts p across the warp with shuffles. It runs on the CUDA
 //    cores, far from the tensor-core bound; it serves f32 checks, not the
 //    bf16 serving path.
-// Simple and synchronous: no cp.async or TMA pipelining and no wgmma yet.
 
+#include <cuda.h>   // CUtensorMap and its enums; the driver call is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,9 +60,6 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;  // 4 warps
-
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -197,21 +214,128 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // --------------------------------------------------------------- bf16 path
-constexpr int kMmaBQ = 64;  // query rows a block, 16 a warp
-constexpr int kMmaBK = 64;  // keys a tile
+constexpr int kBQ = 128;          // query rows a block
+constexpr int kWgRows = 64;       // query rows a consumer warpgroup
+constexpr int kBK = 64;           // keys a tile
+constexpr int kStages = 2;        // K and V ring stages
+constexpr int kWgmmaThreads = 3 * 128;   // producer warpgroup + 2 consumer warpgroups
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kRegrow = 8.f;    // log2 units a row maximum may grow before O is rescaled
 
+// Shared-memory image of a 64-row tile of D bf16 columns, as the TMA box
+// writes it: D is cut into chunks of CW columns (64, or 32 at D = 32), a
+// chunk holds 64 rows of CW*2 bytes, swizzled at that width (128 or 64
+// bytes). That is the canonical swizzled layout of wgmma's operands: K-major
+// for Q and K (the reduction dimension D runs along a row), MN-major for V
+// in the PV product (its N dimension D runs along a row).
 template <int D>
-constexpr size_t mma_smem_bytes() {
-  return (size_t)3 * 64 * (D + 8) * sizeof(__nv_bfloat16);
+struct Tile {
+  static constexpr int CW = D < 64 ? D : 64;
+  static constexpr int NCH = D / CW;
+  static constexpr int ROW_B = CW * 2;
+  static constexpr int CHUNK_B = kBK * ROW_B;
+  static constexpr int BYTES = NCH * CHUNK_B;
+  static constexpr uint64_t LAYOUT = ROW_B == 128 ? 1 : 2;   // descriptor: B128 or B64
+  // Q (two warpgroups' rows), the K and V rings, 9 mbarriers, and the slack
+  // to align the base to the swizzle pattern's 1024 bytes.
+  static constexpr size_t SMEM = 1024 + (size_t)(2 + 2 * kStages) * BYTES + 128;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete. A wait that lasts
+// ~10 s of SM clocks traps, so a broken pipeline fails its launch instead
+// of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > 20000000000LL) {
+      __trap();
+    }
+  }
+}
+
+// One box (CW columns x 1 head x 64 rows x 1 batch) of a 4-D map over
+// (D, H, S, B); rows past S arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// Named barriers 1 and 2 pass the right to issue wgmma between the two
+// consumer warpgroups (256 threads: one side syncs, the other arrives).
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// wgmma writes its accumulators and reads its register operand after the
+// issuing instruction has retired. These empty statements pin each register
+// after the wait, so the compiler neither reads an accumulator early nor
+// reuses an operand's register while the product is in flight.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -219,154 +343,432 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&t);
 }
 
-// Copy `rows` rows of D bf16 from global (row stride `stride` elements,
-// rows at or past `valid` zero-filled) into shared memory with pitch P.
-template <int D, int P>
-__device__ __forceinline__ void tile_to_smem(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                             size_t stride, int rows, int valid) {
-  constexpr int VPR = D / 8;  // 16-byte vectors a row
-  for (int i = threadIdx.x; i < rows * VPR; i += kThreads) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 t = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) t = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * P + c) = t;
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle mode.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
+}
+
+// m64nNk16, bf16 in, f32 accumulate. wgmma_ss: A and B from shared memory,
+// both K-major. wgmma_rs: A from registers, B from shared memory MN-major
+// (the transpose bit), always accumulating.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// S = Q K^T over D: D/16 k-steps of m64n64k16, one commit group.
+template <int D>
+__device__ __forceinline__ void gemm_qk(float (&s)[32], uint32_t q, uint32_t k) {
+  using T = Tile<D>;
+  constexpr int KS = T::CW / 16;   // k-steps a chunk
+  const uint64_t dq = smem_desc(q, 16, 8 * T::ROW_B, T::LAYOUT);
+  const uint64_t dk = smem_desc(k, 16, 8 * T::ROW_B, T::LAYOUT);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = ((kk / KS) * T::CHUNK_B + (kk % KS) * 32) >> 4;
+    wgmma_ss(s, dq + off, dk + off, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V over the tile's 64 keys: 4 k-steps of m64nDk16, P from
+// registers, V MN-major (leading offset: the next chunk of D; stride
+// offset: the next 8 keys), one commit group.
+template <int D>
+__device__ __forceinline__ void gemm_pv(float (&o)[D / 2], const uint32_t (&p)[4][4], uint32_t v) {
+  using T = Tile<D>;
+  const uint64_t dv = smem_desc(v, T::CHUNK_B, 8 * T::ROW_B, T::LAYOUT);
+#pragma unroll
+  for (int ks = 0; ks < kBK / 16; ++ks) wgmma_rs(o, p[ks], dv + ((ks * 16 * T::ROW_B) >> 4));
+  wgmma_commit();
+}
+
+// Scores of one tile in log2 units, then the online softmax of this
+// thread's two rows (ra and ra + 8; columns 8j + c0 + {0, 1} in s[4j..4j+3]).
+// CAP: x = cap * tanh(dot * scale / cap) as cap - 2 cap / (e^{2 dot scale/cap} + 1),
+// one ex2 and one rcp; mul = 2 log2e scale / cap and cap2 = cap log2e.
+// Otherwise x = dot * mul with mul = scale log2e. MASK: scores of keys past
+// Skv, above the diagonal or outside the window become -1e30. A row keeps
+// its reference maximum m until the tile's maximum exceeds it by more than
+// kRegrow (then corr takes the old sums to the new m; else corr = 1 and the
+// O rescale is skipped): p = 2^(x - m) stays below 2^kRegrow, which f32 sums
+// and bf16 p hold with the same relative precision, and O / l is unchanged.
+// On return s holds p and psum this thread's share of the row sums.
+template <bool CAP, bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float mul, float cap2, int kt, int c0,
+                                             int ra, int Skv, int causal, int window, float (&m)[2],
+                                             float (&corr)[2], float (&psum)[2]) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    float x = s[i];
+    if (CAP) {
+      x = fmaf(-2.f * cap2, rcp(ex2(x * mul) + 1.f), cap2);
+    } else {
+      x *= mul;
+    }
+    if (MASK) {
+      const int kpos = kt + (i / 4) * 8 + c0 + (i & 1), qpos = ra + ((i >> 1) & 1) * 8;
+      bool valid = kpos < Skv;
+      if (causal) valid = valid && kpos <= qpos && (window == 0 || qpos - kpos < window);
+      x = valid ? x : kNegInf;
+    }
+    s[i] = x;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const bool grow = mx[r] - m[r] > kRegrow;
+    corr[r] = grow ? ex2(m[r] - mx[r]) : 1.f;
+    m[r] = grow ? mx[r] : m[r];
+    psum[r] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = ex2(s[i] - m[r]);
+    psum[r] += s[i];
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq,
-                 int Skv, int Hq, int Hkv, float scale, float softcap, int causal, int window) {
-  constexpr int P = D + 8;    // row pitch (elements): conflict-free fragment loads
-  constexpr int ND = D / 8;   // n-tiles of the output
-  constexpr int NK = kMmaBK / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][P]
-  __nv_bfloat16* Ks = Qs + kMmaBQ * P;                               // [64][P]
-  __nv_bfloat16* Vs = Ks + kMmaBK * P;                               // [64][P]
-  const uint16_t* Vraw = reinterpret_cast<const uint16_t*>(Vs);
+template <bool CAP>
+__device__ __forceinline__ void softmax_tile(bool mask, float (&s)[32], float mul, float cap2,
+                                             int kt, int c0, int ra, int Skv, int causal,
+                                             int window, float (&m)[2], float (&corr)[2],
+                                             float (&psum)[2]) {
+  if (mask)
+    softmax_tile<CAP, true>(s, mul, cap2, kt, c0, ra, Skv, causal, window, m, corr, psum);
+  else
+    softmax_tile<CAP, false>(s, mul, cap2, kt, c0, ra, Skv, causal, window, m, corr, psum);
+}
 
-  const int q_start = blockIdx.x * kMmaBQ;
-  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq, kvh = h / (Hq / Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t q_row = (size_t)Hq * D, kv_row = (size_t)Hkv * D;
-  const __nv_bfloat16* kb = k + ((size_t)b * Skv * Hkv + kvh) * D;
-  const __nv_bfloat16* vb = v + ((size_t)b * Skv * Hkv + kvh) * D;
+// p of the tile as the bf16 A operand of the PV product: the accumulator
+// layout of S is the A fragment layout, keys 16ks.. in p[ks].
+__device__ __forceinline__ void to_p(const float (&s)[32], uint32_t (&p)[4][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[ks][j] = pack_bf16(s[8 * ks + 2 * j], s[8 * ks + 2 * j + 1]);
+}
 
-  tile_to_smem<D, P>(Qs, q + (((size_t)b * Sq + q_start) * Hq + h) * D, q_row, kMmaBQ,
-                     Sq - q_start);
-  const int q_end = min(q_start + kMmaBQ, Sq);
+// One block: 128 query rows of one (batch, q head). Warpgroup 0 is the
+// producer (one thread issues every TMA load); warpgroups 1 and 2 are the
+// consumers, 64 rows each. Tiles run from the block's last KV tile down to
+// its first, so the tiles that cross the diagonal come first.
+template <int D, bool CAP>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                   int Sq, int Skv, int Hq, int Hkv, float mul, float cap2, int causal,
+                   int window) {
+  using T = Tile<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sK = sQ + 2 * T::BYTES, sV = sK + kStages * T::BYTES;
+  const uint32_t bars = sV + kStages * T::BYTES;
+  const uint32_t barQ = bars;
+  auto full_k = [&](int s) { return bars + 8u * (1 + s); };
+  auto full_v = [&](int s) { return bars + 8u * (3 + s); };
+  auto empty_k = [&](int s) { return bars + 8u * (5 + s); };
+  auto empty_v = [&](int s) { return bars + 8u * (7 + s); };
+
+  const int b = blockIdx.x / Hq, h = blockIdx.x % Hq, kvh = h / (Hq / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // the longest causal blocks first
   int lo, hi;
-  kv_range(q_start, q_end, Skv, causal, window, kMmaBK, lo, hi);
+  kv_range(q0, min(q0 + kBQ, Sq), Skv, causal, window, kBK, lo, hi);
+  const int n = (hi - lo + kBK - 1) / kBK;             // tiles; tile i starts at key kt(i)
+  const int last = lo + (n - 1) * kBK;
+  auto kt = [&](int i) { return last - i * kBK; };
 
-  // This thread's rows: r0 = warp*16 + g and r1 = r0 + 8 of the tile.
-  const int qpos0 = q_start + warp * 16 + g, qpos1 = qpos0 + 8;
-  const __nv_bfloat16* qa0 = Qs + (warp * 16 + g) * P + t * 2;
-  const __nv_bfloat16* qa1 = qa0 + 8 * P;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: this thread's partial sums
-  float oacc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(barQ, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 2);   // one arrival from each consumer warpgroup
+      mbar_init(empty_v(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int kt = lo; kt < hi; kt += kMmaBK) {
-    __syncthreads();
-    tile_to_smem<D, P>(Ks, kb + (size_t)kt * kv_row, kv_row, kMmaBK, Skv - kt);
-    tile_to_smem<D, P>(Vs, vb + (size_t)kt * kv_row, kv_row, kMmaBK, Skv - kt);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
-    float sc[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < D; kk += 16) {
-      const uint32_t a0 = *reinterpret_cast<const uint32_t*>(qa0 + kk);
-      const uint32_t a1 = *reinterpret_cast<const uint32_t*>(qa1 + kk);
-      const uint32_t a2 = *reinterpret_cast<const uint32_t*>(qa0 + kk + 8);
-      const uint32_t a3 = *reinterpret_cast<const uint32_t*>(qa1 + kk + 8);
-#pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        const __nv_bfloat16* kp = Ks + (n * 8 + g) * P + kk + t * 2;
-        mma_bf16(sc[n], a0, a1, a2, a3, *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: K of tile i+1 goes out before V of tile i, which the
+    // consumers need one step later.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0 && n > 0) {
+      mbar_expect_tx(barQ, 2 * T::BYTES);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < T::NCH; ++c)
+          tma_load(sQ + w * T::BYTES + c * T::CHUNK_B, &tm_q, barQ, c * T::CW, h,
+                   q0 + kWgRows * w, b);
+      auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full, uint32_t empty,
+                      int i) {
+        mbar_wait(empty, ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full, T::BYTES);
+        const uint32_t dst = ring + (i % kStages) * T::BYTES;
+        for (int c = 0; c < T::NCH; ++c)
+          tma_load(dst + c * T::CHUNK_B, map, full, c * T::CW, kvh, kt(i), b);
+      };
+      load(&tm_k, sK, full_k(0), empty_k(0), 0);
+      for (int i = 0; i < n; ++i) {
+        if (i + 1 < n)
+          load(&tm_k, sK, full_k((i + 1) % kStages), empty_k((i + 1) % kStages), i + 1);
+        load(&tm_v, sV, full_v(i % kStages), empty_v(i % kStages), i);
       }
     }
+  } else {
+    // ---- consumers. Step i issues S_i = Q K_i^T and O += P_{i-1} V_{i-1}
+    // together, then runs the softmax of S_i while the PV product is in
+    // flight, then rescales O. The two warpgroups take turns to issue
+    // (named barriers 1 and 2), so one's softmax overlaps the other's
+    // products.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = wg - 1, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int c0 = 2 * (lane % 4);
+    const int rmin = q0 + kWgRows * cw, ra = rmin + 16 * warp + lane / 4;
+    const uint32_t sQw = sQ + cw * T::BYTES;
+    // Tiles that need no mask: every key before Skv, at or below the
+    // diagonal of every row of this warpgroup, and inside its window.
+    auto masked = [&](int k0) {
+      return k0 + kBK > Skv ||
+             (causal &&
+              (k0 + kBK - 1 > rmin || (window > 0 && rmin + kWgRows - 1 - k0 >= window)));
+    };
+    float acc[D / 2], s[32], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2], psum[2];
+    uint32_t p[4][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-    // Scale, softcap, mask; online softmax on rows r0 (elements 0,1) and
-    // r1 (elements 2,3). The 4 lanes of a quad share a row.
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-      const int kpos = kt + n * 8 + t * 2;
-      sc[n][0] = masked_score(sc[n][0], scale, softcap, qpos0, kpos, Skv, causal, window);
-      sc[n][1] = masked_score(sc[n][1], scale, softcap, qpos0, kpos + 1, Skv, causal, window);
-      sc[n][2] = masked_score(sc[n][2], scale, softcap, qpos1, kpos, Skv, causal, window);
-      sc[n][3] = masked_score(sc[n][3], scale, softcap, qpos1, kpos + 1, Skv, causal, window);
-      mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float c0 = expf(m0 - mx0), c1 = expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-      sc[n][0] = expf(sc[n][0] - m0);
-      sc[n][1] = expf(sc[n][1] - m0);
-      sc[n][2] = expf(sc[n][2] - m1);
-      sc[n][3] = expf(sc[n][3] - m1);
-      ps0 += sc[n][0] + sc[n][1];
-      ps1 += sc[n][2] + sc[n][3];
-    }
-    l0 = l0 * c0 + ps0;
-    l1 = l1 * c1 + ps1;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      oacc[n][0] *= c0;
-      oacc[n][1] *= c0;
-      oacc[n][2] *= c1;
-      oacc[n][3] *= c1;
-    }
+    if (n > 0) {
+      if (cw == 1) named_arrive(1);   // warpgroup 0 issues first
+      mbar_wait(barQ, 0);
+      mbar_wait(full_k(0), 0);
+      named_sync(1 + cw);
+      wgmma_fence();
+      gemm_qk<D>(s, sQw, sK);
+      named_arrive(2 - cw);
+      wgmma_wait<0>();
+      pin(s);
+      if (tid == 0) mbar_arrive(empty_k(0));
+      softmax_tile<CAP>(masked(kt(0)), s, mul, cap2, kt(0), c0, ra, Skv, causal, window, m, corr,
+                        psum);
+      l[0] = psum[0];
+      l[1] = psum[1];
+      to_p(s, p);
 
-    // O += P V. P's accumulator fragments are the A fragments of the next
-    // product: keys ks*16 .. ks*16+15 are n-tiles 2ks and 2ks+1.
+      for (int i = 1; i < n; ++i) {
+        const int sk = i % kStages, sv = (i - 1) % kStages;
+        mbar_wait(full_k(sk), (i / kStages) & 1);
+        mbar_wait(full_v(sv), ((i - 1) / kStages) & 1);
+        named_sync(1 + cw);
+        wgmma_fence();
+        gemm_qk<D>(s, sQw, sK + sk * T::BYTES);
+        gemm_pv<D>(acc, p, sV + sv * T::BYTES);
+        named_arrive(2 - cw);
+        wgmma_wait<1>();
+        pin(s);
+        if (tid == 0) mbar_arrive(empty_k(sk));
+        softmax_tile<CAP>(masked(kt(i)), s, mul, cap2, kt(i), c0, ra, Skv, causal, window, m,
+                          corr, psum);
+        wgmma_wait<0>();
+        pin(acc);
+        pin(p);
+        if (tid == 0) mbar_arrive(empty_v(sv));
+        if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-    for (int ks = 0; ks < kMmaBK / 16; ++ks) {
-      const uint32_t a0 = pack_bf16(sc[2 * ks][0], sc[2 * ks][1]);
-      const uint32_t a1 = pack_bf16(sc[2 * ks][2], sc[2 * ks][3]);
-      const uint32_t a2 = pack_bf16(sc[2 * ks + 1][0], sc[2 * ks + 1][1]);
-      const uint32_t a3 = pack_bf16(sc[2 * ks + 1][2], sc[2 * ks + 1][3]);
-      const uint16_t* v0 = Vraw + (ks * 16 + t * 2) * P + g;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const uint16_t* vp = v0 + n * 8;
-        const uint32_t b0 = (uint32_t)vp[0] | ((uint32_t)vp[P] << 16);
-        const uint32_t b1 = (uint32_t)vp[8 * P] | ((uint32_t)vp[9 * P] << 16);
-        mma_bf16(oacc[n], a0, a1, a2, a3, b0, b1);
+          for (int j = 0; j < D / 2; ++j) acc[j] *= corr[(j >> 1) & 1];
+        }
+        l[0] = l[0] * corr[0] + psum[0];
+        l[1] = l[1] * corr[1] + psum[1];
+        to_p(s, p);
       }
+
+      const int sv = (n - 1) % kStages;
+      mbar_wait(full_v(sv), ((n - 1) / kStages) & 1);
+      named_sync(1 + cw);
+      wgmma_fence();
+      gemm_pv<D>(acc, p, sV + sv * T::BYTES);
+      if (cw == 0) named_arrive(2);   // warpgroup 1 has no step left to pass the turn to
+      wgmma_wait<0>();
+      pin(acc);
+      pin(p);
+    }
+
+    // Epilogue: the rows' sums over the quad, O / l rounded to bf16, rows
+    // past Sq not stored.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = 1.f / fmaxf(l[r], 1e-30f);
+    }
+    const size_t q_row = (size_t)Hq * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = ra + 8 * r;
+      if (qpos >= Sq) continue;
+      __nv_bfloat16* op = o + ((size_t)b * Sq + qpos) * q_row + (size_t)h * D + c0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(op + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * r] * l[r], acc[4 * j + 2 * r + 1] * l[r]);
     }
   }
+}
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float L0 = fmaxf(l0, 1e-30f), L1 = fmaxf(l1, 1e-30f);
-  __nv_bfloat16* o0 = o + ((size_t)b * Sq + qpos0) * q_row + (size_t)h * D + t * 2;
-  __nv_bfloat16* o1 = o0 + 8 * q_row;
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    if (qpos0 < Sq)
-      *reinterpret_cast<uint32_t*>(o0 + n * 8) = pack_bf16(oacc[n][0] / L0, oacc[n][1] / L0);
-    if (qpos1 < Sq)
-      *reinterpret_cast<uint32_t*>(o1 + n * 8) = pack_bf16(oacc[n][2] / L1, oacc[n][3] / L1);
+// cuTensorMapEncodeTiled from the driver, fetched through the runtime so
+// that the library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiledFn* out) {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
   }
+  *out = fn;
+  return cudaSuccess;
+}
+
+// A 4-D map over a (B, S, H, D) bf16 tensor, innermost first, with a box of
+// CW columns of one head and 64 rows, swizzled as Tile<D> lays it out.
+// Rows past S read as zeros; the next sequence is never read.
+template <int D>
+cudaError_t tensor_map(CUtensorMap* map, EncodeTiledFn encode, const void* ptr, int B, int S,
+                       int H) {
+  using T = Tile<D>;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)T::CW, 1, (cuuint32_t)kBK, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      T::ROW_B == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int D>
@@ -384,20 +786,37 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                       int Skv, int Hq, int Hkv, float scale, float softcap, int causal,
-                       int window, cudaStream_t st) {
-  constexpr size_t smem = mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_mma_kernel<D>,
+template <int D, bool CAP>
+cudaError_t launch_wgmma_cap(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                             void* o, int B, int Sq, int Skv, int Hq, int Hkv, float mul,
+                             float cap2, int causal, int window, cudaStream_t st) {
+  constexpr size_t smem = Tile<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D, CAP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kMmaBQ - 1) / kMmaBQ, B * Hq);
-  flash_mma_kernel<D><<<grid, kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hkv,
-      scale, softcap, causal, window);
+  const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
+  flash_wgmma_kernel<D, CAP><<<grid, kWgmmaThreads, smem, st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hkv, mul, cap2, causal, window);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                         int Skv, int Hq, int Hkv, float scale, float softcap, int causal,
+                         int window, cudaStream_t st) {
+  EncodeTiledFn encode;
+  cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if ((err = tensor_map<D>(&tq, encode, q, B, Sq, Hq)) != cudaSuccess) return err;
+  if ((err = tensor_map<D>(&tk, encode, k, B, Skv, Hkv)) != cudaSuccess) return err;
+  if ((err = tensor_map<D>(&tv, encode, v, B, Skv, Hkv)) != cudaSuccess) return err;
+  if (softcap != 0.f)
+    return launch_wgmma_cap<D, true>(tq, tk, tv, o, B, Sq, Skv, Hq, Hkv,
+                                     2.f * kLog2e * scale / softcap, softcap * kLog2e, causal,
+                                     window, st);
+  return launch_wgmma_cap<D, false>(tq, tk, tv, o, B, Sq, Skv, Hq, Hkv, scale * kLog2e, 0.f,
+                                    causal, window, st);
 }
 
 }  // namespace
@@ -422,10 +841,10 @@ int flash_attn_launch(const void* q, const void* k, const void* v, void* o, int 
     }
   } else if (dtype == 1) {
     switch (D) {
-      case 32: return launch_mma<32>(FLASH_ARGS);
-      case 64: return launch_mma<64>(FLASH_ARGS);
-      case 128: return launch_mma<128>(FLASH_ARGS);
-      case 256: return launch_mma<256>(FLASH_ARGS);
+      case 32: return launch_wgmma<32>(FLASH_ARGS);
+      case 64: return launch_wgmma<64>(FLASH_ARGS);
+      case 128: return launch_wgmma<128>(FLASH_ARGS);
+      case 256: return launch_wgmma<256>(FLASH_ARGS);
     }
   }
 #undef FLASH_ARGS

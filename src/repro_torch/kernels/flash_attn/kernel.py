@@ -14,6 +14,39 @@ from repro_torch.kernels import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
+# The bf16 kernel's tiles: a block takes BLOCK_Q query rows, WG_ROWS to a
+# consumer warpgroup, and walks its keys in tiles of BLOCK_K.
+BLOCK_Q, WG_ROWS, BLOCK_K = 128, 64, 64
+
+
+def tile_plan(sq: int, skv: int, causal: bool = True, window: int = 0):
+    """The bf16 kernel's schedule for one (batch, q head), as
+    ``flash_wgmma_kernel`` computes it on the card: blocks in launch order
+    (the last q-block first), and for each consumer warpgroup its first row
+    and its KV tiles in the order it runs them (the last tile first), each
+    as (first key, masked). A tile is unmasked only when every key in it is
+    before ``skv``, at or below the diagonal of every row of the
+    warpgroup, and inside its window. Returns
+    ``[(q0, [(row0, [(k0, masked), ...]), ...]), ...]``."""
+    window = window if causal else 0
+    plan = []
+    for q0 in reversed(range(0, sq, BLOCK_Q)):
+        lo, hi = 0, skv
+        if causal:
+            hi = min(skv, q0 + BLOCK_Q, sq)
+            if window > 0:
+                lo = max(0, q0 - window + 1)
+        lo -= lo % BLOCK_K
+        starts = list(reversed(range(lo, hi, BLOCK_K)))
+        wgs = []
+        for row0 in (q0, q0 + WG_ROWS):
+            def masked(k0):
+                return (k0 + BLOCK_K > skv or causal and (
+                    k0 + BLOCK_K - 1 > row0
+                    or window > 0 and row0 + WG_ROWS - 1 - k0 >= window))
+            wgs.append((row0, [(k0, masked(k0)) for k0 in starts]))
+        plan.append((q0, wgs))
+    return plan
 
 
 @functools.cache
