@@ -8,12 +8,14 @@ Phases, each of which exits non-zero on failure:
     sources in this checkout (one nvcc each, in parallel) and print nvcc's
     -Xptxas -v report;
  2. each kernel against its plain torch version on the card, at the kernel
-    tests' grids and at the serving path's shapes, in f32 and bf16 (K3
-    also at the edges of its bf16 kernel's tiling); the
+    tests' grids and at the serving path's shapes, in f32 and bf16 (K3 and
+    K2 also at the edges of their bf16 kernels' tiling and splits); the
     CIAO gather (K1) exactly, at the reference's test shapes, with no
-    isolated slots, at rows the 16-byte copy does not divide, with
-    requests out of range, and at the isolation case, where isolating the
-    sweeping stream must cut the others' misses by more than 3x;
+    isolated slots, at rows the 16-byte copy does not divide, at traces of
+    one repeated index, of misses only and of runs longer than a warp's
+    batch, with requests out of range, and at the isolation case, where
+    isolating the sweeping stream must cut the others' misses by more than
+    3x;
  3. reduced gemma2-2b: the port's CPU plain path against its CUDA kernel
     path, logits and greedy tokens;
  4. full-width gemma2-2b in bf16 with random weights from a seeded
@@ -25,8 +27,11 @@ Phases, each of which exits non-zero on failure:
     of gemma2-2b's vocab x d_model, through ``ciao_gather`` with the trace's
     isolation bits and with none; rows byte-equal and counts equal to the
     plain version, and the launch count shows the path went through K1;
- 6. kernel times at the main paths' shapes beside their bounds, the plain
-    versions and one PyTorch library call of the same function.
+ 6. kernel times at the main paths' shapes (CUDA events around back-to-back
+    calls) beside their bounds, the plain versions and one PyTorch library
+    call of the same function, with the device time of K1's and K2's
+    launches under the profiler, and K2's time over a CUDA graph of 100
+    calls (``device_ms``: without the host's launch cost).
 
 The line before the last is one JSON object of per-kernel numbers; the last
 line is {"ok": true, "device": {...}}. Without a card, or outside a checkout
@@ -95,6 +100,27 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int, reps: int = 3) -> float:
+    """Mean device time of ``fn()`` over ``iters`` calls captured in one CUDA
+    graph and replayed ``reps`` times: the host's cost of a launch drops out,
+    which ``cuda_ms`` includes wherever it exceeds a short kernel's own time."""
+    import torch
+    fn()                                  # build, load and allocate outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
@@ -150,8 +176,18 @@ FLASH_GRID = [
     (2, 129, 129, 8, 4, 256, True, 0, 50.0), (1, 300, 300, 8, 4, 256, True, 100, 50.0),
     (1, 200, 200, 8, 4, 256, True, 256, 50.0), (2, 100, 177, 8, 4, 256, False, 0, 50.0),
     (2, 150, 150, 4, 2, 32, True, 0, 30.0)]
-DECODE_GRID = [(2, 256, 4, 2, 64), (3, 512, 4, 4, 128), (1, 300, 8, 2, 32),
-               (2, 700, 8, 4, 256)]
+# (b, s, hq, hkv, d, lengths or None for random ones): the kernel tests'
+# grid, then the edges of the bf16 ring kernel (D = 256, 32-key tiles, one
+# split per SM's share): length 1 (all but one split empty), length S,
+# lengths that are not a multiple of the tile, S shorter than one tile, a
+# row whose splits mostly have no valid keys, a lengths == 0 row (uniform
+# over S), and G = 1 and G = 8
+DECODE_GRID = [(2, 256, 4, 2, 64, None), (3, 512, 4, 4, 128, None), (1, 300, 8, 2, 32, None),
+               (2, 700, 8, 4, 256, None), (2, 300, 8, 4, 256, [1, 1]),
+               (2, 300, 8, 4, 256, [300, 300]), (2, 1000, 8, 4, 256, [999, 517]),
+               (2, 20, 8, 4, 256, [20, 7]), (2, 700, 8, 4, 256, [3, 700]),
+               (2, 300, 8, 4, 256, [0, 150]), (1, 500, 8, 8, 256, None),
+               (1, 500, 8, 1, 256, None)]
 SCALE = 256 ** -0.5
 
 
@@ -175,7 +211,12 @@ def main_path_inputs(dtype, gen):
     return prefill, decode
 
 
-def check_kernels():
+KERNELS = ("flash_attn", "decode_attn", "ciao_gather")
+
+
+def check_kernels(only=KERNELS):
+    """Phase 2 for the kernels in ``only``: returns (errs, failed), the
+    largest |err| of each case and the cases that disagree."""
     import torch
     from repro_torch.kernels.decode_attn import kernel as DK, ops as DO
     from repro_torch.kernels.flash_attn import kernel as FK, ops as FO
@@ -201,7 +242,7 @@ def check_kernels():
 
     log("[2] kernels against their plain versions on the card")
     for dtype in (torch.float32, torch.bfloat16):
-        for case in FLASH_GRID:
+        for case in FLASH_GRID if "flash_attn" in only else ():
             b, sq, skv, hq, hkv, d, causal, window, cap = case
             q = torch.randn(b, sq, hq, d, generator=gen, device="cuda").to(dtype)
             k = torch.randn(b, skv, hkv, d, generator=gen, device="cuda").to(dtype)
@@ -211,33 +252,42 @@ def check_kernels():
                  FK.flash_attention_cuda(q, k, v, **args),
                  lambda w: FO.flash_attention_plain(q, k, w, **args), v)
         kv_dtypes = (torch.float32, torch.bfloat16) if dtype == torch.float32 else (dtype,)
-        for (b, s, hq, hkv, d) in DECODE_GRID:
+        for (b, s, hq, hkv, d, lengths) in DECODE_GRID if "decode_attn" in only else ():
             for kv_dtype in kv_dtypes:
                 q = torch.randn(b, 1, hq, d, generator=gen, device="cuda").to(dtype)
                 ck = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(kv_dtype)
                 cv = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(kv_dtype)
                 lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda",
-                                     dtype=torch.int32)
+                                     dtype=torch.int32) if lengths is None else \
+                    torch.tensor(lengths, dtype=torch.int32, device="cuda")
                 args = dict(scale=d ** -0.5, softcap=50.0)
-                hold("decode_attn", f"{dtype}/{kv_dtype} grid {(b, s, hq, hkv, d)}",
+                hold("decode_attn", f"{dtype}/{kv_dtype} grid {(b, s, hq, hkv, d, lengths)}",
                      DK.decode_attention_cuda(q, ck, cv, lens, **args),
                      lambda w: DO.decode_attention_plain(q, ck, w, lens, **args), cv)
         (q, k, v), decode = main_path_inputs(dtype, gen)
         for kind, window in (("local", WINDOW), ("global", 0)):
             args = dict(scale=SCALE, causal=True, window=window, softcap=50.0)
-            hold("flash_attn", f"{dtype} main {kind}", FK.flash_attention_cuda(q, k, v, **args),
-                 lambda w: FO.flash_attention_plain(q, k, w, **args), v)
+            if "flash_attn" in only:
+                hold("flash_attn", f"{dtype} main {kind}",
+                     FK.flash_attention_cuda(q, k, v, **args),
+                     lambda w: FO.flash_attention_plain(q, k, w, **args), v)
+            if "decode_attn" not in only:
+                continue
             dq, ck, cv, lens = decode[kind]
             args = dict(scale=SCALE, softcap=50.0)
             hold("decode_attn", f"{dtype} main {kind}",
                  DK.decode_attention_cuda(dq, ck, cv, lens, **args),
                  lambda w: DO.decode_attention_plain(dq, ck, w, lens, **args), cv)
+            if dtype == torch.float32:     # f32 queries against a bf16 cache
+                ck, cv = ck.to(torch.bfloat16), cv.to(torch.bfloat16)
+                hold("decode_attn", f"{dtype} q, bf16 cache, main {kind}",
+                     DK.decode_attention_cuda(dq, ck, cv, lens, **args),
+                     lambda w: DO.decode_attention_plain(dq, ck, w, lens, **args), cv)
         del q, k, v, decode
         torch.cuda.empty_cache()
-    check_gather(gen, errs["ciao_gather"], failed)
-    if failed:
-        fail(f"{len(failed)} kernel checks disagree with the plain versions: {failed}")
-    return errs
+    if "ciao_gather" in only:
+        check_gather(gen, errs["ciao_gather"], failed)
+    return errs, failed
 
 
 # (n, d, t, c_main, c_iso, dtypes): the reference's kernel tests, then no
@@ -291,6 +341,21 @@ def check_gather(gen, errs, failed):
             table = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
             hold_gather(f"{dtype} grid {(n, d, t, c_main, c_iso)}", table,
                         *on_card(idx, streams, [0, 0, 0, 1]), c_main, c_iso, errs, failed)
+    # traces at the edges of the runs: one repeated index (one run a slot,
+    # every request after the first a hit), every request a miss (distinct
+    # indices), and runs of 75 requests (longer than a gather warp's batch
+    # of 2 records and than a warp)
+    rng = np.random.default_rng(2)
+    t = 3000
+    streams = rng.integers(0, 4, t)
+    traces = {"one repeated index": np.full(t, 5),
+              "every request a miss": rng.permutation(4000)[:t],
+              "runs of 75 requests": np.repeat(rng.integers(0, 4000, t // 75), 75)}
+    for name, idx in traces.items():
+        for dtype, d in ((torch.bfloat16, 256), (torch.float32, 97)):
+            table = torch.randn(4000, d, generator=gen, device="cuda").to(dtype)
+            hold_gather(f"{dtype} {name} (4000, {d})", table,
+                        *on_card(idx, streams, [0, 0, 0, 1]), 64, 16, errs, failed)
     # a view one row into the table: its base is 2-byte aligned at D = 129
     table = torch.randn(301, 129, generator=gen, device="cuda").to(torch.bfloat16)[1:]
     rng = np.random.default_rng(1)
@@ -372,7 +437,8 @@ def check_reduced():
 def device_profile(fn, top: int = 8):
     """One ``fn()`` under torch.profiler: wall ms, device busy ms (None when
     the profiler saw no device time) and the kernels with the most device
-    time, as [name, ms, calls]."""
+    time, as [name, ms, calls]. The profiler may miss the first launches of
+    its window, so a per-launch time is total ms / calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     sync()
@@ -601,17 +667,17 @@ def time_gather(table, idx, st, isos):
             return CK.ciao_gather_cuda(table, idx, st, iso, c_main=256, c_iso=64)
 
         ms = cuda_ms(call, 20, warmup=2)
-        prof = device_profile(call)
+        prof = device_profile(lambda: [call() for _ in range(5)])
         plain = cuda_ms(lambda: CO.ciao_gather_plain(table, idx, st, iso), 1)
         lib = cuda_ms(lambda: torch.index_select(table, 0, idx), 20, warmup=2)
         b_ms, by = bound_ms(*gather_bound(table, idx, st, iso))
         rows[label] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-                       "bound_by": by, "profile": prof}
+                       "bound_by": by, "profile_5_calls": prof}
         log(f"  ciao_gather {label}: kernel {ms:.4f} ms, plain {plain:.2f} ms, "
-            f"index_select (out only) {lib:.4f} ms, bound {b_ms:.4f} ms ({by}); one call "
-            f"under the profiler, device busy {prof['device_busy_ms']} ms:")
+            f"index_select (out only) {lib:.4f} ms, bound {b_ms:.4f} ms ({by}); 5 calls "
+            f"under the profiler, device ms a launch:")
         for name, k_ms, calls in prof["top"]:
-            log(f"    {k_ms:9.4f} ms {calls:3d}x  {name}")
+            log(f"    {k_ms / calls:9.4f} ms ({calls:2d} launches)  {name}")
     return rows
 
 
@@ -635,14 +701,19 @@ def time_kernels(errs, launches, card, gather):
         except Exception as e:  # the yardstick only; the port does not depend on it
             log(f"  flex_attention unavailable ({type(e).__name__}: {e}); library_ms null")
         b_ms, by = bound_ms(*flash_bound(q, k, v, window))
-        rows["flash_attn"].append((ms, plain, lib, b_ms, by))
+        rows["flash_attn"].append((ms, plain, lib, b_ms, by, {}))
         log(f"  flash_attn {kind}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"flex_attention {lib} ms (max|diff| {lib_err}), bound {b_ms:.4f} ms ({by})")
     del q, k, v
     for kind in ("local", "global"):
         dq, ck, cv, lens = decode[kind]
         args = dict(scale=SCALE, softcap=50.0)
-        ms = cuda_ms(lambda: DK.decode_attention_cuda(dq, ck, cv, lens, **args), 50, warmup=5)
+
+        def k2():
+            return DK.decode_attention_cuda(dq, ck, cv, lens, **args)
+
+        ms = cuda_ms(k2, 50, warmup=5)       # back to back: the host's launch cost included
+        device = graph_ms(k2, 100)           # the card's time alone
         plain = cuda_ms(lambda: DO.decode_attention_plain(dq, ck, cv, lens, **args), 10)
         lib = lib_err = None
         try:
@@ -652,9 +723,15 @@ def time_kernels(errs, launches, card, gather):
         except Exception as e:  # the yardstick only; the port does not depend on it
             log(f"  flex_attention unavailable ({type(e).__name__}: {e}); library_ms null")
         b_ms, by = bound_ms(*decode_bound(dq, ck, lens))
-        rows["decode_attn"].append((ms, plain, lib, b_ms, by))
-        log(f"  decode_attn {kind}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"flex_attention {lib} ms (max|diff| {lib_err}), bound {b_ms:.4f} ms ({by})")
+        prof = device_profile(lambda: [k2() for _ in range(5)])
+        rows["decode_attn"].append((ms, plain, lib, b_ms, by,
+                                    {"device_ms": device, "profile_5_calls": prof}))
+        log(f"  decode_attn {kind}: kernel {ms:.4f} ms (events, 50 calls), {device:.4f} ms "
+            f"(CUDA graph of 100 calls), plain {plain:.4f} ms, flex_attention {lib} ms "
+            f"(max|diff| {lib_err}), bound {b_ms:.4f} ms ({by}); 5 calls under the profiler, "
+            f"device ms a launch:")
+        for name, k_ms, calls in prof["top"]:
+            log(f"    {k_ms / calls:9.4f} ms ({calls:2d} launches)  {name}")
 
     def mean(xs):   # over the two layer kinds, each half of the serving path's layers
         return None if None in xs else sum(xs) / len(xs)
@@ -675,8 +752,10 @@ def time_kernels(errs, launches, card, gather):
             "bound_ms": mean([x[3] for x in r]),
             "bound_by": r[0][4] if all(x[4] == r[0][4] for x in r) else "mixed",
             "library_ms": mean([x[2] for x in r]),
+            **({"device_ms": mean([x[5]["device_ms"] for x in r])} if "device_ms" in r[0][5]
+               else {}),
             "per_layer_kind": {kind: {"ms": x[0], "plain_ms": x[1], "library_ms": x[2],
-                                      "bound_ms": x[3], "bound_by": x[4]}
+                                      "bound_ms": x[3], "bound_by": x[4], **x[5]}
                                for kind, x in zip(("local", "global"), r)},
             "card": card})
     g = time_gather(*gather)
@@ -684,7 +763,8 @@ def time_kernels(errs, launches, card, gather):
         "name": "ciao_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/ciao_gather/csrc/ciao_gather.cu",
         "replaces": "src/repro/kernels/ciao_gather/kernel.py:84",
-        "launches": launches["ciao_gather"], "max_abs_err": max(e for c, e in errs["ciao_gather"].items() if "bfloat16 main" in c),
+        "launches": launches["ciao_gather"],
+        "max_abs_err": max(e for c, e in errs["ciao_gather"].items() if "bfloat16 main" in c),
         **{key: mean([r[key] for r in g.values()])
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": "bytes",
@@ -710,7 +790,9 @@ def main() -> None:
     log(f"[1] card: {card}; torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)}")
     build_kernels()
-    errs = check_kernels()
+    errs, failed = check_kernels()
+    if failed:
+        fail(f"{len(failed)} kernel checks disagree with the plain versions: {failed}")
     check_reduced()
     launches = serve_full_width(card)
     launches["ciao_gather"], gather = gather_full_width(errs)

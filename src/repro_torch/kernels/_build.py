@@ -1,11 +1,13 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 Each kernel lives in ``kernels/<name>/csrc/<name>.cu`` with a plain C
-interface. At first use it is compiled for Hopper (``sm_90a``) into
+interface, and may include the shared headers ``kernels/*.cuh``. At first
+use it is compiled for Hopper (``sm_90a``) into
 ``<repo>/build/kernels/lib<name>-<digest>.so``, the digest covering the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-not. Several sources build in parallel, one nvcc process each. A failed
-build raises; nothing falls back to another implementation.
+source, the shared headers and the flags, so an edited source or header is
+rebuilt and an unchanged one is not. Several sources build in parallel, one
+nvcc process each. A failed build raises; nothing falls back to another
+implementation.
 """
 from __future__ import annotations
 
@@ -58,9 +60,21 @@ def source(name: str) -> Path:
     return KERNELS_DIR / name / "csrc" / f"{name}.cu"
 
 
+def headers():
+    """The headers every source may include, in a fixed order."""
+    return sorted(KERNELS_DIR.glob("*.cuh"))
+
+
+def nvcc_command(src: Path, out: Path):
+    """nvcc's command line for one source, with the shared headers on the
+    include path."""
+    return [nvcc_path(), *NVCC_FLAGS, "-I", str(KERNELS_DIR), "-o", str(out), str(src)]
+
+
 def _paths(name: str):
     src = source(name)
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    shared = b"".join(h.read_bytes() for h in headers())
+    digest = hashlib.sha1(src.read_bytes() + shared + " ".join(NVCC_FLAGS).encode()
                           ).hexdigest()[:12]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     return src, lib, lib.with_suffix(".log")
@@ -79,8 +93,7 @@ def build(names: Iterable[str]) -> Dict[str, Built]:
                                log.read_text() if log.is_file() else "")
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[name] = (subprocess.Popen(nvcc_command(src, tmp), stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, lib, log, time.perf_counter())
     failures = []

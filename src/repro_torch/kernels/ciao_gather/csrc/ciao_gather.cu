@@ -1,6 +1,6 @@
 // CIAO cached gather for Hopper (sm_90a): out[i] = table[indices[i]], each
-// row served through a two-partition direct-mapped cache held in shared
-// memory, with per-stream hit and miss counts.
+// row served through a two-partition direct-mapped cache, with per-stream
+// hit and miss counts.
 //
 // Replaces the TPU kernel src/repro/kernels/ciao_gather/kernel.py
 // (_gather_kernel / ciao_gather_kernel). Slots [0, c_main) are the main
@@ -13,27 +13,38 @@
 //
 // Bound: bytes. The kernel writes T rows, reads each missed row and a few
 // words of bookkeeping a request; it does no arithmetic on the data.
-// What holds it back is order: a request's outcome depends on the earlier
-// requests to its slot. The design:
-//  * Slots are independent of one another, so they are split across
-//    warps: one warp owns one slot, keeps the slot's tag and data row in
-//    shared memory and walks the slot's requests in request order. A
-//    block holds a few slots; at gemma2-2b's table (rows of 4608 bytes) the
-//    320 slots of c_main 256 and c_iso 64 take 1.41 MiB, far beyond one
-//    SM's 227 KB, so the cache is spread over the card.
-//  * A pre-pass of three kernels gathers each slot's requests, in order:
-//    a count per (slot, chunk of kChunk requests), one exclusive scan in
-//    (slot, chunk) order, and a scatter in which a request's rank inside
-//    its chunk counts the earlier requests of the chunk with the same slot
-//    (from the chunk's slots in shared memory). That is a stable counting
-//    sort by slot; it writes (i, idx, stream) records, 16 bytes each.
-//  * A hit copies the slot's shared-memory row to out[i]. A miss first
-//    copies the table row into the slot's shared-memory row, then that row
-//    to out[i] as for a hit. Rows move as raw bytes in the widest unit (16,
-//    8, 4 or 2 bytes) that divides the row and both base addresses, never
-//    through float, so f32 and bf16 share one kernel; row offsets are 64-bit.
+// A request's outcome depends on the earlier requests to its slot, but only
+// through one fact: the tag any request leaves in its slot is its own idx
+// (a miss sets it, a hit finds it). So request i hits exactly when the
+// previous request to its slot, in request order, had the same idx, and the
+// requests of a slot, in order, fall into residency runs (maximal stretches
+// of one idx): one miss, then its hits. Runs are independent of one another,
+// so the kernel works on runs, not on slot-serial chains. The design:
+//  * Pre-pass, three kernels: a stable counting sort by slot, its work
+//    linear in the requests and in slots x chunks. rank_kernel takes a
+//    chunk of 32*W requests a block; a request's rank among the chunk's
+//    requests to its slot comes from __match_any_sync within its warp plus
+//    the counts of the earlier warps (W x (C+1) counters in shared memory),
+//    and the block writes its per-slot counts, slot-major. chunk_scan_kernel
+//    gives each slot a warp, which scans the slot's counts over the chunks
+//    (the requests to it in earlier chunks) and writes its total.
+//    scatter_kernel scans the totals in each block (C+1 entries) and writes
+//    (i, idx, stream, slot) records, 16 bytes each, in slot order. Requests
+//    out of range sort into an extra bucket C at the end. kernel.run_plan
+//    writes the same order in Python.
+//  * gather_kernel: a warp takes kBatch (2) consecutive records and serves
+//    every run that starts among them (a record starts a run when its slot
+//    or its idx differs from its predecessor's), reading on past the batch
+//    while the run lasts. The run's row is read from the table once into the
+//    lanes' registers (the slot's data row for that residency) and written
+//    to out[i] for each request i of the run: the first counts as a miss,
+//    the others as hits. Many runs are in flight on every SM, so the card
+//    streams rows instead of waiting on one chain per slot.
+//  * Rows move as raw bytes in the widest unit (16, 8, 4 or 2 bytes) that
+//    divides the row and both base addresses, never through float, so f32
+//    and bf16 share one kernel; row offsets are 64-bit.
 //  * Per-stream counters live in shared memory and are added into stats
-//    with integer atomics when the block ends.
+//    with integer atomics when the block ends; rank_kernel zeroes stats.
 // A request whose index lies outside [0, N) or whose stream lies outside
 // [0, S) touches no slot and no counter, and its row of out is zeros: the
 // kernel never reads or writes outside table, out and stats.
@@ -43,160 +54,195 @@
 
 namespace {
 
-constexpr int kChunk = 1024;        // requests per pre-pass block, one a thread
-constexpr int kScanThreads = 1024;
 constexpr int kUnroll = 16;         // row units a lane keeps in flight
+constexpr int kBatch = 2;           // records a gather warp starts runs in
+constexpr int kGatherWarps = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ int slot_of(int idx, int st, const int* __restrict__ iso_map,
-                                       int N, int S, int c_main, int c_iso) {
-  if (idx < 0 || idx >= N || st < 0 || st >= S) return -1;
+// The slot of a request, or C for a request out of range.
+__device__ __forceinline__ int bucket_of(int idx, int st, const int* __restrict__ iso_map, int N,
+                                         int S, int c_main, int c_iso, int C) {
+  if (idx < 0 || idx >= N || st < 0 || st >= S) return C;
   return iso_map[st] > 0 ? c_main + idx % c_iso : idx % c_main;
 }
 
-// counts[slot * nchunks + chunk] = requests of the chunk that map to slot.
-__global__ void count_kernel(const int* __restrict__ indices, const int* __restrict__ streams,
-                             const int* __restrict__ iso_map, int* __restrict__ counts, int T,
-                             int N, int S, int c_main, int c_iso, int nchunks) {
-  const int i = blockIdx.x * kChunk + threadIdx.x;
-  if (i >= T) return;
-  const int slot = slot_of(indices[i], streams[i], iso_map, N, S, c_main, c_iso);
-  if (slot >= 0) atomicAdd(&counts[(int64_t)slot * nchunks + blockIdx.x], 1);
+// ranks[i] = requests before i in its chunk with the same bucket;
+// counts[b * chunks + chunk] = requests of the chunk in bucket b.
+__global__ void rank_kernel(const int* __restrict__ indices, const int* __restrict__ streams,
+                            const int* __restrict__ iso_map, int* __restrict__ counts,
+                            int* __restrict__ ranks, int* __restrict__ stats, int T, int N, int S,
+                            int c_main, int c_iso, int C) {
+  extern __shared__ int wcount[];   // [warps][C + 1]
+  const int C1 = C + 1, warps = blockDim.x >> 5, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int k = threadIdx.x; k < warps * C1; k += blockDim.x) wcount[k] = 0;
+  if (blockIdx.x == 0)
+    for (int k = threadIdx.x; k < 2 * S; k += blockDim.x) stats[k] = 0;
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = i < T ? bucket_of(indices[i], streams[i], iso_map, N, S, c_main, c_iso, C) : -1;
+  const unsigned peers = __match_any_sync(kFull, b);
+  const int wrank = __popc(peers & ((1u << lane) - 1u));
+  if (b >= 0 && wrank == 0) wcount[w * C1 + b] = __popc(peers);
+  __syncthreads();
+  if (b >= 0) {
+    int r = wrank;
+    for (int u = 0; u < w; ++u) r += wcount[u * C1 + b];
+    ranks[i] = r;
+  }
+  for (int s = threadIdx.x; s < C1; s += blockDim.x) {
+    int tot = 0;
+    for (int u = 0; u < warps; ++u) tot += wcount[u * C1 + s];
+    counts[(size_t)s * gridDim.x + blockIdx.x] = tot;
+  }
 }
 
-// In place, one block: a[k] becomes the sum of a[0..k), and a[M] the total.
-__global__ void scan_kernel(int* __restrict__ a, int64_t M) {
-  __shared__ int warp_sums[kScanThreads / 32];
+// One warp a bucket b: counts[b * nchunks + c] becomes the requests of
+// bucket b in the chunks before c, and totals[b] its requests in all chunks.
+__global__ void chunk_scan_kernel(int* __restrict__ counts, int* __restrict__ totals, int C1,
+                                  int nchunks) {
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (b >= C1) return;
+  int* row = counts + (size_t)b * nchunks;
+  int carry = 0;
+  for (int c0 = 0; c0 < nchunks; c0 += 32) {
+    const int c = c0 + lane;
+    const int v = c < nchunks ? row[c] : 0;
+    int incl = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (c < nchunks) row[c] = carry + incl - v;
+    carry += __shfl_sync(kFull, incl, 31);
+  }
+  if (lane == 0) totals[b] = carry;
+}
+
+// Record (i, idx, stream, bucket) of every request at its place in the
+// stable order by bucket.
+__global__ void scatter_kernel(const int* __restrict__ indices, const int* __restrict__ streams,
+                               const int* __restrict__ iso_map, const int* __restrict__ counts,
+                               const int* __restrict__ totals, const int* __restrict__ ranks,
+                               int4* __restrict__ records, int T, int N, int S, int c_main,
+                               int c_iso, int C, int nchunks) {
+  extern __shared__ int off[];      // [C + 1] bucket offsets of this chunk, then [32] warp sums
   __shared__ int carry;
-  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
-  if (t == 0) carry = 0;
+  const int C1 = C + 1, warps = blockDim.x >> 5, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int* wsum = off + C1;
+  if (threadIdx.x == 0) carry = 0;
   __syncthreads();
-  for (int64_t base = 0; base < M; base += 4 * kScanThreads) {
-    int v[4], sum = 0;
+  for (int s0 = 0; s0 < C1; s0 += blockDim.x) {
+    const int s = s0 + threadIdx.x;
+    // the bucket's requests in all chunks, and in the chunks before this one
+    const int tot = s < C1 ? totals[s] : 0;
+    const int before = s < C1 ? counts[(size_t)s * nchunks + blockIdx.x] : 0;
+    int incl = tot;   // inclusive scan of tot over the block
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int64_t k = base + 4 * t + q;
-      v[q] = k < M ? a[k] : 0;
-      sum += v[q];
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
     }
-    int incl = sum;  // inclusive scan of the threads' sums within the warp
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(kFull, incl, off);
-      if (lane >= off) incl += y;
-    }
-    if (lane == 31) warp_sums[w] = incl;
+    if (lane == 31) wsum[w] = incl;
     __syncthreads();
     if (w == 0) {
-      int ws = warp_sums[lane];
-      int wincl = ws;
+      const int x = lane < warps ? wsum[lane] : 0;
+      int xi = x;
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(kFull, wincl, off);
-        if (lane >= off) wincl += y;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, xi, o);
+        if (lane >= o) xi += y;
       }
-      warp_sums[lane] = wincl - ws;  // exclusive, per warp
+      wsum[lane] = xi - x;
     }
     __syncthreads();
-    int run = carry + warp_sums[w] + incl - sum;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int64_t k = base + 4 * t + q;
-      if (k < M) a[k] = run;
-      run += v[q];
-    }
+    const int excl = carry + wsum[w] + incl - tot;
+    if (s < C1) off[s] = excl + before;
     __syncthreads();
-    if (t == kScanThreads - 1) carry = run;
+    if (threadIdx.x == blockDim.x - 1) carry = excl + tot;
     __syncthreads();
   }
-  if (t == 0) a[M] = carry;
-}
-
-// Record (i, idx, stream) of every valid request at its slot's place; zero
-// the out rows of the others.
-__global__ void scatter_kernel(const int* __restrict__ indices, const int* __restrict__ streams,
-                               const int* __restrict__ iso_map, const int* __restrict__ offsets,
-                               int4* __restrict__ records, unsigned char* __restrict__ out,
-                               int64_t row_bytes, int T, int N, int S, int c_main, int c_iso,
-                               int nchunks) {
-  __shared__ int slots[kChunk];
-  const int i = blockIdx.x * kChunk + threadIdx.x;
-  int idx = 0, st = 0, slot = -1;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < T) {
-    idx = indices[i];
-    st = streams[i];
-    slot = slot_of(idx, st, iso_map, N, S, c_main, c_iso);
-  }
-  slots[threadIdx.x] = slot;
-  __syncthreads();
-  if (i >= T) return;
-  if (slot < 0) {
-    unsigned char* dst = out + (int64_t)i * row_bytes;
-    for (int64_t b = 0; b < row_bytes; ++b) dst[b] = 0;
-    return;
-  }
-  int rank = 0;  // earlier requests of this chunk in the same slot
-  for (int j = 0; j < (int)threadIdx.x; ++j) rank += slots[j] == slot;
-  const int pos = offsets[(int64_t)slot * nchunks + blockIdx.x] + rank;
-  records[pos] = make_int4(i, idx, st, 0);
-}
-
-// dst[u] = src[u] for u = lane, lane + 32, ... < n: each lane issues up to
-// kUnroll loads before it stores.
-template <typename U>
-__device__ __forceinline__ void copy_row(U* dst, const U* src, int n, int lane) {
-  for (int u0 = lane; u0 < n; u0 += 32 * kUnroll) {
-    U v[kUnroll];
-#pragma unroll
-    for (int q = 0; q < kUnroll; ++q)
-      if (u0 + 32 * q < n) v[q] = src[u0 + 32 * q];
-#pragma unroll
-    for (int q = 0; q < kUnroll; ++q)
-      if (u0 + 32 * q < n) dst[u0 + 32 * q] = v[q];
+    const int idx = indices[i], st = streams[i];
+    const int b = bucket_of(idx, st, iso_map, N, S, c_main, c_iso, C);
+    records[off[b] + ranks[i]] = make_int4(i, idx, st, b);
   }
 }
 
-// One warp per slot. Shared memory: the block's data rows (row_stride bytes
-// each), then its tags, then the per-stream [hits, misses] counters.
+// One warp serves the runs that start among kBatch records. Shared memory:
+// the per-stream [hits, misses] counters.
 template <typename U>
-__global__ void gather_kernel(const unsigned char* __restrict__ table,
-                              const int4* __restrict__ records,
-                              const int* __restrict__ offsets, unsigned char* __restrict__ out,
-                              int* __restrict__ stats, int64_t row_bytes, int row_stride, int C,
-                              int S, int nchunks) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warps = blockDim.x >> 5;
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* tags = reinterpret_cast<int*>(smem + (size_t)warps * row_stride);
-  int* cnt = tags + warps;
+__global__ void __launch_bounds__(kGatherWarps * 32)
+gather_kernel(const unsigned char* __restrict__ table, const int4* __restrict__ records,
+              unsigned char* __restrict__ out, int* __restrict__ stats, int64_t row_bytes, int T,
+              int S, int C) {
+  extern __shared__ int cnt[];
   for (int k = threadIdx.x; k < 2 * S; k += blockDim.x) cnt[k] = 0;
-  if (lane == 0) tags[w] = -1;
   __syncthreads();
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int k0 = (blockIdx.x * kGatherWarps + w) * kBatch;
+  const int n = (int)(row_bytes / (int64_t)sizeof(U));
+  if (k0 < T) {
+    const int kend = min(k0 + kBatch, T);
+    const bool in = lane < kBatch && k0 + lane < T;
+    const int4 rec = in ? records[k0 + lane] : make_int4(0, -1, 0, -1);
+    int py = __shfl_up_sync(kFull, rec.y, 1), pb = __shfl_up_sync(kFull, rec.w, 1);
+    if (lane == 0) {
+      const int4 p = k0 > 0 ? records[k0 - 1] : make_int4(0, -1, 0, -1);
+      py = p.y;
+      pb = p.w;
+    }
+    const bool zero = in && rec.w == C;
+    const bool start = in && rec.w < C && (rec.w != pb || rec.y != py);
 
-  const int slot = blockIdx.x * warps + w;
-  if (slot < C) {
-    U* row = reinterpret_cast<U*>(smem + (size_t)w * row_stride);
-    const int n = (int)(row_bytes / (int64_t)sizeof(U));
-    const int begin = offsets[(int64_t)slot * nchunks];
-    const int end = offsets[(int64_t)(slot + 1) * nchunks];
-    for (int k0 = begin; k0 < end; k0 += 32) {
-      // 32 records at once, one a lane, handed round the warp in order
-      const int4 rec = k0 + lane < end ? records[k0 + lane] : make_int4(0, 0, 0, 0);
-      const int m = min(32, end - k0);
-      for (int j = 0; j < m; ++j) {
-        const int i = __shfl_sync(kFull, rec.x, j);
-        const int idx = __shfl_sync(kFull, rec.y, j);
-        const int st = __shfl_sync(kFull, rec.z, j);
-        const bool hit = tags[w] == idx;
-        __syncwarp();  // every lane has read the tag before lane 0 moves it
-        if (!hit) {
-          copy_row(row, reinterpret_cast<const U*>(table + (int64_t)idx * row_bytes), n, lane);
-          if (lane == 0) tags[w] = idx;
+    // requests out of range: zero rows
+    for (unsigned zs = __ballot_sync(kFull, zero); zs; zs &= zs - 1) {
+      const int i = __shfl_sync(kFull, rec.x, __ffs(zs) - 1);
+      U* dst = reinterpret_cast<U*>(out + (int64_t)i * row_bytes);
+      for (int u = lane; u < n; u += 32) dst[u] = U{};
+    }
+
+    const unsigned starts = __ballot_sync(kFull, start);
+    const unsigned stops = __ballot_sync(kFull, start || zero);
+    for (unsigned ss = starts; ss; ss &= ss - 1) {
+      const int j = __ffs(ss) - 1, p = k0 + j;   // the run's first record
+      const int ridx = __shfl_sync(kFull, rec.y, j), rb = __shfl_sync(kFull, rec.w, j);
+      // one past its last record: the next start or zero row in the batch,
+      // else read on past the batch while the slot and idx stay the same
+      const unsigned later = stops & ~((2u << j) - 1u);
+      int q = later ? k0 + __ffs(later) - 1 : kend;
+      if (!later) {
+        while (q < T) {
+          const int4 r = q + lane < T ? records[q + lane] : make_int4(0, -1, 0, -1);
+          const unsigned other = __ballot_sync(kFull, q + lane >= T || r.w != rb || r.y != ridx);
+          if (other) {
+            q += __ffs(other) - 1;
+            break;
+          }
+          q += 32;
         }
-        // a lane reads back only the units it wrote, so no barrier here
-        copy_row(reinterpret_cast<U*>(out + (int64_t)i * row_bytes), row, n, lane);
-        if (lane == 0) atomicAdd(&cnt[2 * st + (hit ? 0 : 1)], 1);
-        __syncwarp();  // the new tag is seen by the next request
+        q = min(q, T);
+      }
+      // the row, read once, then written to every request of the run
+      const U* src = reinterpret_cast<const U*>(table + (int64_t)ridx * row_bytes);
+      for (int u0 = 0; u0 < n; u0 += 32 * kUnroll) {
+        U v[kUnroll];
+#pragma unroll
+        for (int t = 0; t < kUnroll; ++t)
+          if (u0 + lane + 32 * t < n) v[t] = src[u0 + lane + 32 * t];
+        for (int r0 = p; r0 < q; r0 += 32) {
+          const bool mine = r0 + lane < q;
+          const int4 r = mine ? records[r0 + lane] : make_int4(0, 0, 0, 0);
+          if (u0 == 0 && mine) atomicAdd(&cnt[2 * r.z + (r0 + lane == p ? 1 : 0)], 1);
+          const int m = min(32, q - r0);
+          for (int jj = 0; jj < m; ++jj) {
+            U* dst = reinterpret_cast<U*>(out + (int64_t)__shfl_sync(kFull, r.x, jj) * row_bytes);
+#pragma unroll
+            for (int t = 0; t < kUnroll; ++t)
+              if (u0 + lane + 32 * t < n) dst[u0 + lane + 32 * t] = v[t];
+          }
+        }
       }
     }
   }
@@ -206,16 +252,12 @@ __global__ void gather_kernel(const unsigned char* __restrict__ table,
 }
 
 template <typename U>
-cudaError_t launch_gather(const void* table, const int4* records, const int* offsets, void* out,
-                          int* stats, int64_t row_bytes, int row_stride, int C, int S,
-                          int nchunks, int warps, cudaStream_t st) {
-  const size_t smem = (size_t)warps * row_stride + (size_t)warps * 4 + (size_t)S * 8;
-  cudaError_t err = cudaFuncSetAttribute(gather_kernel<U>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  gather_kernel<U><<<(C + warps - 1) / warps, 32 * warps, smem, st>>>(
-      static_cast<const unsigned char*>(table), records, offsets,
-      static_cast<unsigned char*>(out), stats, row_bytes, row_stride, C, S, nchunks);
+cudaError_t launch_gather(const void* table, const int4* records, void* out, int* stats,
+                          int64_t row_bytes, int T, int S, int C, cudaStream_t st) {
+  const int per_block = kGatherWarps * kBatch;
+  gather_kernel<U><<<(T + per_block - 1) / per_block, kGatherWarps * 32, (size_t)S * 8, st>>>(
+      static_cast<const unsigned char*>(table), records, static_cast<unsigned char*>(out), stats,
+      row_bytes, T, S, C);
   return cudaGetLastError();
 }
 
@@ -224,47 +266,53 @@ cudaError_t launch_gather(const void* table, const int4* records, const int* off
 extern "C" {
 
 // table (N, row_bytes) and out (T, row_bytes) as raw bytes; indices,
-// streams (T,) and iso_map (S,) int32; stats (S, 2) int32. Scratch from the
-// caller: counts, (c_main + max(c_iso, 1)) * ceil(T / 1024) + 1 int32, and
-// records, T int4. warps: slots (warps) a block of the gather kernel holds.
-// Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
-// for arguments the kernel does not take.
+// streams (T,) and iso_map (S,) int32; stats (S, 2) int32. chunk_warps: W,
+// the pre-pass's warps a block (32 W requests a chunk), with W * (C + 1)
+// int32 counters in a block's shared memory, C = c_main + max(c_iso, 1).
+// Scratch from the caller: counts, (ceil(T / (32 W)) + 1) * (C + 1) int32;
+// ranks, T int32; records, T int4. Returns cudaGetLastError() after the launches,
+// or cudaErrorInvalidValue for arguments the kernel does not take.
 int ciao_gather_launch(const void* table, const void* indices, const void* streams,
-                       const void* iso_map, void* out, void* stats, void* counts,
+                       const void* iso_map, void* out, void* stats, void* counts, void* ranks,
                        void* records, int N, int64_t row_bytes, int T, int S, int c_main,
-                       int c_iso, int warps, void* stream) {
-  if (N <= 0 || T <= 0 || S < 0 || c_main < 1 || c_iso < 0 || warps < 1 || warps > 32 ||
-      row_bytes <= 0 || row_bytes % 2)
+                       int c_iso, int chunk_warps, void* stream) {
+  if (N <= 0 || T <= 0 || S < 0 || c_main < 1 || c_iso < 0 || chunk_warps < 1 ||
+      chunk_warps > 32 || row_bytes <= 0 || row_bytes % 2)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ci = c_iso > 0 ? c_iso : 1;
-  const int C = c_main + ci;
-  const int nchunks = (T + kChunk - 1) / kChunk;
-  const int64_t M = (int64_t)C * nchunks;
+  const int C = c_main + ci, C1 = C + 1;
+  const int chunk = 32 * chunk_warps;
+  const int nchunks = (T + chunk - 1) / chunk;
   const int* idx = static_cast<const int*>(indices);
   const int* strm = static_cast<const int*>(streams);
   const int* iso = static_cast<const int*>(iso_map);
   int* cnt = static_cast<int*>(counts);
+  int* totals = cnt + (size_t)nchunks * C1;
+  int* rk = static_cast<int*>(ranks);
   int4* rec = static_cast<int4*>(records);
   int* stt = static_cast<int*>(stats);
 
-  cudaError_t err = cudaMemsetAsync(cnt, 0, (size_t)(M + 1) * sizeof(int), st);
-  if (err == cudaSuccess && S > 0) err = cudaMemsetAsync(stt, 0, (size_t)S * 8, st);
+  const size_t rank_smem = (size_t)chunk_warps * C1 * 4, scatter_smem = (size_t)C1 * 4 + 128;
+  cudaError_t err = cudaFuncSetAttribute(rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)rank_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)scatter_smem);
   if (err != cudaSuccess) return err;
-  count_kernel<<<nchunks, kChunk, 0, st>>>(idx, strm, iso, cnt, T, N, S, c_main, ci, nchunks);
+  rank_kernel<<<nchunks, chunk, rank_smem, st>>>(idx, strm, iso, cnt, rk, stt, T, N, S, c_main,
+                                                 ci, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  scan_kernel<<<1, kScanThreads, 0, st>>>(cnt, M);
+  chunk_scan_kernel<<<(C1 + 7) / 8, 256, 0, st>>>(cnt, totals, C1, nchunks);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  scatter_kernel<<<nchunks, kChunk, 0, st>>>(idx, strm, iso, cnt, rec,
-                                             static_cast<unsigned char*>(out), row_bytes, T, N,
-                                             S, c_main, ci, nchunks);
+  scatter_kernel<<<nchunks, chunk, scatter_smem, st>>>(idx, strm, iso, cnt, totals, rk, rec, T, N,
+                                                       S, c_main, ci, C, nchunks);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // the widest unit that divides the row and both base addresses
   const uint64_t align = (uint64_t)row_bytes | reinterpret_cast<uintptr_t>(table) |
                          reinterpret_cast<uintptr_t>(out);
-  const int row_stride = (int)((row_bytes + 15) / 16 * 16);
-#define GATHER_ARGS table, rec, cnt, out, stt, row_bytes, row_stride, C, S, nchunks, warps, st
+#define GATHER_ARGS table, rec, out, stt, row_bytes, T, S, C, st
   if (align % 16 == 0) return launch_gather<uint4>(GATHER_ARGS);
   if (align % 8 == 0) return launch_gather<uint2>(GATHER_ARGS);
   if (align % 4 == 0) return launch_gather<unsigned int>(GATHER_ARGS);

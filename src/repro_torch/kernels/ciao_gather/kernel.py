@@ -7,46 +7,74 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
-CHUNK = 1024                 # requests per block of the pre-pass: kChunk in the source
 SMEM_BYTES = 232448          # dynamic shared memory a block may take on sm_90
+
+
+class RunPlan(NamedTuple):
+    """The order in which the kernel keeps the requests, and its runs.
+
+    order: request ids in record order (stable by slot; requests out of
+    range last). slot: each record's slot, -1 out of range. start: the
+    record starts a residency run (a miss). hit: the record is a hit (in a
+    run, after its start)."""
+    order: np.ndarray
+    slot: np.ndarray
+    start: np.ndarray
+    hit: np.ndarray
+
+
+def run_plan(indices, streams, iso_map, c_main: int, c_iso: int, num_rows=None) -> RunPlan:
+    """The kernel's residency runs in numpy. A request of an isolated
+    stream maps to slot c_main + idx % max(c_iso, 1), any other to
+    idx % c_main; one with idx outside [0, num_rows) (no upper bound when
+    num_rows is None) or a stream outside [0, len(iso_map)) counts nowhere.
+    Records sort stably by slot; a record starts a run when its slot or its
+    idx differs from its predecessor's, and the others of the run hit."""
+    idx = np.asarray(indices, np.int64)
+    st = np.asarray(streams, np.int64)
+    iso = np.asarray(iso_map, np.int64)
+    ci = max(c_iso, 1)
+    ok = (idx >= 0) & (st >= 0) & (st < len(iso))
+    if num_rows is not None:
+        ok &= idx < num_rows
+    isolated = np.zeros(len(idx), bool)
+    isolated[ok] = iso[st[ok]] > 0
+    slot = np.where(isolated, c_main + np.mod(idx, ci), np.mod(idx, c_main))
+    bucket = np.where(ok, slot, c_main + ci)
+    order = np.argsort(bucket, kind="stable")
+    b, i = bucket[order], idx[order]
+    valid = b < c_main + ci
+    start = valid.copy()
+    start[1:] &= (b[1:] != b[:-1]) | (i[1:] != i[:-1])
+    return RunPlan(order, np.where(valid, b, -1), start, valid & ~start)
+
+
+def chunk_warps(slots: int) -> int:
+    """Warps a block of the pre-pass takes (32 requests each): at most 32,
+    as many as leave room for a counter per warp and bucket (the slots and
+    the bucket of requests out of range) in shared memory."""
+    w = min(32, (SMEM_BYTES - 128) // (4 * (slots + 1)))
+    if w < 1:
+        raise ValueError(f"{slots} slots do not fit the pre-pass's shared memory")
+    return w
 
 
 @functools.cache
 def _entry():
     lib = _build.load("ciao_gather")
     fn = lib.ciao_gather_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int64]
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int64]
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def warps_per_block(slots: int, row_bytes: int, num_streams: int, sm_count: int) -> int:
-    """Slots (one warp each) a block of the gather kernel holds: about two
-    blocks per SM, no more than the block's shared memory takes."""
-    stride = -(-row_bytes // 16) * 16
-
-    def smem(w):
-        return w * stride + 4 * w + 8 * num_streams
-
-    if smem(1) > SMEM_BYTES:
-        raise ValueError(f"a {row_bytes}-byte row and {num_streams} stream counters do not "
-                         f"fit one block's {SMEM_BYTES} bytes of shared memory")
-    w = max(1, min(32, slots // (2 * sm_count)))
-    while smem(w) > SMEM_BYTES:
-        w -= 1
-    return w
 
 
 def ciao_gather_cuda(table, indices, streams, iso_map, *, c_main: int, c_iso: int):
@@ -79,16 +107,18 @@ def ciao_gather_cuda(table, indices, streams, iso_map, *, c_main: int, c_iso: in
     if max(n, t, slots) >= 2 ** 31:
         raise ValueError("the kernel counts rows, requests and slots in int32")
     indices, streams, iso_map = (x.contiguous() for x in (indices, streams, iso_map))
-    row_bytes = d * table.element_size()
-    warps = warps_per_block(slots, row_bytes, s, _sm_count(table.device.index or 0))
-    counts = torch.empty(slots * -(-t // CHUNK) + 1, dtype=torch.int32, device=table.device)
-    records = torch.empty((t, 4), dtype=torch.int32, device=table.device)
-    stats = torch.empty((s, 2), dtype=torch.int32, device=table.device)   # zeroed by the kernel
+    warps = chunk_warps(slots)
+    dev = table.device
+    counts = torch.empty((-(-t // (32 * warps)) + 1) * (slots + 1), dtype=torch.int32,
+                         device=dev)
+    ranks = torch.empty(t, dtype=torch.int32, device=dev)
+    records = torch.empty((t, 4), dtype=torch.int32, device=dev)
+    stats = torch.empty((s, 2), dtype=torch.int32, device=dev)   # zeroed by the kernel
     lib, fn = _entry()
     code = fn(table.data_ptr(), indices.data_ptr(), streams.data_ptr(), iso_map.data_ptr(),
-              out.data_ptr(), stats.data_ptr(), counts.data_ptr(), records.data_ptr(),
-              n, row_bytes, t, s, c_main, c_iso, warps,
-              torch.cuda.current_stream(table.device).cuda_stream)
+              out.data_ptr(), stats.data_ptr(), counts.data_ptr(), ranks.data_ptr(),
+              records.data_ptr(), n, d * table.element_size(), t, s, c_main, c_iso, warps,
+              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "ciao_gather", code)
     ciao_gather_cuda.launches += 1
     return out, stats

@@ -8,23 +8,49 @@
 //
 // Bound: bytes. A step reads each valid K and V row once and does 4*D
 // operations per row and query head, far below the card's ~295 operations
-// per byte. The design keeps many loads in flight and reads nothing twice:
-//  * split-KV (flash-decoding): grid (splits, Hkv, B); a block streams one
-//    chunk of one KV head's cache, so B*Hkv*splits blocks fill the card
-//    even at batch 4;
-//  * GQA by index: a block serves all G = Hq/Hkv query heads of its KV
-//    head, so each K/V row is read once for G heads, never through a
-//    repeated copy;
-//  * a warp takes kKeys keys per step, issues all their loads before the
-//    math, and its lanes split D (16-byte loads for bf16 at D = 256);
-//  * the loop stops at lengths[b], so slots past it are never read; a
-//    second pass merges the splits' (max, sum, acc) partials in f32.
-// A length of 0 reproduces the TPU kernel's all-masked row: every score
-// is -1e30, so the softmax is uniform over the S slots.
+// per byte. Every kernel here splits the cache (flash-decoding) and serves
+// all G = Hq/Hkv query heads of a KV head from one read of each K/V row
+// (GQA by index, never a repeated copy). Split `split` of nsplit takes the
+// keys [split*n/nsplit, (split+1)*n/nsplit) of n = lengths[b] valid slots,
+// so the splits of a row stream equal shares and slots past lengths[b] are
+// never read (kernel.split_range writes the same ranges in Python). A
+// length of 0 reproduces the TPU kernel's all-masked row: every score is
+// -1e30, so the softmax is uniform over the S slots.
+//
+// Two kernels:
+//  * bf16 q and cache at D = 256, the serving path: decode_ring_kernel, one
+//    launch a call. The grid is one wave (kernel.split_plan: one block an
+//    SM). In a block, one producer warp streams 32-key K and V tiles with
+//    TMA (one box a tile from 4-D tensor maps over (D, H, S, B); a split's
+//    last, partial tile as cp.async.bulk copies of one 512-byte row a lane)
+//    into a ring of 4 stages (128 KB, so up to 128 KB in flight an SM)
+//    behind full/empty mbarriers, and 8
+//    consumer warps compute while the next stages land. A consumer warp
+//    owns 4 keys of a tile: 8 lanes a key read whole 16-byte chunks of K
+//    from shared memory (3 shuffle levels instead of a 5-level butterfly
+//    per key), then each lane takes 8 columns of V for the warp's keys.
+//    The softcap's tanh is 1 - 2/(e^{2y}+1): one ex2 and one rcp, with
+//    scale*log2e folded in, and the softmax runs in base 2. The block
+//    merges its warps in shared memory; the last block of a (b, kv head)
+//    to finish (an atomic ticket after a __threadfence) merges the splits'
+//    partials, which stay in L2, and writes the output. The ticket is reset
+//    by that block, so the counters are zero between launches (one set a
+//    stream: kernel._scratch). The host's work a launch is kept to the
+//    launch itself: the tensor maps are encoded once a cache tensor and the
+//    shared-memory limit raised once a device.
+//  * every other dtype pair and head dim: decode_split_kernel, where a warp
+//    loads 4 keys of K and V into registers per step, and a second launch,
+//    decode_combine_kernel, merges the splits. It serves f32 checks and the
+//    reduced model, not the bf16 serving path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <type_traits>
+
+#include "hopper.cuh"   // mbarriers, TMA, ex2/rcp, the tensor-map encoder
 
 namespace {
 
@@ -77,6 +103,17 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ p, fl
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
+// The keys [start, end) of split `split`: an equal share of the row's valid
+// slots (all S of them when lengths[b] <= 0, which masks every score).
+__device__ __forceinline__ void split_range(int length, int S, int split, int nsplit, int& start,
+                                            int& end, bool& all_masked) {
+  all_masked = length <= 0;
+  const int n = all_masked ? S : min(length, S);
+  start = (int)((int64_t)split * n / nsplit);
+  end = (int)((int64_t)(split + 1) * n / nsplit);
+}
+
+// ---------------------------------------------------------------- f32 path
 // Pass 1: one block per (split, kv head, batch row). Writes, for each of
 // the G query heads, the split's running max m, sum l (part_ml) and
 // unnormalised accumulator (part_acc), all relative to m.
@@ -85,18 +122,16 @@ __global__ void __launch_bounds__(kWarps * 32)
 decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                     const TKV* __restrict__ v, const int* __restrict__ lengths,
                     float* __restrict__ part_acc, float* __restrict__ part_ml,
-                    int S, int Hkv, int chunk, float scale, float softcap) {
+                    int S, int Hkv, float scale, float softcap) {
   constexpr int E = D / 32;
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int nsplit = gridDim.x;
   const int Hq = Hkv * G;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  int len = lengths[b];
-  const bool all_masked = len <= 0;
-  len = all_masked ? S : min(len, S);
-  const int start = split * chunk;
-  const int end = min(start + chunk, len);
+  int start, end;
+  bool all_masked;
+  split_range(lengths[b], S, split, nsplit, start, end, all_masked);
 
   float qf[G][E];
 #pragma unroll
@@ -227,15 +262,345 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
   }
 }
 
+// --------------------------------------------------------------- bf16 path
+constexpr int kRingD = 256;
+constexpr int kRowB = kRingD * 2;                  // bytes of one K or V row
+constexpr int kTileKeys = 32;                      // keys a stage holds
+constexpr int kStages = 4;
+constexpr int kConsumers = 8;                      // consumer warps, 4 keys each
+constexpr int kRingThreads = (kConsumers + 1) * 32;
+constexpr int kStageB = 2 * kTileKeys * kRowB;     // K rows, then V rows: 32 KB
+constexpr int kRingB = kStages * kStageB;
+
+template <int G>
+constexpr size_t ring_smem_bytes() {
+  // the ring, q as f32, 2 * kStages mbarriers, the last-block flag
+  return (size_t)kRingB + (size_t)G * kRingD * 4 + 16 * kStages + 16;
+}
+
+// bytes from global to shared memory, completing on the mbarrier `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void unpack8(const uint4 t, float (&f)[8]) {
+  f[0] = bf16_lo(t.x); f[1] = bf16_hi(t.x); f[2] = bf16_lo(t.y); f[3] = bf16_hi(t.y);
+  f[4] = bf16_lo(t.z); f[5] = bf16_hi(t.z); f[6] = bf16_lo(t.w); f[7] = bf16_hi(t.w);
+}
+
+// One block per (split, kv head, batch row); warp kConsumers is the
+// producer. Scores are kept in base 2: with the softcap,
+// x = cap2 - 2 cap2 / (2^(dot*mul) + 1) with mul = 2 log2e scale / cap and
+// cap2 = cap log2e (that is log2e * cap * tanh(dot * scale / cap));
+// without it, x = dot * mul with mul = scale log2e.
+template <int G, bool CAP>
+__global__ void __launch_bounds__(kRingThreads, 1)
+decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+                   const int* __restrict__ lengths,
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
+                   float* __restrict__ part_ml, int* __restrict__ tickets, int S, int Hkv,
+                   float mul, float cap2) {
+  constexpr int D = kRingD;
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  float* sq = reinterpret_cast<float*>(ring_smem + kRingB);                 // [G][D]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring_smem + kRingB + G * D * 4);
+  int* last_flag = reinterpret_cast<int*>(bars + 2 * kStages);
+  const uint32_t ring = smem_u32(ring_smem), full0 = smem_u32(bars), empty0 = full0 + 8 * kStages;
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, nsplit = gridDim.x;
+  const int Hq = Hkv * G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int start, end;
+  bool all_masked;
+  split_range(lengths[b], S, split, nsplit, start, end, all_masked);
+  const int ntiles = (end - start + kTileKeys - 1) / kTileKeys;
+  const size_t qrow = (size_t)b * Hq + (size_t)kvh * G;   // first of the G query rows
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);   // one arrival from each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int e = threadIdx.x; e < G * D; e += blockDim.x) sq[e] = __bfloat162float(q[qrow * D + e]);
+  __syncthreads();
+
+  float m[G], l[G], acc[G][8];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+  }
+
+  if (warp == kConsumers) {
+    // producer: a whole tile of K and of V is one TMA box each; the last,
+    // partial tile of a split takes its rows one a lane, so no key past the
+    // split is read
+    const size_t row_stride = (size_t)Hkv * D;
+    const __nv_bfloat16* kb = k + ((size_t)b * S * Hkv + kvh) * D;
+    const __nv_bfloat16* vb = v + ((size_t)b * S * Hkv + kvh) * D;
+    for (int i = 0; i < ntiles; ++i) {
+      const int st = i % kStages, t0 = start + i * kTileKeys;
+      const int n = min(kTileKeys, end - t0);
+      mbar_wait(empty0 + 8 * st, ((i / kStages) & 1) ^ 1);
+      if (n == kTileKeys) {
+        if (lane == 0) {
+          mbar_expect_tx(full0 + 8 * st, kStageB);
+          tma_load(ring + st * kStageB, &tm_k, full0 + 8 * st, 0, kvh, t0, b);
+          tma_load(ring + st * kStageB + kTileKeys * kRowB, &tm_v, full0 + 8 * st, 0, kvh, t0,
+                   b);
+        }
+        continue;
+      }
+      if (lane == 0) mbar_expect_tx(full0 + 8 * st, 2 * n * kRowB);
+      __syncwarp();
+      if (lane < n) {
+        const uint32_t dst = ring + st * kStageB + lane * kRowB;
+        bulk_load(dst, kb + (size_t)(t0 + lane) * row_stride, kRowB, full0 + 8 * st);
+        bulk_load(dst + kTileKeys * kRowB, vb + (size_t)(t0 + lane) * row_stride, kRowB,
+                  full0 + 8 * st);
+      }
+    }
+  } else {
+    const int mine = 4 * warp + (lane >> 3), sub = lane & 7;   // this lane's key of the tile
+    const float4* q4 = reinterpret_cast<const float4*>(sq);
+    for (int i = 0; i < ntiles; ++i) {
+      const int st = i % kStages;
+      const int n = min(kTileKeys, end - (start + i * kTileKeys));
+      mbar_wait(full0 + 8 * st, (i / kStages) & 1);
+      if (4 * warp < n) {
+        const unsigned char* tile = ring_smem + st * kStageB;
+        // scores: 8 lanes a key, each over 4 chunks of 8 columns
+        const uint4* kr = reinterpret_cast<const uint4*>(tile + mine * kRowB);
+        float s[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) s[g] = 0.f;
+#pragma unroll
+        for (int j = 0; j < D / 64; ++j) {
+          const int c = sub + 8 * j;
+          float kf[8];
+          unpack8(kr[c], kf);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float4 qa = q4[(g * D + 8 * c) / 4], qb = q4[(g * D + 8 * c) / 4 + 1];
+            float d = s[g];
+            d = fmaf(qa.x, kf[0], d); d = fmaf(qa.y, kf[1], d);
+            d = fmaf(qa.z, kf[2], d); d = fmaf(qa.w, kf[3], d);
+            d = fmaf(qb.x, kf[4], d); d = fmaf(qb.y, kf[5], d);
+            d = fmaf(qb.z, kf[6], d); d = fmaf(qb.w, kf[7], d);
+            s[g] = d;
+          }
+        }
+        const bool valid = mine < n;
+        float p[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float x = s[g];
+          x += __shfl_xor_sync(0xffffffffu, x, 4);
+          x += __shfl_xor_sync(0xffffffffu, x, 2);
+          x += __shfl_xor_sync(0xffffffffu, x, 1);
+          x = CAP ? fmaf(-2.f * cap2, rcp(ex2(x * mul) + 1.f), cap2) : x * mul;
+          if (all_masked) x = kNegInf;
+          x = valid ? x : kNegInf;
+          float mx = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 8));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+          const float mnew = fmaxf(m[g], mx);
+          const float corr = ex2(m[g] - mnew);
+          p[g] = valid ? ex2(x - mnew) : 0.f;
+          float ps = p[g] + __shfl_xor_sync(0xffffffffu, p[g], 8);
+          ps += __shfl_xor_sync(0xffffffffu, ps, 16);
+          l[g] = l[g] * corr + ps;
+          m[g] = mnew;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[g][e] *= corr;
+        }
+        // PV: lane takes columns 8*lane.. of the warp's 4 V rows
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (4 * warp + u < n) {
+            float vf[8];
+            unpack8(reinterpret_cast<const uint4*>(tile + (kTileKeys + 4 * warp + u) * kRowB)[lane],
+                    vf);
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              const float pu = __shfl_sync(0xffffffffu, p[g], 8 * u);
+#pragma unroll
+              for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(pu, vf[e], acc[g][e]);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * st);
+    }
+  }
+
+  // Every copy has landed (the consumers waited on each), so the ring is
+  // free: merge the consumer warps there.
+  __syncthreads();
+  float* s_acc = reinterpret_cast<float*>(ring_smem);   // [kConsumers][G][D]
+  float* s_m = s_acc + kConsumers * G * D;          // [kConsumers][G]
+  float* s_l = s_m + kConsumers * G;
+  if (warp < kConsumers) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float4* dst = reinterpret_cast<float4*>(s_acc + (warp * G + g) * D + 8 * lane);
+      dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+      dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+      if (lane == 0) {
+        s_m[warp * G + g] = m[g];
+        s_l[warp * G + g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
+    const int g = idx / D, d = idx % D;
+    float M = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kConsumers; ++w) M = fmaxf(M, s_m[w * G + g]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < kConsumers; ++w) {
+      const float c = ex2(s_m[w * G + g] - M);
+      L += s_l[w * G + g] * c;
+      A += s_acc[(w * G + g) * D + d] * c;
+    }
+    if (nsplit == 1) {
+      out[(qrow + g) * D + d] = __float2bfloat16_rn(A / fmaxf(L, 1e-30f));
+    } else {
+      const size_t row = (qrow + g) * nsplit + split;
+      part_acc[row * D + d] = A;
+      if (d == 0) {
+        part_ml[row * 2] = M;
+        part_ml[row * 2 + 1] = L;
+      }
+    }
+  }
+  if (nsplit == 1) return;
+
+  // The last split of this (b, kv head) to finish merges all of them.
+  __threadfence();
+  __syncthreads();
+  int* ticket = tickets + (size_t)b * Hkv + kvh;
+  if (threadIdx.x == 0) *last_flag = atomicAdd(ticket, 1) == nsplit - 1;
+  __syncthreads();
+  if (!*last_flag) return;
+  __threadfence();
+  if (threadIdx.x == 0) *ticket = 0;   // ready for the next launch
+  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
+    const int g = idx / D, d = idx % D;
+    const size_t row0 = (qrow + g) * nsplit;
+    float M = kNegInf;
+    for (int s = 0; s < nsplit; ++s) M = fmaxf(M, __ldcg(part_ml + (row0 + s) * 2));
+    float L = 0.f, A = 0.f;
+    for (int s = 0; s < nsplit; ++s) {
+      const float c = ex2(__ldcg(part_ml + (row0 + s) * 2) - M);
+      L += __ldcg(part_ml + (row0 + s) * 2 + 1) * c;
+      A += __ldcg(part_acc + (row0 + s) * D + d) * c;
+    }
+    out[(qrow + g) * D + d] = __float2bfloat16_rn(A / fmaxf(L, 1e-30f));
+  }
+}
+
+// A 4-D map over a (B, S, Hkv, 256) bf16 cache, innermost first, with a box
+// of one head's 256 columns and kTileKeys rows, unswizzled (row r of the box
+// at r * 512 bytes).
+cudaError_t cache_map(CUtensorMap* map, EncodeTiledFn encode, const void* ptr, int B, int S,
+                      int Hkv) {
+  const cuuint64_t dims[4] = {(cuuint64_t)kRingD, (cuuint64_t)Hkv, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)kRowB, (cuuint64_t)Hkv * kRowB,
+                                 (cuuint64_t)S * Hkv * kRowB};
+  const cuuint32_t box[4] = {(cuuint32_t)kRingD, 1, (cuuint32_t)kTileKeys, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The maps of the caches launched on so far, encoded once each: the serving
+// path passes the same 2 x 26 cache tensors at every step, and a map
+// depends only on (pointer, B, S, Hkv). 256 entries, direct-mapped by the
+// pointer; a collision encodes again. ctypes drops the GIL, hence the lock.
+struct MapEntry {
+  CUtensorMap map;
+  const void* ptr;
+  int B, S, Hkv;
+};
+
+cudaError_t cached_cache_map(CUtensorMap* map, const void* ptr, int B, int S, int Hkv) {
+  static std::mutex mu;
+  static MapEntry table[256];
+  const uint64_t h = (reinterpret_cast<uintptr_t>(ptr) * 0x9E3779B97F4A7C15ull) >> 56;
+  std::lock_guard<std::mutex> lock(mu);
+  MapEntry& e = table[h];
+  if (e.ptr != ptr || e.B != B || e.S != S || e.Hkv != Hkv) {
+    EncodeTiledFn encode;
+    cudaError_t err = encode_tiled(&encode);
+    if (err == cudaSuccess) err = cache_map(&e.map, encode, ptr, B, S, Hkv);
+    if (err != cudaSuccess) {
+      e.ptr = nullptr;
+      return err;
+    }
+    e.ptr = ptr;
+    e.B = B;
+    e.S = S;
+    e.Hkv = Hkv;
+  }
+  *map = e.map;
+  return cudaSuccess;
+}
+
+template <int G, bool CAP>
+cudaError_t launch_ring_cap(const void* q, const void* k, const void* v, const int* lengths,
+                            void* out, float* pa, float* pm, int* tickets, int B, int S,
+                            int Hkv, int nsplit, float mul, float cap2, cudaStream_t st) {
+  constexpr size_t smem = ring_smem_bytes<G>();
+  static std::atomic<uint64_t> smem_set{0};
+  CUtensorMap tk, tv;
+  cudaError_t err;
+  if ((err = cached_cache_map(&tk, k, B, S, Hkv)) != cudaSuccess) return err;
+  if ((err = cached_cache_map(&tv, v, B, S, Hkv)) != cudaSuccess) return err;
+  if ((err = allow_smem(decode_ring_kernel<G, CAP>, (int)smem, smem_set)) != cudaSuccess)
+    return err;
+  decode_ring_kernel<G, CAP><<<dim3(nsplit, Hkv, B), kRingThreads, smem, st>>>(
+      tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out), pa, pm,
+      tickets, S, Hkv, mul, cap2);
+  return cudaGetLastError();
+}
+
+template <int G>
+cudaError_t launch_ring(const void* q, const void* k, const void* v, const int* lengths,
+                        void* out, float* pa, float* pm, int* tickets, int B, int S, int Hkv,
+                        int nsplit, float scale, float softcap, cudaStream_t st) {
+  if (softcap != 0.f)
+    return launch_ring_cap<G, true>(q, k, v, lengths, out, pa, pm, tickets, B, S, Hkv, nsplit,
+                                    2.f * kLog2e * scale / softcap, softcap * kLog2e, st);
+  return launch_ring_cap<G, false>(q, k, v, lengths, out, pa, pm, tickets, B, S, Hkv, nsplit,
+                                   scale * kLog2e, 0.f, st);
+}
+
 template <typename TQ, typename TKV, int D, int G>
 cudaError_t launch_typed(const void* q, const void* k, const void* v, const int* lengths,
                          void* out, float* part_acc, float* part_ml, int B, int S, int Hkv,
-                         int nsplit, int chunk, float scale, float softcap, cudaStream_t st) {
+                         int nsplit, float scale, float softcap, cudaStream_t st) {
   const dim3 grid(nsplit, Hkv, B);
   const size_t smem = (size_t)kWarps * G * (D + 2) * sizeof(float);
   decode_split_kernel<TQ, TKV, D, G><<<grid, kWarps * 32, smem, st>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      lengths, part_acc, part_ml, S, Hkv, chunk, scale, softcap);
+      lengths, part_acc, part_ml, S, Hkv, scale, softcap);
   decode_combine_kernel<TQ><<<B * Hkv * G, D < 32 ? 32 : D, 0, st>>>(
       part_acc, part_ml, static_cast<TQ*>(out), nsplit, D);
   return cudaGetLastError();
@@ -244,12 +609,12 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, const int*
 template <typename TQ, typename TKV, int D>
 cudaError_t launch_d(int G, const void* q, const void* k, const void* v, const int* lengths,
                      void* out, float* pa, float* pm, int B, int S, int Hkv, int nsplit,
-                     int chunk, float scale, float softcap, cudaStream_t st) {
+                     float scale, float softcap, cudaStream_t st) {
   switch (G) {
-    case 1: return launch_typed<TQ, TKV, D, 1>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, chunk, scale, softcap, st);
-    case 2: return launch_typed<TQ, TKV, D, 2>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, chunk, scale, softcap, st);
-    case 4: return launch_typed<TQ, TKV, D, 4>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, chunk, scale, softcap, st);
-    case 8: return launch_typed<TQ, TKV, D, 8>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, chunk, scale, softcap, st);
+    case 1: return launch_typed<TQ, TKV, D, 1>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    case 2: return launch_typed<TQ, TKV, D, 2>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    case 4: return launch_typed<TQ, TKV, D, 4>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    case 8: return launch_typed<TQ, TKV, D, 8>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -257,13 +622,16 @@ cudaError_t launch_d(int G, const void* q, const void* k, const void* v, const i
 template <typename TQ, typename TKV>
 cudaError_t launch_t(int D, int G, const void* q, const void* k, const void* v,
                      const int* lengths, void* out, float* pa, float* pm, int B, int S,
-                     int Hkv, int nsplit, int chunk, float scale, float softcap,
-                     cudaStream_t st) {
+                     int Hkv, int nsplit, float scale, float softcap, cudaStream_t st) {
   switch (D) {
-    case 32: return launch_d<TQ, TKV, 32>(G, q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, chunk, scale, softcap, st);
-    case 64: return launch_d<TQ, TKV, 64>(G, q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, chunk, scale, softcap, st);
-    case 128: return launch_d<TQ, TKV, 128>(G, q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, chunk, scale, softcap, st);
-    case 256: return launch_d<TQ, TKV, 256>(G, q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, chunk, scale, softcap, st);
+    case 32: return launch_d<TQ, TKV, 32>(G, q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    case 64: return launch_d<TQ, TKV, 64>(G, q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    case 128: return launch_d<TQ, TKV, 128>(G, q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    case 256:
+      // bf16 q and cache at D = 256 go to decode_ring_kernel
+      if constexpr (!std::is_same_v<TQ, __nv_bfloat16>)
+        return launch_d<TQ, TKV, 256>(G, q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -274,24 +642,37 @@ extern "C" {
 
 // dtype codes: 0 = float32, 1 = bfloat16. q and out share q_dtype; the
 // cache may be bf16 under f32 queries (the reference keeps its KV cache in
-// bf16 for f32 parameters). Returns cudaGetLastError() after the launches,
-// or cudaErrorInvalidValue for a shape or type the kernel does not take.
+// bf16 for f32 parameters). Scratch from the caller: part_acc (B*Hq*nsplit*D
+// f32), part_ml (B*Hq*nsplit*2 f32) and, for the bf16 kernel, tickets
+// (B*Hkv int32, zero before the first launch; each launch leaves them zero).
+// Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
+// for a shape or type the kernel does not take.
 int decode_attn_launch(const void* q, const void* k, const void* v, const void* lengths,
-                       void* out, void* part_acc, void* part_ml, int B, int S, int Hq,
-                       int Hkv, int D, int nsplit, int chunk, float scale, float softcap,
+                       void* out, void* part_acc, void* part_ml, void* tickets, int B, int S,
+                       int Hq, int Hkv, int D, int nsplit, float scale, float softcap,
                        int q_dtype, int kv_dtype, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || nsplit <= 0 || chunk <= 0) return cudaErrorInvalidValue;
+  if (Hkv <= 0 || Hq % Hkv != 0 || nsplit <= 0 || S <= 0) return cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   const int* len = static_cast<const int*>(lengths);
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
+  int* tk = static_cast<int*>(tickets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (q_dtype == 1 && kv_dtype == 1 && D == kRingD) {
+    switch (G) {
+      case 1: return launch_ring<1>(q, k, v, len, out, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+      case 2: return launch_ring<2>(q, k, v, len, out, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+      case 4: return launch_ring<4>(q, k, v, len, out, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+      case 8: return launch_ring<8>(q, k, v, len, out, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   if (q_dtype == 0 && kv_dtype == 0)
-    return launch_t<float, float>(D, G, q, k, v, len, out, pa, pm, B, S, Hkv, nsplit, chunk, scale, softcap, st);
+    return launch_t<float, float>(D, G, q, k, v, len, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
   if (q_dtype == 1 && kv_dtype == 1)
-    return launch_t<__nv_bfloat16, __nv_bfloat16>(D, G, q, k, v, len, out, pa, pm, B, S, Hkv, nsplit, chunk, scale, softcap, st);
+    return launch_t<__nv_bfloat16, __nv_bfloat16>(D, G, q, k, v, len, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
   if (q_dtype == 0 && kv_dtype == 1)
-    return launch_t<float, __nv_bfloat16>(D, G, q, k, v, len, out, pa, pm, B, S, Hkv, nsplit, chunk, scale, softcap, st);
+    return launch_t<float, __nv_bfloat16>(D, G, q, k, v, len, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
   return cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,7 @@
-"""ctypes wrapper of the CUDA decode attention kernel (``csrc/decode_attn.cu``).
+"""ctypes wrapper of the CUDA decode attention kernels (``csrc/decode_attn.cu``).
 
-``decode_attention_cuda.launches`` counts the calls that launched the
-kernel; nothing else changes it.
+``decode_attention_cuda.launches`` counts the calls that launched a kernel;
+nothing else changes it.
 """
 from __future__ import annotations
 
@@ -20,14 +20,14 @@ DTYPE_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
                (torch.float32, torch.bfloat16))
 HEAD_DIMS = (32, 64, 128, 256)
 GROUPS = (1, 2, 4, 8)
-KEYS_PER_STEP = 16   # keys a block takes per loop step (4 warps x 4 keys)
+MIN_KEYS_PER_SPLIT = 64   # no more splits than 64-slot pieces of the cache
 
 
 @functools.cache
 def _entry():
     lib = _build.load("decode_attn")
     fn = lib.decode_attn_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
@@ -38,13 +38,41 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_plan(batch: int, hkv: int, s: int, sm_count: int):
-    """(splits, chunk): enough blocks for two per SM, chunks of at least 64
-    keys, in whole loop steps."""
-    want = math.ceil(2 * sm_count / max(batch * hkv, 1))
-    splits = max(1, min(want, math.ceil(s / 64)))
-    chunk = math.ceil(math.ceil(s / splits) / KEYS_PER_STEP) * KEYS_PER_STEP
-    return math.ceil(s / chunk), chunk
+def split_plan(batch: int, hkv: int, s: int, sm_count: int) -> int:
+    """Splits of each (batch row, kv head)'s keys: one block an SM, and the
+    grid in one wave (batch * hkv * splits <= sm_count) wherever the pairs
+    alone do not exceed the SMs, but no more splits than the cache has
+    pieces of MIN_KEYS_PER_SPLIT slots."""
+    pairs = max(batch * hkv, 1)
+    return max(1, min(sm_count // pairs, math.ceil(s / MIN_KEYS_PER_SPLIT)))
+
+
+def split_range(length: int, s: int, splits: int, split: int):
+    """(start, end) of the keys that split ``split`` streams, as the kernels
+    compute it: an equal share of the row's valid slots, or of all ``s``
+    when ``length`` <= 0 (every score masked, the softmax uniform)."""
+    n = s if length <= 0 else min(length, s)
+    return split * n // splits, (split + 1) * n // splits
+
+
+_SCRATCH = {}
+
+
+def _scratch(device: torch.device, stream: int, n_tickets: int, n_partials: int):
+    """(tickets, partials) for launches on ``stream`` (a CUDA stream handle)
+    of ``device``: at least ``n_tickets`` int32 counters, zero between
+    launches (the bf16 kernel's last block of each (row, kv head) resets
+    its own), and at least ``n_partials`` f32 for the splits' partials.
+    Launches on one stream never overlap and each stream has its own set,
+    so a call allocates nothing but its output."""
+    key = (device.type, device.index, stream)
+    tickets, partials = _SCRATCH.get(key, (None, None))
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(max(n_tickets, 64), dtype=torch.int32, device=device)
+    if partials is None or partials.numel() < n_partials:
+        partials = torch.empty(n_partials, dtype=torch.float32, device=device)
+    _SCRATCH[key] = tickets, partials
+    return tickets, partials
 
 
 def decode_attention_cuda(q, cache_k, cache_v, lengths, *, scale: float,
@@ -67,22 +95,25 @@ def decode_attention_cuda(q, cache_k, cache_v, lengths, *, scale: float,
         raise ValueError(f"unsupported dtypes q {q.dtype} cache {cache_k.dtype}")
     if not (cache_k.is_contiguous() and cache_v.is_contiguous()):
         raise ValueError("the KV cache must be contiguous")
+    if s == 0:
+        raise ValueError("the KV cache has no slots")
     q = q.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     for t in (q, cache_k, cache_v):
         if t.data_ptr() % 16:
             raise ValueError("decode_attention_cuda needs 16-byte aligned tensors")
 
-    splits, chunk = split_plan(b, hkv, s, _sm_count(q.device.index or 0))
+    splits = split_plan(b, hkv, s, _sm_count(q.device.index or 0))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
-    part_acc = torch.empty(b * hq * splits * d, dtype=torch.float32, device=q.device)
-    part_ml = torch.empty(b * hq * splits * 2, dtype=torch.float32, device=q.device)
+    n_acc = b * hq * splits * d      # part_acc, then part_ml (b * hq * splits * 2)
+    tickets, partials = _scratch(q.device, stream, b * hkv, n_acc + b * hq * splits * 2)
+    part_acc = partials.data_ptr()
     lib, fn = _entry()
     code = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), lengths.data_ptr(),
-              out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-              b, s, hq, hkv, d, splits, chunk, float(scale), float(softcap),
-              DTYPE_CODES[q.dtype], DTYPE_CODES[cache_k.dtype],
-              torch.cuda.current_stream(q.device).cuda_stream)
+              out.data_ptr(), part_acc, part_acc + 4 * n_acc, tickets.data_ptr(),
+              b, s, hq, hkv, d, splits, float(scale), float(softcap),
+              DTYPE_CODES[q.dtype], DTYPE_CODES[cache_k.dtype], stream)
     _build.check(lib, "decode_attn", code)
     decode_attention_cuda.launches += 1
     return out

@@ -51,10 +51,11 @@
 //    cores, far from the tensor-core bound; it serves f32 checks, not the
 //    bf16 serving path.
 
-#include <cuda.h>   // CUtensorMap and its enums; the driver call is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"   // mbarriers, TMA, ex2/rcp, the tensor-map encoder
 
 namespace {
 
@@ -219,7 +220,6 @@ constexpr int kWgRows = 64;       // query rows a consumer warpgroup
 constexpr int kBK = 64;           // keys a tile
 constexpr int kStages = 2;        // K and V ring stages
 constexpr int kWgmmaThreads = 3 * 128;   // producer warpgroup + 2 consumer warpgroups
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kRegrow = 8.f;    // log2 units a row maximum may grow before O is rescaled
 
 // Shared-memory image of a 64-row tile of D bf16 columns, as the TMA box
@@ -240,56 +240,6 @@ struct Tile {
   // to align the base to the swizzle pattern's 1024 bytes.
   static constexpr size_t SMEM = 1024 + (size_t)(2 + 2 * kStages) * BYTES + 128;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait for the phase of parity `parity` to complete. A wait that lasts
-// ~10 s of SM clocks traps, so a broken pipeline fails its launch instead
-// of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long t0 = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) {
-      t0 = clock64();
-    } else if (clock64() - t0 > 20000000000LL) {
-      __trap();
-    }
-  }
-}
-
-// One box (CW columns x 1 head x 64 rows x 1 batch) of a 4-D map over
-// (D, H, S, B); rows past S arrive as zeros.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
 
 // Named barriers 1 and 2 pass the right to issue wgmma between the two
 // consumer warpgroups (256 threads: one side syncs, the other arrives).
@@ -325,17 +275,6 @@ __device__ __forceinline__ void pin(uint32_t (&r)[4][4]) {
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float rcp(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -724,33 +663,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, fetched through the runtime so
-// that the library needs no -lcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-cudaError_t encode_tiled(EncodeTiledFn* out) {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  *out = fn;
-  return cudaSuccess;
-}
-
 // A 4-D map over a (B, S, H, D) bf16 tensor, innermost first, with a box of
 // CW columns of one head and 64 rows, swizzled as Tile<D> lays it out.
 // Rows past S read as zeros; the next sequence is never read.
@@ -776,8 +688,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
                        int Skv, int Hq, int Hkv, float scale, float softcap, int causal,
                        int window, cudaStream_t st) {
   constexpr size_t smem = f32_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err = allow_smem(flash_f32_kernel<D>, (int)smem, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kF32BQ - 1) / kF32BQ, B * Hq);
   flash_f32_kernel<D><<<grid, kThreads, smem, st>>>(
@@ -791,8 +703,8 @@ cudaError_t launch_wgmma_cap(const CUtensorMap& tq, const CUtensorMap& tk, const
                              void* o, int B, int Sq, int Skv, int Hq, int Hkv, float mul,
                              float cap2, int causal, int window, cudaStream_t st) {
   constexpr size_t smem = Tile<D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D, CAP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err = allow_smem(flash_wgmma_kernel<D, CAP>, (int)smem, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
   flash_wgmma_kernel<D, CAP><<<grid, kWgmmaThreads, smem, st>>>(

@@ -172,20 +172,3 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors only"):
         CK.ciao_gather_cuda(torch.zeros((4, 8)), idx, idx, idx[:1], c_main=4, c_iso=1)
     assert CK.ciao_gather_cuda.launches == before
-
-
-@pytest.mark.parametrize("slots,row_bytes,streams,want", [
-    (320, 4608, 48, 1),          # gemma2-2b's table, 256 + 64 slots: one slot a block
-    (80, 512, 4, 1),             # the kernel tests' shapes
-    (4096, 512, 4, 15),          # many slots: about two blocks per SM
-    (4096, 65536, 4, 3),         # wide rows: as many as shared memory holds
-])
-def test_warps_per_block_fits_shared_memory(slots, row_bytes, streams, want):
-    w = CK.warps_per_block(slots, row_bytes, streams, sm_count=132)
-    assert w == want
-    assert w * (-(-row_bytes // 16) * 16 + 4) + 8 * streams <= CK.SMEM_BYTES
-
-
-def test_warps_per_block_refuses_a_row_that_does_not_fit():
-    with pytest.raises(ValueError, match="shared memory"):
-        CK.warps_per_block(320, CK.SMEM_BYTES, 4, sm_count=132)

@@ -14,7 +14,8 @@ from repro_torch import configs as C
 from repro_torch import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tools").glob("*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

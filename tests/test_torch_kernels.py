@@ -9,6 +9,7 @@ the card (``chip_smoke.py``); here their dispatch, argument checks and
 error paths are tested.
 """
 import types
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -164,6 +165,33 @@ def test_failed_launch_raises():
 @pytest.mark.parametrize("batch,hkv,s", [(4, 4, 4096), (4, 4, 4640), (1, 1, 7),
                                          (2, 2, 300), (64, 8, 2048)])
 def test_decode_split_plan_covers_the_cache(batch, hkv, s):
-    splits, chunk = DK.split_plan(batch, hkv, s, sm_count=132)
-    assert chunk % DK.KEYS_PER_STEP == 0
-    assert (splits - 1) * chunk < s <= splits * chunk
+    splits = DK.split_plan(batch, hkv, s, sm_count=132)
+    ranges = [DK.split_range(s, s, splits, i) for i in range(splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == s
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+def test_build_digest_covers_the_shared_headers(monkeypatch, tmp_path):
+    """An edited shared header gives every kernel a new library name, so it
+    is rebuilt; a file that is not a header changes nothing."""
+    (tmp_path / "k" / "csrc").mkdir(parents=True)
+    (tmp_path / "k" / "csrc" / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "KERNELS_DIR", tmp_path)
+    first = _build._paths("k")[1]
+    (tmp_path / "notes.txt").write_text("not a header\n")
+    assert _build._paths("k")[1] == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._paths("k")[1] != first
+
+
+def test_every_included_header_is_on_the_include_path(monkeypatch):
+    """Each quoted #include of a kernel source names a shared header that
+    nvcc finds through its -I, and that the digest covers."""
+    import re
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    cmd = _build.nvcc_command(_build.source("decode_attn"), Path("out.so"))
+    include = Path(cmd[cmd.index("-I") + 1])
+    for name in ("ciao_gather", "decode_attn", "flash_attn"):
+        for header in re.findall(r'#include "([^"]+)"', _build.source(name).read_text()):
+            assert (include / header) in _build.headers(), (name, header)

@@ -32,10 +32,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tools"))
 
 import chip_smoke as C  # noqa: E402
+from probe_util import OUT, build_all, edited  # noqa: E402
 
-OUT = ROOT / "build" / "probe"
 NO_SOFTMAX = ('''  if (mask)
     softmax_tile<CAP, true>(s, mul, cap2, kt, c0, ra, Skv, causal, window, m, corr, psum);
   else
@@ -48,7 +49,7 @@ VARIANTS = [
     ("no_loads", False, [("        mbar_expect_tx(full, T::BYTES);\n",
                           "        if (i >= kStages) { mbar_arrive(full); return; }\n"
                           "        mbar_expect_tx(full, T::BYTES);\n")]),
-    ("no_pingpong", True, [("named_sync(1 + cw);", ""), ("named_arrive(2 - cw);", ""),
+    ("no_pingpong", True, [("named_sync(1 + cw);", "", 3), ("named_arrive(2 - cw);", "", 2),
                            ("if (cw == 1) named_arrive(1);", ""),
                            ("if (cw == 0) named_arrive(2);", "")]),
     ("forward_order", True, [("const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;",
@@ -90,29 +91,10 @@ PHASES = ["wait for K and V", "wait for the turn", "issue", "wait for QK", "soft
           "wait for PV", "rescale"]
 
 
-def edited(src: str, edits, counted=False) -> str:
-    for edit in edits:
-        a, b = edit[:2]
-        if a not in src or (counted and src.count(a) != edit[2]):
-            raise SystemExit(f"flash_probe: the source no longer has {a!r}")
-        src = src.replace(a, b)
-    return src
-
-
-def build_all(sources):
+def build_libs(sources):
     """{name: path.cu} -> {name: (lib, launch fn)}, one nvcc each, in parallel."""
-    from repro_torch.kernels import _build
-    procs = {}
-    for name, cu in sources.items():
-        so = OUT / f"lib{name}.so"
-        procs[name] = (subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
-                                         str(cu)], stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), so)
     libs = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate(timeout=_build.BUILD_TIMEOUT_S)
-        if proc.returncode:
-            raise SystemExit(f"flash_probe: {name} does not build:\n{log[-4000:]}")
+    for name, so in build_all(sources).items():
         lib = ctypes.CDLL(str(so))
         fn = lib.flash_attn_launch
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
@@ -147,11 +129,11 @@ def main() -> None:
         sources[name], right[name] = Path(path), True
     if args.timeline:
         for name in ("kernel", "no_softmax"):
-            src = edited((OUT / f"{name}.cu").read_text(), STAMPS, counted=True) + STAMP_READ
+            src = edited((OUT / f"{name}.cu").read_text(), STAMPS) + STAMP_READ
             (OUT / f"{name}_stamped.cu").write_text(src)
             sources[f"{name}_stamped"] = OUT / f"{name}_stamped.cu"
     t0 = time.perf_counter()
-    libs = build_all(sources)
+    libs = build_libs(sources)
     C.log(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s")
 
     def use(name):
