@@ -31,10 +31,23 @@ Phases, each of which exits non-zero on failure:
     calls) beside their bounds, the plain versions and one PyTorch library
     call of the same function, with the device time of K1's and K2's
     launches under the profiler, and K2's time over a CUDA graph of 100
-    calls (``device_ms``: without the host's launch cost).
+    calls (``device_ms``: without the host's launch cost);
+ 7. the simulator path: the port's C stepper builds; the 7 single-SM golden
+    cells through ``run_batched(cells)`` (the torch stepper, on the card by
+    default) equal the golden records field by field; the fig8 grid (12
+    apps x 7 policies, scale 0.5), the 1,024-cell knob sweep and the golden
+    mix at scale 0.05 replicated to 3,584 cells give torch records equal to
+    the C stepper's; each batch is timed once on each stepper, with the
+    iterations, the CUDA graph's capture and peak memory, the sweep's chunk
+    under the profiler (device idle share), and the batch width from which
+    torch wins, if any (``tools/stepper_probe.py`` times other widths and
+    repeats).
 
-The line before the last is one JSON object of per-kernel numbers; the last
-line is {"ok": true, "device": {...}}. Without a card, or outside a checkout
+Phase 2 also shows that the attention kernels refuse CUDA inputs that
+require grad (they have no backward). Before the card line comes one JSON
+object {"stepper": ...} of phase 7's numbers; the line before the last is
+one JSON object of per-kernel numbers; the last line is
+{"ok": true, "device": {...}}. Without a card, or outside a checkout
 of the repository, it prints no result and exits non-zero.
 """
 from __future__ import annotations
@@ -391,6 +404,33 @@ def check_gather(gen, errs, failed):
         f"{misses[1]} with stream 3 isolated (want fewer than {misses[0] / 3:.1f})")
     if not misses[1] < misses[0] / 3:
         failed.append("ciao_gather isolation does not protect the main partition")
+
+
+def check_forward_only():
+    """The attention kernels have no backward: on the card, a call whose
+    input requires grad under grad mode raises; under no_grad it runs."""
+    import torch
+    from repro_torch.kernels.decode_attn import ops as DO
+    from repro_torch.kernels.flash_attn import ops as FO
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn(1, 64, 2, 64, generator=gen, device="cuda") for _ in range(3))
+    lens = torch.full((1,), 64, dtype=torch.int32, device="cuda")
+    calls = {"flash_attention": lambda x: FO.flash_attention(x, k, v),
+             "decode_attention": lambda x: DO.decode_attention(x[:, :1], k, v, lens)}
+    for name, call in calls.items():
+        w = q.clone().requires_grad_(True)
+        try:
+            call(w)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            fail(f"{name} on CUDA inputs that require grad did not raise")
+        with torch.no_grad():
+            call(w)
+    sync()
+    log("[2] flash_attention and decode_attention refuse CUDA inputs that require grad "
+        "(no backward) and run under no_grad")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -774,8 +814,195 @@ def time_kernels(errs, launches, card, gather):
     return kernels
 
 
+# ------------------------------------------------------------------ phase 7
+# The simulator path: the batched engine's torch stepper on the card against
+# the golden cells and the port's C stepper. The grids are the reference's
+# benchmarks/bench_batched.py ones, rebuilt here from the port's modules.
+GOLDEN = ROOT / "tests" / "golden" / "golden_cells.json.gz"
+SIM_FIELDS = ("policy", "cycles", "instructions", "ipc", "l1_hit_rate",
+              "vta_hits", "mean_active_warps", "timeline", "pairs")
+FIG8_APPS = ("kmn", "bicg", "mvt", "kmeans", "syrk", "gesummv", "syr2k", "ii",
+             "backprop", "conv2d", "gaussian", "nw")
+POLICIES = ("gto", "ccws", "best-swl", "statpcal", "ciao-p", "ciao-t", "ciao-c")
+SWEEP_APPS = ("kmn", "syrk", "nw", "bicg")
+GRID_SCALE, WIDTH_SCALE, WIDTH = 0.5, 0.05, 3584
+
+
+def golden_sm_cells():
+    import gzip
+    doc = json.loads(gzip.decompress(GOLDEN.read_bytes()).decode())
+    return [c for c in doc["cells"] if c["kind"] == "sm"]
+
+
+def golden_batch(cells, scale=None):
+    """The golden single-SM cells as BatchCells (at their own scale, or at
+    ``scale``), one workload object a (name, seed, scale)."""
+    from repro_torch.core.batched import BatchCell
+    from repro_torch.workloads import make_workload
+    wls, batch = {}, []
+    for c in cells:
+        key = (c["workload"], c["seed"], c["scale"] if scale is None else scale)
+        if key not in wls:
+            wls[key] = make_workload(key[0], seed=key[1], scale=key[2])
+        batch.append(BatchCell(wls[key], c["policy"], dict(c["policy_kwargs"])))
+    return batch
+
+
+def fig8_batch(scale=GRID_SCALE):
+    """bench_batched.py's fig8 grid: 12 apps x 7 policies, seed 0."""
+    from repro_torch.core.batched import BatchCell
+    from repro_torch.workloads import make_workload
+    return [BatchCell(make_workload(w, seed=0, scale=scale), p)
+            for w in FIG8_APPS for p in POLICIES]
+
+
+def sweep_batch(scale=GRID_SCALE):
+    """bench_batched.py's knob sweep: 4 apps x ciao-c x 256 detector
+    variants (32 cutoffs x 8 low epochs), each capped at 20,000 cycles."""
+    from repro_torch.core.batched import BatchCell
+    from repro_torch.core.interference import DetectorConfig
+    from repro_torch.core.simulator import SimConfig
+    from repro_torch.workloads import make_workload
+    cfgs = []
+    for i in range(32):
+        cut = round(0.2 + 0.75 * i / 31, 3)
+        for e in (25, 50, 100, 200, 400, 800, 1600, 3200):
+            cfgs.append(SimConfig(max_cycles=20_000, detector=DetectorConfig(
+                low_cutoff=cut, high_cutoff=min(cut + 0.2, 0.97),
+                low_epoch=e, high_epoch=e * 20)))
+    return [BatchCell(make_workload(w, seed=0, scale=scale), "ciao-c", cfg=cfg)
+            for w in SWEEP_APPS for cfg in cfgs]
+
+
+def golden_mismatches(results, cells):
+    """Fields of each result that differ from its golden record, compared
+    as tests/test_batched.py compares them."""
+    import dataclasses
+    bad = []
+    for c, res in zip(cells, results):
+        got = dataclasses.asdict(res)
+        got["timeline"] = [list(t) for t in got["timeline"]]
+        want = c["result"]
+        bad += [f"{c['workload']}/{c['policy']}: {f}" for f in SIM_FIELDS if got[f] != want[f]]
+        bad += [f"{c['workload']}/{c['policy']}: stat {k}" for k, v in want["stats"].items()
+                if got["stats"].get(k) != v]
+    return bad
+
+
+def run_stepper(batch, backend):
+    """One run of a batch on a stepper through the engine's public entry
+    point (the torch stepper on the card, its default): (results, engine
+    perf)."""
+    import torch
+    from repro_torch.core.batched import BatchedSMEngine
+    if backend == "torch":
+        torch.cuda.reset_peak_memory_stats()
+        eng = BatchedSMEngine(batch)
+    else:
+        eng = BatchedSMEngine(batch, backend=backend)
+    res = eng.run()
+    perf = dict(eng.perf)
+    if backend == "torch":
+        perf["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res, perf
+
+
+def time_steppers(label, batch):
+    """One run of a batch on the C stepper, then one on the torch stepper;
+    fails unless the torch records equal the C stepper's. A torch run that
+    captures its CUDA graph reports the capture apart (``capture_s``, left
+    out of ``torch_s``). Returns (the row of the stepper table, the torch
+    results, the CUDA graph the torch run replayed)."""
+    import dataclasses
+    from repro_torch.core import torch_backend
+    res_c, perf_c = run_stepper(batch, "c")
+    res_t, perf_t = run_stepper(batch, "torch")
+    graph = torch_backend.GRAPHS.last
+    if perf_t["graph"] and graph is None:
+        fail(f"stepper {label}: the torch run replayed no recorded graph")
+    got = [dataclasses.asdict(r) for r in res_t]
+    want = [dataclasses.asdict(r) for r in res_c]
+    if got != want:
+        bad = sum(a != b for a, b in zip(got, want))
+        fail(f"stepper {label}: {bad} of {len(batch)} torch records differ from the C "
+             f"stepper's")
+    torch_s, c_s = perf_t["stepper_s"] - perf_t["capture_s"], perf_c["stepper_s"]
+    row = {"cells": len(batch), "iterations": int(perf_t["iterations"]),
+           "graph": bool(perf_t["graph"]), "torch_first_s": perf_t["stepper_s"],
+           "capture_s": perf_t["capture_s"], "torch_s": torch_s, "c_s": c_s,
+           "torch_cells_per_s": len(batch) / torch_s, "c_cells_per_s": len(batch) / c_s,
+           "ms_per_iteration": 1e3 * torch_s / max(perf_t["iterations"], 1),
+           "peak_gb": perf_t["peak_gb"], "build_s": perf_t["build_s"],
+           "drain_s": perf_t["drain_s"]}
+    log(f"  {label}: {len(batch)} cells, records equal to the C stepper's; torch "
+        f"{'graph' if row['graph'] else 'eager'} {torch_s:.3f} s ({row['iterations']} "
+        f"iterations, {row['ms_per_iteration']:.4f} ms each; {row['capture_s']:.3f} s "
+        f"capture apart), C {c_s:.4f} s; cells/s torch {row['torch_cells_per_s']:.1f}, "
+        f"C {row['c_cells_per_s']:.1f}; peak {row['peak_gb']:.3f} GB; engine build "
+        f"{row['build_s']:.2f} s, finalize {row['drain_s']:.2f} s")
+    return row, res_t, graph
+
+
+def chunk_idle_share(graph, ms_per_iteration=None, top=3):
+    """One replay of ``graph`` (a captured chunk) under the profiler: its
+    device busy ms, and the idle share 1 - busy / wall, both against the
+    profiler's wall (which the profiler itself lengthens) and against the
+    chunk's time without it (``ms_per_iteration`` x the chunk length)."""
+    from repro_torch.core import torch_backend
+    prof = device_profile(graph.graph.replay, top=top)
+    busy = prof["device_busy_ms"]
+    out = {"wall_ms": prof["wall_ms"], "device_busy_ms": busy, "top": prof["top"],
+           "idle_share_profiled": None if busy is None else 1.0 - busy / prof["wall_ms"]}
+    if ms_per_iteration is not None:
+        out["chunk_ms"] = ms_per_iteration * torch_backend.CHUNK
+        out["idle_share"] = None if busy is None else 1.0 - busy / out["chunk_ms"]
+    return out
+
+
+def simulator_path(card):
+    """Phase 7: the golden cells, the fig8 grid, the knob sweep and the
+    golden batch at scale 0.05 and 3,584 cells through the torch stepper on
+    the card, each held against the C stepper and timed once."""
+    from repro_torch.core import _cstep
+    from repro_torch.core.batched import run_batched
+    t_phase = time.perf_counter()
+    if not _cstep.available():
+        fail(f"the port's C stepper does not build: {_cstep.unavailable_reason()}")
+    cells = golden_sm_cells()
+    log(f"[7] simulator path: the C stepper built ({_cstep.BUILD_DIR.relative_to(ROOT)}); "
+        f"{len(cells)} golden single-SM cells at scale {cells[0]['scale']}")
+    batch = golden_batch(cells)
+    out = {"card": card}
+    out["golden"], res, _ = time_steppers("golden", batch)
+    bad = golden_mismatches(res, cells) + golden_mismatches(run_batched(batch, backend="c"), cells)
+    if bad:
+        fail(f"the steppers disagree with the golden cells: {bad[:10]}")
+    log("  golden: every field of the 7 cells equals golden_cells.json.gz through the torch "
+        "stepper on cuda and through the C stepper")
+    out["fig8"] = time_steppers(f"fig8 (12 apps x 7 policies, scale {GRID_SCALE})",
+                                fig8_batch())[0]
+    out["sweep"], _, graph = time_steppers(f"sweep (4 apps x ciao-c x 256 variants, 20,000 "
+                                           f"cycles, scale {GRID_SCALE})", sweep_batch())
+    out["sweep"]["idle"] = chunk_idle_share(graph, out["sweep"]["ms_per_iteration"])
+    log(f"  one chunk of the sweep under the profiler: {out['sweep']['idle']}")
+    base = golden_batch(cells, WIDTH_SCALE)
+    out["wide"] = time_steppers(f"golden x {WIDTH // len(base)} at scale {WIDTH_SCALE}",
+                                base * (WIDTH // len(base)))[0]
+    runs = sorted((r["cells"], r["torch_s"] < r["c_s"]) for k, r in out.items()
+                  if isinstance(r, dict) and "cells" in r)
+    wins = [w for w, won in runs if won]
+    out["crossover"] = wins[0] if wins else None
+    log("  crossover: " + (f"torch beats the C stepper from {wins[0]} cells" if wins else
+                           f"none up to {runs[-1][0]} cells: the C stepper is faster on "
+                           f"every batch run"))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 7 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     import torch
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
@@ -793,10 +1020,14 @@ def main() -> None:
     errs, failed = check_kernels()
     if failed:
         fail(f"{len(failed)} kernel checks disagree with the plain versions: {failed}")
+    check_forward_only()
     check_reduced()
     launches = serve_full_width(card)
     launches["ciao_gather"], gather = gather_full_width(errs)
     kernels = time_kernels(errs, launches, card, gather)
+    stepper = simulator_path(card)
+    log(f"the script took {time.perf_counter() - t_script:.1f} s, kernels' build included")
+    log(json.dumps({"stepper": stepper}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

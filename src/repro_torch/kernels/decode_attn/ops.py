@@ -3,11 +3,14 @@
 ``decode_attention`` launches the CUDA kernel when any argument is a CUDA
 tensor (the kernel raises unless all are) and takes the plain torch version
 only when all are CPU tensors; it never falls back from one to the other.
+The kernel has no backward: on CUDA, an input that requires grad under
+grad mode raises (``forward_only``).
 """
 from __future__ import annotations
 
 import math
 
+from repro_torch.kernels import forward_only
 from repro_torch.kernels.decode_attn import kernel
 from repro_torch.kernels.decode_attn.ref import decode_ref
 
@@ -19,6 +22,7 @@ def decode_attention(q, cache_k, cache_v, lengths, *, softcap: float = 0.0,
     scale = scale or 1.0 / math.sqrt(q.shape[-1])
     devices = {t.device.type for t in (q, cache_k, cache_v, lengths)}
     if "cuda" in devices:
+        forward_only("decode_attention", q, cache_k, cache_v)
         return kernel.decode_attention_cuda(q, cache_k, cache_v, lengths,
                                             scale=scale, softcap=softcap)
     if devices != {"cpu"}:

@@ -3,11 +3,14 @@
 ``flash_attention`` launches the CUDA kernel when any argument is a CUDA
 tensor (the kernel raises unless all are) and takes the plain torch version
 only when all are CPU tensors; it never falls back from one to the other.
+The kernel has no backward: on CUDA, an input that requires grad under
+grad mode raises (``forward_only``).
 """
 from __future__ import annotations
 
 import math
 
+from repro_torch.kernels import forward_only
 from repro_torch.kernels.flash_attn import kernel
 from repro_torch.kernels.flash_attn.ref import attention_ref
 
@@ -19,6 +22,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     scale = scale or 1.0 / math.sqrt(q.shape[-1])
     devices = {t.device.type for t in (q, k, v)}
     if "cuda" in devices:
+        forward_only("flash_attention", q, k, v)
         return kernel.flash_attention_cuda(q, k, v, scale=scale, causal=causal,
                                            window=window, softcap=softcap)
     if devices != {"cpu"}:

@@ -6,9 +6,10 @@
 
 --check     build the kernels and run phase 2 of chip_smoke.py (each kernel
             against its plain version at its grid and edge cases);
---broken    build broken copies of both kernels (text edits of the sources,
+--broken    build broken copies of K1, K2 and K3 (text edits of the sources,
             under build/probe/) and run phase 2's checks of that kernel with
-            each, printing which checks fail;
+            each, printing which checks fail (K3's copy without the K stage
+            wait also with a slowed producer, and the slowed producer alone);
 --variants  time text-edited variants of both kernels in turns at the main
             paths' shapes; those marked "wrong" leave out part of the work on
             purpose and only say what that part costs;
@@ -57,7 +58,25 @@ import chip_smoke as C  # noqa: E402
 from probe_util import OUT, build_all, edited  # noqa: E402
 
 # (kernel, name, right function?, edits)
+# K3's consumers skip the wait on a K stage's full barrier (every step after
+# the first). The producer issues K one step ahead of V, so the wait is
+# hidden by timing; with the producer issuing V first and sleeping before
+# each K load, the checks catch the copy. The slow producer alone is a
+# right kernel and must pass.
+K3_SKIP_K_WAIT = ("        mbar_wait(full_k(sk), (i / kStages) & 1);\n", "")
+K3_SLOW_PRODUCER = (
+    "        if (i + 1 < n)\n"
+    "          load(&tm_k, sK, full_k((i + 1) % kStages), empty_k((i + 1) % kStages), i + 1);\n"
+    "        load(&tm_v, sV, full_v(i % kStages), empty_v(i % kStages), i);\n",
+    "        load(&tm_v, sV, full_v(i % kStages), empty_v(i % kStages), i);\n"
+    "        if (i + 1 < n) {\n"
+    "          __nanosleep(20000);\n"
+    "          load(&tm_k, sK, full_k((i + 1) % kStages), empty_k((i + 1) % kStages), i + 1);\n"
+    "        }\n")
 BROKEN = [
+    ("flash_attn", "skip_k_stage_wait", [K3_SKIP_K_WAIT]),
+    ("flash_attn", "skip_k_stage_wait_slow_producer", [K3_SKIP_K_WAIT, K3_SLOW_PRODUCER]),
+    ("flash_attn", "slow_producer_alone_right", [K3_SLOW_PRODUCER]),
     ("decode_attn", "skip_stage1_full_wait", [(
         "      mbar_wait(full0 + 8 * st, (i / kStages) & 1);\n",
         "      if (st != 1) mbar_wait(full0 + 8 * st, (i / kStages) & 1);\n")]),
@@ -117,7 +136,8 @@ def wrappers():
     """The current wrapper module of each kernel."""
     from repro_torch.kernels.ciao_gather import kernel as CK
     from repro_torch.kernels.decode_attn import kernel as DK
-    return {"decode_attn": DK, "ciao_gather": CK}
+    from repro_torch.kernels.flash_attn import kernel as FK
+    return {"decode_attn": DK, "ciao_gather": CK, "flash_attn": FK}
 
 
 def run_broken():
