@@ -15,13 +15,26 @@ Phases, each of which exits non-zero on failure:
     one repeated index, of misses only and of runs longer than a warp's
     batch, with requests out of range, and at the isolation case, where
     isolating the sweeping stream must cut the others' misses by more than
-    3x;
- 3. reduced gemma2-2b: the port's CPU plain path against its CUDA kernel
-    path, logits and greedy tokens;
+    3x; K3 and K2 also at the heads of the zoo's decoder archs (G 3 at D 64,
+    G 4, 6, 7 and 8 at D 128), K2 at random and ragged lengths; and both
+    at the shapes of phases 4b and 4c: K3 at each arch's prefill, K2 at its
+    last decode step, with f32 queries against a bf16 cache too;
+ 3. the reduced configs of gemma2-2b, granite-moe-3b-a800m, arctic-480b,
+    qwen3-4b, nemotron-4-15b and command-r-35b: the port's CPU plain path
+    against its CUDA kernel path, logits and greedy tokens, with an f32 and
+    a bf16 cache, and the launch counts;
  4. full-width gemma2-2b in bf16 with random weights from a seeded
     generator: 4 requests of 4608-token prompts (longer than the 4096-token
     local window), 32 greedy decode steps through ``generate``; the launch
-    counts show the path went through the kernels;
+    counts show the path went through the kernels, the logits are finite,
+    the greedy tokens follow them and a rerun gives the same tokens;
+ 4b. granite-moe-3b-a800m (MoE, 40 experts top-8), whole, with phase 4's
+    workload and checks, and the MoE's device time by kind (sort, gathers,
+    expert products, routing) at the decode step's and the prefill's tokens;
+ 4c. qwen3-4b, nemotron-4-15b and command-r-35b at full depth (command-r cut
+    to 20 layers only if its reckoned peak passes 70 GB) and arctic-480b at
+    1 of its 35 layers (a layer is 13.6 B parameters): 2 x 1024-token
+    prompts, 8 greedy steps, phase 4's checks;
  5. the CIAO gather path at full width: the gather workload's index stream
     (72,000 requests of 48 streams, 6 of them isolated) against a bf16 table
     of gemma2-2b's vocab x d_model, through ``ciao_gather`` with the trace's
@@ -31,7 +44,8 @@ Phases, each of which exits non-zero on failure:
     calls) beside their bounds, the plain versions and one PyTorch library
     call of the same function, with the device time of K1's and K2's
     launches under the profiler, and K2's time over a CUDA graph of 100
-    calls (``device_ms``: without the host's launch cost);
+    calls (``device_ms``: without the host's launch cost); K2 also at the
+    last decode step of granite-moe, nemotron and arctic;
  7. the simulator path: the port's C stepper builds; the 7 single-SM golden
     cells through ``run_batched(cells)`` (the torch stepper, on the card by
     default) equal the golden records field by field; the fig8 grid (12
@@ -189,6 +203,11 @@ FLASH_GRID = [
     (2, 129, 129, 8, 4, 256, True, 0, 50.0), (1, 300, 300, 8, 4, 256, True, 100, 50.0),
     (1, 200, 200, 8, 4, 256, True, 256, 50.0), (2, 100, 177, 8, 4, 256, False, 0, 50.0),
     (2, 150, 150, 4, 2, 32, True, 0, 30.0)]
+# the heads of the zoo's decoder archs, (Hq, Hkv, D): granite-moe (G 3, D
+# 64), qwen3 (G 4), nemotron (G 6), arctic (G 7) and command-r (G 8) at D 128
+ZOO_HEADS = [(24, 8, 64), (32, 8, 128), (48, 8, 128), (56, 8, 128), (64, 8, 128)]
+# K3 at those heads, causal at a ragged length, no softcap (none of them has one)
+FLASH_GRID += [(1, 300, 300, hq, hkv, d, True, 0, 0.0) for hq, hkv, d in ZOO_HEADS]
 # (b, s, hq, hkv, d, lengths or None for random ones): the kernel tests'
 # grid, then the edges of the bf16 ring kernel (D = 256, 32-key tiles, one
 # split per SM's share): length 1 (all but one split empty), length S,
@@ -201,6 +220,10 @@ DECODE_GRID = [(2, 256, 4, 2, 64, None), (3, 512, 4, 4, 128, None), (1, 300, 8, 
                (2, 20, 8, 4, 256, [20, 7]), (2, 700, 8, 4, 256, [3, 700]),
                (2, 300, 8, 4, 256, [0, 150]), (1, 500, 8, 8, 256, None),
                (1, 500, 8, 1, 256, None)]
+# K2 at the zoo's heads on the split kernel: random lengths, and ragged ones
+# (a full row and one that ends inside a split)
+DECODE_GRID += [case for hq, hkv, d in ZOO_HEADS
+                for case in ((2, 700, hq, hkv, d, None), (2, 700, hq, hkv, d, [700, 517]))]
 SCALE = 256 ** -0.5
 
 
@@ -224,7 +247,62 @@ def main_path_inputs(dtype, gen):
     return prefill, decode
 
 
-KERNELS = ("flash_attn", "decode_attn", "ciao_gather")
+def zoo_paths():
+    """(arch, batch, prompt, steps, Hq, Hkv, D, scale) of the zoo's serving
+    paths: granite-moe with phase 4's workload (4b), the others with 4c's."""
+    from repro_torch.configs import get_config
+    out = []
+    for name, (b, sq, steps) in ((GRANITE, (BATCH, SEQ, STEPS)),
+                                 *((a, (ZOO_BATCH, ZOO_SEQ, ZOO_STEPS)) for a in ZOO_ARCHS)):
+        cfg = get_config(name)
+        out.append((name, b, sq, steps, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                    cfg.query_scale or cfg.head_dim ** -0.5))
+    return out
+
+
+def hold_zoo_paths(dtype, gen, hold, only):
+    """Phase 2 at the zoo paths' own shapes, as ``main_path_inputs`` gives
+    gemma2-2b's: K3 at each prefill (causal, no window, no softcap), K2 at
+    each last decode step (every slot valid), and K2 with f32 queries
+    against a bf16 cache."""
+    import torch
+    from repro_torch.kernels.decode_attn import kernel as DK, ops as DO
+    from repro_torch.kernels.flash_attn import kernel as FK, ops as FO
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    for name, b, sq, steps, hq, hkv, d, scale in zoo_paths():
+        if "flash_attn" in only:
+            q, k, v = rnd(b, sq, hq, d), rnd(b, sq, hkv, d), rnd(b, sq, hkv, d)
+            args = dict(scale=scale, causal=True, window=0, softcap=0.0)
+            # the plain version a batch row at a time: granite's (24, 4608,
+            # 4608) f32 scores are 2 GB a row
+            hold("flash_attn", f"{dtype} main {name} prefill {(b, sq, hq, hkv, d)}",
+                 FK.flash_attention_cuda(q, k, v, **args),
+                 lambda w: torch.cat([FO.flash_attention_plain(q[i:i + 1], k[i:i + 1],
+                                                               w[i:i + 1], **args)
+                                      for i in range(b)]), v)
+            del q, k, v
+        if "decode_attn" not in only:
+            continue
+        s = sq + steps
+        dq, ck, cv = rnd(b, 1, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d)
+        lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        args = dict(scale=scale, softcap=0.0)
+        hold("decode_attn", f"{dtype} main {name} last decode step {(b, s, hq, hkv, d)}",
+             DK.decode_attention_cuda(dq, ck, cv, lens, **args),
+             lambda w: DO.decode_attention_plain(dq, ck, w, lens, **args), cv)
+        if dtype == torch.float32:     # f32 queries against a bf16 cache
+            ck, cv = ck.to(torch.bfloat16), cv.to(torch.bfloat16)
+            hold("decode_attn", f"{dtype} q, bf16 cache, main {name} last decode step",
+                 DK.decode_attention_cuda(dq, ck, cv, lens, **args),
+                 lambda w: DO.decode_attention_plain(dq, ck, w, lens, **args), cv)
+        del dq, ck, cv
+    torch.cuda.empty_cache()
+
+
+KERNELS =("flash_attn", "decode_attn", "ciao_gather")
 
 
 def check_kernels(only=KERNELS):
@@ -273,7 +351,9 @@ def check_kernels(only=KERNELS):
                 lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda",
                                      dtype=torch.int32) if lengths is None else \
                     torch.tensor(lengths, dtype=torch.int32, device="cuda")
-                args = dict(scale=d ** -0.5, softcap=50.0)
+                # the zoo's archs have no attention softcap; the others run gemma2's
+                cap = 0.0 if (hq, hkv, d) in ZOO_HEADS else 50.0
+                args = dict(scale=d ** -0.5, softcap=cap)
                 hold("decode_attn", f"{dtype}/{kv_dtype} grid {(b, s, hq, hkv, d, lengths)}",
                      DK.decode_attention_cuda(q, ck, cv, lens, **args),
                      lambda w: DO.decode_attention_plain(q, ck, w, lens, **args), cv)
@@ -298,6 +378,7 @@ def check_kernels(only=KERNELS):
                      lambda w: DO.decode_attention_plain(dq, ck, w, lens, **args), cv)
         del q, k, v, decode
         torch.cuda.empty_cache()
+        hold_zoo_paths(dtype, gen, hold, only)
     if "ciao_gather" in only:
         check_gather(gen, errs["ciao_gather"], failed)
     return errs, failed
@@ -443,34 +524,40 @@ def to_device(tree, device):
 
 
 def check_reduced():
+    """Phase 3: each arch's reduced config, the CPU plain path against the
+    CUDA kernel path, logits and greedy tokens, and the launch counts."""
     import torch
     from repro_torch.configs import reduced_config
     from repro_torch.kernels.decode_attn.kernel import decode_attention_cuda
     from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
     from repro_torch.models.model import init_params
     from repro_torch.serving import generate
-    log("[3] reduced gemma2-2b f32: CPU plain path against the CUDA kernel path")
-    cfg = reduced_config("gemma2-2b")
-    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
-    prompts = torch.randint(0, cfg.vocab_size, (3, 24), generator=torch.Generator().manual_seed(1))
     steps = 10
-    for kv_dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
-        cpu_tok, cpu_logits = generate(cfg, params, prompts, steps, device="cpu",
-                                       kv_dtype=kv_dtype)
-        flash_attention_cuda.launches = decode_attention_cuda.launches = 0
-        tok, logits = generate(cfg, to_device(params, "cuda"), prompts, steps, kv_dtype=kv_dtype)
-        counts = (flash_attention_cuda.launches, decode_attention_cuda.launches)
-        err = max_err(logits.cpu(), cpu_logits)
-        gap = cpu_logits.topk(2, dim=-1).values
-        clear = torch.cat([torch.ones_like(gap[:, :1, 0], dtype=torch.bool),
-                           (gap[:, :-1, 0] - gap[:, :-1, 1]) > tol], dim=1)
-        same = bool((tok.cpu() == cpu_tok)[clear].all())
-        log(f"  kv {kv_dtype}: max|logit err| {err:.3g} (tol {tol:g}), greedy tokens equal "
-            f"where the top-2 gap exceeds it: {same}, launches flash {counts[0]} decode {counts[1]}")
-        if err > tol or not same:
-            fail(f"reduced gemma2-2b CUDA path disagrees with the CPU path (kv {kv_dtype})")
-        if counts != (cfg.num_layers, cfg.num_layers * steps):
-            fail(f"reduced gemma2-2b launch counts {counts}")
+    for name in ("gemma2-2b", GRANITE) + ZOO_ARCHS:
+        log(f"[3] reduced {name} f32: CPU plain path against the CUDA kernel path")
+        cfg = reduced_config(name)
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
+        prompts = torch.randint(0, cfg.vocab_size, (3, 24),
+                                generator=torch.Generator().manual_seed(1))
+        for kv_dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+            cpu_tok, cpu_logits = generate(cfg, params, prompts, steps, device="cpu",
+                                           kv_dtype=kv_dtype)
+            flash_attention_cuda.launches = decode_attention_cuda.launches = 0
+            tok, logits = generate(cfg, to_device(params, "cuda"), prompts, steps,
+                                   kv_dtype=kv_dtype)
+            counts = (flash_attention_cuda.launches, decode_attention_cuda.launches)
+            err = max_err(logits.cpu(), cpu_logits)
+            gap = cpu_logits.topk(2, dim=-1).values
+            clear = torch.cat([torch.ones_like(gap[:, :1, 0], dtype=torch.bool),
+                               (gap[:, :-1, 0] - gap[:, :-1, 1]) > tol], dim=1)
+            same = bool((tok.cpu() == cpu_tok)[clear].all())
+            log(f"  kv {kv_dtype}: max|logit err| {err:.3g} (tol {tol:g}), greedy tokens "
+                f"equal where the top-2 gap exceeds it: {same}, launches flash {counts[0]} "
+                f"decode {counts[1]}")
+            if err > tol or not same:
+                fail(f"reduced {name} CUDA path disagrees with the CPU path (kv {kv_dtype})")
+            if counts != (cfg.num_layers, cfg.num_layers * steps):
+                fail(f"reduced {name} launch counts {counts}")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -495,52 +582,57 @@ def device_profile(fn, top: int = 8):
             "top": [[e.key[:90], e.device_time_total / 1e3, e.count] for e in kernels[:top]]}
 
 
-def serve_full_width(card: str):
+def serve(card, cfg, batch, seq, steps, label, profile=True):
+    """Serve ``cfg`` (bf16, random weights from a seeded generator) through
+    ``generate``: ``batch`` prompts of ``seq`` tokens and ``steps`` greedy
+    steps. Fails unless the launch counts show the kernels ran (K3 once a
+    layer, K2 once a layer a step), the logits are finite, the greedy
+    tokens follow them and a second run of prefill and decode gives the
+    same tokens. Returns (the run's numbers, with prefill and a decode step
+    under the profiler when ``profile``; the parameters)."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attn.kernel import decode_attention_cuda
     from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
     from repro_torch.models import model as M
     from repro_torch.serving import generate
-    cfg = get_config("gemma2-2b")
-    log(f"[4] gemma2-2b bf16 at full width ({cfg.num_layers} layers, d {cfg.d_model}, "
-        f"vocab {cfg.vocab_size}, {cfg.param_count() / 1e9:.2f} B params): "
-        f"{BATCH} x {SEQ}-token prompts, {STEPS} greedy steps")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, gen, "cuda", torch.bfloat16)
-    prompts = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=gen, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device="cuda")
     sync()
     init_s = time.perf_counter() - t0
-    generate(cfg, params, prompts[:, :256], 2)     # warm-up: cuBLAS, allocator
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    generate(cfg, params, prompts[:, :min(seq, 256)], 2)     # warm-up: cuBLAS, allocator
     sync()
 
     torch.cuda.reset_peak_memory_stats()
     flash_attention_cuda.launches = decode_attention_cuda.launches = 0
     t0 = time.perf_counter()
-    tokens, logits = generate(cfg, params, prompts, STEPS)
+    tokens, logits = generate(cfg, params, prompts, steps)
     sync()
     total_s = time.perf_counter() - t0
     launches = {"flash_attn": flash_attention_cuda.launches,
                 "decode_attn": decode_attention_cuda.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {"flash_attn": cfg.num_layers, "decode_attn": cfg.num_layers * STEPS}
+    want = {"flash_attn": cfg.num_layers, "decode_attn": cfg.num_layers * steps}
     log(f"  generate: {total_s * 1e3:.1f} ms, launches {launches} (want {want}), "
-        f"peak memory {peak_gb:.2f} GB, init {init_s:.1f} s")
+        f"peak memory {peak_gb:.2f} GB (while drawing the weights {init_peak_gb:.2f} GB), "
+        f"init {init_s:.1f} s")
     if launches != want:
-        fail(f"launch counts {launches}, want {want}")
-    if tokens.shape != (BATCH, STEPS) or logits.shape != (BATCH, STEPS, cfg.vocab_size):
-        fail(f"shapes tokens {tuple(tokens.shape)} logits {tuple(logits.shape)}")
+        fail(f"{label}: launch counts {launches}, want {want}")
+    if tokens.shape != (batch, steps) or logits.shape != (batch, steps, cfg.vocab_size):
+        fail(f"{label}: shapes tokens {tuple(tokens.shape)} logits {tuple(logits.shape)}")
     if not bool(torch.isfinite(logits.float()).all()):
-        fail("non-finite logits")
+        fail(f"{label}: non-finite logits")
     if not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
-        fail("token out of range")
+        fail(f"{label}: token out of range")
     if not torch.equal(logits[:, :-1].argmax(-1), tokens[:, 1:]):
-        fail("greedy tokens do not follow the logits")
+        fail(f"{label}: greedy tokens do not follow the logits")
 
     # the two phases apart: prefill alone, then the decode steps
     def run_prefill():
-        return M.prefill(cfg, params, {"tokens": prompts}, max_len=SEQ + STEPS)
+        return M.prefill(cfg, params, {"tokens": prompts}, max_len=seq + steps)
 
     sync()
     t0 = time.perf_counter()
@@ -550,40 +642,175 @@ def serve_full_width(card: str):
     tok = logits0.argmax(-1)[:, None]
     fed = []
     t0 = time.perf_counter()
-    for i in range(STEPS):
+    for i in range(steps):
         fed.append(tok)
         step_logits, cache = M.decode_step(cfg, params, tok, pos + 1 + i, cache)
         tok = step_logits.argmax(-1)[:, None]
     sync()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
     # the reference's own check (test_greedy_generation_deterministic): a
     # rerun gives the same greedy sequence
     if not torch.equal(torch.cat(fed, dim=1), tokens):
-        fail("a second run of prefill and decode gave other greedy tokens")
-    # Device busy time from the profiler; the idle share puts it against the
-    # untraced wall time, since tracing slows the host side.
-    pf = device_profile(run_prefill)
-    dec = device_profile(     # the last step again, at its own slot
-        lambda: M.decode_step(cfg, params, tok, pos + STEPS, cache))
-    for prof, wall in ((pf, prefill_ms), (dec, decode_ms)):
-        prof["idle_share"] = 1 - prof["device_busy_ms"] / wall if prof["device_busy_ms"] else None
+        fail(f"{label}: a second run of prefill and decode gave other greedy tokens")
     result = {
+        "layers": cfg.num_layers, "batch": batch, "prompt": seq, "steps": steps,
+        "params_b": cfg.param_count() / 1e9,
         "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
-        "decode_tokens_per_s": BATCH * 1e3 / decode_ms, "generate_ms": total_s * 1e3,
-        "peak_mem_gb": peak_gb, "launches": launches,
-        "prefill_profile": pf, "decode_step_profile": dec, "card": card}
+        "decode_tokens_per_s": batch * 1e3 / decode_ms, "generate_ms": total_s * 1e3,
+        "peak_mem_gb": peak_gb, "init_peak_mem_gb": init_peak_gb, "init_s": init_s,
+        "launches": launches, "card": card}
+    idle = ""
+    if profile:
+        # Device busy time from the profiler; the idle share puts it against
+        # the untraced wall time, since tracing slows the host side.
+        pf = device_profile(run_prefill)
+        dec = device_profile(     # the last step again, at its own slot
+            lambda: M.decode_step(cfg, params, tok, pos + steps, cache))
+        for prof, wall in ((pf, prefill_ms), (dec, decode_ms)):
+            prof["idle_share"] = (1 - prof["device_busy_ms"] / wall
+                                  if prof["device_busy_ms"] else None)
+        result.update(prefill_profile=pf, decode_step_profile=dec)
+        idle = (f", device idle share prefill {pf['idle_share']} decode "
+                f"{dec['idle_share']}")
     log(f"  prefill {prefill_ms:.1f} ms, decode {decode_ms:.3f} ms/step, "
-        f"{result['decode_tokens_per_s']:.1f} tokens/s, device idle share prefill "
-        f"{pf['idle_share']} decode {dec['idle_share']}; on {card}")
-    for what, prof in (("prefill", pf), ("decode step", dec)):
-        log(f"  {what}: device busy {prof['device_busy_ms']} ms "
-            f"(profiled wall {prof['wall_ms']:.1f} ms); top kernels:")
-        for name, ms, calls in prof["top"]:
-            log(f"    {ms:9.3f} ms {calls:5d}x  {name}")
+        f"{result['decode_tokens_per_s']:.1f} tokens/s{idle}; on {card}")
+    for what in ("prefill", "decode_step"):
+        prof = result.get(f"{what}_profile")
+        if prof:
+            log(f"  {what.replace('_', ' ')}: device busy {prof['device_busy_ms']} ms "
+                f"(profiled wall {prof['wall_ms']:.1f} ms); top kernels:")
+            for name, ms, calls in prof["top"]:
+                log(f"    {ms:9.3f} ms {calls:5d}x  {name}")
+    return result, params
+
+
+def serve_full_width(card: str):
+    """Phase 4: gemma2-2b at full width, BATCH x SEQ prompts, STEPS steps."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma2-2b")
+    log(f"[4] gemma2-2b bf16 at full width ({cfg.num_layers} layers, d {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, {cfg.param_count() / 1e9:.2f} B params): "
+        f"{BATCH} x {SEQ}-token prompts, {STEPS} greedy steps")
+    result = serve(card, cfg, BATCH, SEQ, STEPS, "gemma2-2b")[0]
     log(json.dumps({"main_path": result}))
-    del params, cache, logits
     torch.cuda.empty_cache()
-    return launches
+    return result["launches"]
+
+
+# The MoE's kernels by kind, from their names under the profiler: the
+# dispatch plan (sort, scan), gathers and scatters (the dispatch and the
+# combine's reorder), the expert products, routing (top-k, softmax) and the
+# rest (activation, masks, casts, the combine's sum).
+MOE_KINDS = (("sort/scan", ("sort", "Sort", "scan", "Scan", "cummax")),
+             ("gather/scatter", ("index", "Index", "gather", "scatter", "Scatter")),
+             ("bmm", ("gemm", "Gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+             ("route", ("topk", "TopK", "bitonic", "softmax", "Softmax")))
+
+
+def moe_breakdown(cfg, moe_params, tokens):
+    """One ``moe_apply`` of ``tokens`` random bf16 tokens under the
+    profiler: device ms by kind (MOE_KINDS) and the kernels."""
+    import torch
+    from repro_torch.models.moe import moe_apply
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    h = torch.randn(1, tokens, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+    moe_apply(cfg, moe_params, h)          # warm-up
+    prof = device_profile(lambda: moe_apply(cfg, moe_params, h), top=64)
+    kinds = {k: 0.0 for k, _ in MOE_KINDS} | {"other": 0.0}
+    for name, ms, _ in prof["top"]:
+        kind = next((k for k, keys in MOE_KINDS if any(w in name for w in keys)), "other")
+        kinds[kind] += ms
+    return {"tokens": tokens, "wall_ms": prof["wall_ms"],
+            "device_busy_ms": prof["device_busy_ms"], "by_kind_ms": kinds,
+            "top": prof["top"][:10]}
+
+
+def serve_granite(card: str):
+    """Phase 4b: granite-moe-3b-a800m at full width, whole (32 layers),
+    phase 4's workload; with the MoE's device time by kind at the decode
+    step's and the prefill's token counts."""
+    import torch
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    cfg = get_config(GRANITE)
+    log(f"[4b] granite-moe-3b-a800m bf16 at full width ({cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+        f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count() / 1e9:.2f} B params): {BATCH} x {SEQ}-token prompts, "
+        f"{STEPS} greedy steps")
+    result, params = serve(card, cfg, BATCH, SEQ, STEPS, GRANITE)
+    moe = {"decode": moe_breakdown(cfg, params["layers"][0]["moe"], BATCH),
+           "prefill": moe_breakdown(cfg, params["layers"][0]["moe"], BATCH * SEQ)}
+    for what, m in moe.items():
+        step = result[f"{what}_step_profile" if what == "decode" else "prefill_profile"]
+        share = (cfg.num_layers * m["device_busy_ms"] / step["device_busy_ms"]
+                 if m["device_busy_ms"] and step["device_busy_ms"] else None)
+        m["share_of_device_busy"] = share
+        log(f"  MoE of one layer at {what}'s {m['tokens']} tokens: device {m['device_busy_ms']} "
+            f"ms (x {cfg.num_layers} layers = {share} of the {what}'s device time), by kind "
+            + ", ".join(f"{k} {v:.4f}" for k, v in m["by_kind_ms"].items()))
+    result["moe"] = moe
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 4b took {result['phase_s']:.1f} s")
+    log(json.dumps({"granite": result}))
+    del params
+    torch.cuda.empty_cache()
+    return result["launches"]
+
+
+# Phase 4c: the other four archs at full width, batch 2, 1024-token prompts,
+# 8 greedy steps. arctic-480b keeps 1 of its 35 layers (13.6 B parameters a
+# layer: two would hold 55 GB of weights); command-r-35b keeps its 40 unless
+# the reckoned peak exceeds PEAK_BUDGET_GB, and then 20.
+ZOO_BATCH, ZOO_SEQ, ZOO_STEPS = 2, 1024, 8
+GRANITE = "granite-moe-3b-a800m"
+ZOO_ARCHS = ("qwen3-4b", "nemotron-4-15b", "command-r-35b", "arctic-480b")
+DEPTH_CUTS = {"arctic-480b": 1, "command-r-35b": 20}
+PEAK_BUDGET_GB = 70.0
+
+
+def reckoned_peak_gb(cfg, batch, seq):
+    """What serving ``cfg`` should hold at most: the bf16 weights, the
+    largest f32 temporary of drawing them (``nd_init``'s slices), the bf16
+    cache and four prefill activations of the widest MLP."""
+    from repro_torch.models.layers import DRAW_BYTES
+    d = cfg.d_model
+    widest = max(cfg.d_ff, d, cfg.num_experts_per_tok * (cfg.moe_d_ff or 0))
+    draw = min(DRAW_BYTES, 4 * max(cfg.vocab_size * d, cfg.num_experts * d * (cfg.moe_d_ff or 0),
+                                   d * cfg.d_ff))
+    kv = 2 * cfg.num_layers * batch * seq * cfg.num_kv_heads * cfg.head_dim * 2
+    return (2 * cfg.param_count() + draw + kv + 4 * batch * seq * widest * 2) / 1e9
+
+
+def serve_zoo(card: str):
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    out = {}
+    for name in ZOO_ARCHS:
+        t_phase = time.perf_counter()
+        cfg = get_config(name)
+        reckoned = reckoned_peak_gb(cfg, ZOO_BATCH, ZOO_SEQ + ZOO_STEPS)
+        cut = None
+        if name in DEPTH_CUTS and (name == "arctic-480b" or reckoned > PEAK_BUDGET_GB):
+            cut = DEPTH_CUTS[name]
+            cfg = dataclasses.replace(cfg, num_layers=cut)
+        log(f"[4c] {name} bf16 at full width ({cfg.num_layers} layers"
+            + (f", cut from {get_config(name).num_layers}: {get_config(name).param_count() / 1e9:.1f}"
+               f" B params reckoned at {reckoned:.1f} GB of device memory" if cut else "")
+            + f"; d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+            f"{cfg.param_count() / 1e9:.2f} B params, peak reckoned "
+            f"{reckoned_peak_gb(cfg, ZOO_BATCH, ZOO_SEQ + ZOO_STEPS):.1f} GB): {ZOO_BATCH} x "
+            f"{ZOO_SEQ}-token prompts, {ZOO_STEPS} greedy steps")
+        result = serve(card, cfg, ZOO_BATCH, ZOO_SEQ, ZOO_STEPS, name, profile=False)[0]
+        result["depth_cut_from"] = get_config(name).num_layers if cut else None
+        result["phase_s"] = time.perf_counter() - t_phase
+        log(f"  {name} took {result['phase_s']:.1f} s")
+        out[name] = result
+        torch.cuda.empty_cache()
+    log(json.dumps({"zoo": out}))
+    return out
 
 
 # ------------------------------------------------------------------ phase 5
@@ -659,10 +886,10 @@ def bound_ms(ops, nbytes):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def library_flash(q, k, v, window, lengths=None):
+def library_flash(q, k, v, window, lengths=None, scale=SCALE, cap=50.0):
     """One PyTorch call computing the same function: flex_attention with the
-    softcap as score_mod and the mask as a block mask, compiled. Timed as a
-    yardstick only; the port never calls it."""
+    softcap (when ``cap``) as score_mod and the mask as a block mask,
+    compiled. Timed as a yardstick only; the port never calls it."""
     import torch
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -676,13 +903,13 @@ def library_flash(q, k, v, window, lengths=None):
         def mask(bi, h, qi, ki):
             return ki < lengths[bi]
 
-    def cap(score, bi, h, qi, ki):
-        return torch.tanh(score / 50.0) * 50.0
+    def softcap(score, bi, h, qi, ki):
+        return torch.tanh(score / cap) * cap
 
     block = create_block_mask(mask, b, None, sq, skv, device="cuda")
     fn = torch.compile(flex_attention)
-    return lambda: fn(qt, kt, vt, score_mod=cap, block_mask=block, scale=SCALE,
-                      enable_gqa=True), lambda out: out.transpose(1, 2)
+    return lambda: fn(qt, kt, vt, score_mod=softcap if cap else None, block_mask=block,
+                      scale=scale, enable_gqa=True), lambda out: out.transpose(1, 2)
 
 
 def gather_bound(table, idx, streams, iso):
@@ -721,9 +948,46 @@ def time_gather(table, idx, st, isos):
     return rows
 
 
-def time_kernels(errs, launches, card, gather):
-    import torch
+# the zoo paths whose last decode step phase 6 times K2 at: granite-moe
+# (4b; G 3, D 64), nemotron and arctic (4c; G 6 and 7, D 128)
+ZOO_DECODE = (GRANITE, "nemotron-4-15b", "arctic-480b")
+
+
+def time_decode(label, dq, ck, cv, lens, scale, cap):
+    """K2 at one shape: events around 50 back-to-back calls, a CUDA graph of
+    100, the plain version, flex_attention and the bound; five calls under
+    the profiler. Returns (ms, plain, library, bound, bound_by, extra)."""
     from repro_torch.kernels.decode_attn import kernel as DK, ops as DO
+    args = dict(scale=scale, softcap=cap)
+
+    def k2():
+        return DK.decode_attention_cuda(dq, ck, cv, lens, **args)
+
+    ms = cuda_ms(k2, 50, warmup=5)       # back to back: the host's launch cost included
+    device = graph_ms(k2, 100)           # the card's time alone
+    plain = cuda_ms(lambda: DO.decode_attention_plain(dq, ck, cv, lens, **args), 10)
+    lib = lib_err = None
+    try:
+        call, back = library_flash(dq, ck, cv, 0, lengths=lens, scale=scale, cap=cap)
+        lib_err = max_err(back(call()), k2())
+        lib = cuda_ms(call, 50, warmup=5)
+    except Exception as e:  # the yardstick only; the port does not depend on it
+        log(f"  flex_attention unavailable ({type(e).__name__}: {e}); library_ms null")
+    b_ms, by = bound_ms(*decode_bound(dq, ck, lens))
+    prof = device_profile(lambda: [k2() for _ in range(5)])
+    log(f"  {label}: kernel {ms:.4f} ms (events, 50 calls), {device:.4f} ms "
+        f"(CUDA graph of 100 calls), plain {plain:.4f} ms, flex_attention {lib} ms "
+        f"(max|diff| {lib_err}), bound {b_ms:.4f} ms ({by}); 5 calls under the profiler, "
+        f"device ms a launch:")
+    for name, k_ms, calls in prof["top"]:
+        log(f"    {k_ms / calls:9.4f} ms ({calls:2d} launches)  {name}")
+    return ms, plain, lib, b_ms, by, {"device_ms": device, "profile_5_calls": prof}
+
+
+def time_kernels(errs, launches, card, gather, paths):
+    """Phase 6. ``launches``: each kernel's launches over the main paths;
+    ``paths``: K3's and K2's launches on each serving path."""
+    import torch
     from repro_torch.kernels.flash_attn import kernel as FK, ops as FO
     log("[6] kernel times at the main paths' shapes, bf16")
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -746,32 +1010,27 @@ def time_kernels(errs, launches, card, gather):
             f"flex_attention {lib} ms (max|diff| {lib_err}), bound {b_ms:.4f} ms ({by})")
     del q, k, v
     for kind in ("local", "global"):
-        dq, ck, cv, lens = decode[kind]
-        args = dict(scale=SCALE, softcap=50.0)
-
-        def k2():
-            return DK.decode_attention_cuda(dq, ck, cv, lens, **args)
-
-        ms = cuda_ms(k2, 50, warmup=5)       # back to back: the host's launch cost included
-        device = graph_ms(k2, 100)           # the card's time alone
-        plain = cuda_ms(lambda: DO.decode_attention_plain(dq, ck, cv, lens, **args), 10)
-        lib = lib_err = None
-        try:
-            call, back = library_flash(dq, ck, cv, 0, lengths=lens)
-            lib_err = max_err(back(call()), DK.decode_attention_cuda(dq, ck, cv, lens, **args))
-            lib = cuda_ms(call, 50, warmup=5)
-        except Exception as e:  # the yardstick only; the port does not depend on it
-            log(f"  flex_attention unavailable ({type(e).__name__}: {e}); library_ms null")
-        b_ms, by = bound_ms(*decode_bound(dq, ck, lens))
-        prof = device_profile(lambda: [k2() for _ in range(5)])
-        rows["decode_attn"].append((ms, plain, lib, b_ms, by,
-                                    {"device_ms": device, "profile_5_calls": prof}))
-        log(f"  decode_attn {kind}: kernel {ms:.4f} ms (events, 50 calls), {device:.4f} ms "
-            f"(CUDA graph of 100 calls), plain {plain:.4f} ms, flex_attention {lib} ms "
-            f"(max|diff| {lib_err}), bound {b_ms:.4f} ms ({by}); 5 calls under the profiler, "
-            f"device ms a launch:")
-        for name, k_ms, calls in prof["top"]:
-            log(f"    {k_ms / calls:9.4f} ms ({calls:2d} launches)  {name}")
+        rows["decode_attn"].append(time_decode(f"decode_attn {kind}", *decode[kind],
+                                               SCALE, 50.0))
+    # K2 at the zoo's decode shapes on the split kernel: each arch's last
+    # step of its phase-4b/4c run, no softcap
+    zoo = {}
+    for name, b, sq, steps, hq, hkv, d, scale in zoo_paths():
+        if name not in ZOO_DECODE:
+            continue
+        s = sq + steps
+        dq = torch.randn(b, 1, hq, d, generator=gen, device="cuda").to(torch.bfloat16)
+        ck, cv = (torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        ms, plain, lib, b_ms, by, extra = time_decode(
+            f"decode_attn {name} (B {b}, S {s}, {hq}/{hkv} heads of {d})", dq, ck, cv, lens,
+            scale, 0.0)
+        zoo[name] = {"shape": {"batch": b, "slots": s, "hq": hq, "hkv": hkv, "d": d},
+                     "launches": paths[name]["decode_attn"], "ms": ms, "plain_ms": plain,
+                     "library_ms": lib, "bound_ms": b_ms, "bound_by": by,
+                     "device_ms": extra["device_ms"]}
+        del dq, ck, cv
 
     def mean(xs):   # over the two layer kinds, each half of the serving path's layers
         return None if None in xs else sum(xs) / len(xs)
@@ -797,6 +1056,8 @@ def time_kernels(errs, launches, card, gather):
             "per_layer_kind": {kind: {"ms": x[0], "plain_ms": x[1], "library_ms": x[2],
                                       "bound_ms": x[3], "bound_by": x[4], **x[5]}
                                for kind, x in zip(("local", "global"), r)},
+            "launches_by_path": {path: n[name] for path, n in paths.items()},
+            **({"zoo_shapes": zoo} if name == "decode_attn" else {}),
             "card": card})
     g = time_gather(*gather)
     kernels.append({
@@ -1016,17 +1277,39 @@ def main() -> None:
     card = card_line()
     log(f"[1] card: {card}; torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)}")
+    phase_s = {}
+    t = time.perf_counter()
+
+    def took(phase):
+        nonlocal t
+        phase_s[phase] = time.perf_counter() - t
+        log(f"[{phase}] took {phase_s[phase]:.1f} s")
+        t = time.perf_counter()
+
     build_kernels()
+    took("1")
     errs, failed = check_kernels()
     if failed:
         fail(f"{len(failed)} kernel checks disagree with the plain versions: {failed}")
     check_forward_only()
+    took("2")
     check_reduced()
-    launches = serve_full_width(card)
+    took("3")
+    paths = {"gemma2-2b": serve_full_width(card)}
+    took("4")
+    paths[GRANITE] = serve_granite(card)
+    took("4b")
+    paths.update({name: r["launches"] for name, r in serve_zoo(card).items()})
+    took("4c")
+    launches = {k: sum(n[k] for n in paths.values()) for k in ("flash_attn", "decode_attn")}
     launches["ciao_gather"], gather = gather_full_width(errs)
-    kernels = time_kernels(errs, launches, card, gather)
+    took("5")
+    kernels = time_kernels(errs, launches, card, gather, paths)
+    took("6")
     stepper = simulator_path(card)
-    log(f"the script took {time.perf_counter() - t_script:.1f} s, kernels' build included")
+    took("7")
+    log(f"the script took {time.perf_counter() - t_script:.1f} s, kernels' build included; "
+        f"by phase: {json.dumps(phase_s)}")
     log(json.dumps({"stepper": stepper}))
     log(card)
     log(json.dumps({"kernels": kernels}))

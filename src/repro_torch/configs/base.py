@@ -111,8 +111,20 @@ class ModelConfig:
         return tuple(p[i % len(p)] for i in range(self.num_layers))
 
     def param_count(self) -> int:
-        """Parameters of the port's dense decoder: tied embedding, per block
-        q/k/v/o projections, two norms and a geglu MLP, and a final norm."""
+        """Parameters of the port's decoder, as ``init_params`` draws them:
+        the embedding (and an untied head), per block q/k/v/o projections
+        (and qk-norm scales), two norms and the MLP or the MoE (router and
+        experts, plus the dense residual MLP where the config has one), and
+        the final norm."""
         d, ff = self.d_model, self.d_ff
-        qkvo = d * self.head_dim * (2 * self.num_heads + 2 * self.num_kv_heads)
-        return self.vocab_size * d + self.num_layers * (qkvo + 2 * d + 3 * d * ff) + d
+        mats = 3 if self.mlp_activation in ("swiglu", "geglu") else 2
+        block = (d * self.head_dim * (2 * self.num_heads + 2 * self.num_kv_heads)
+                 + (2 * self.head_dim if self.use_qk_norm else 0) + 2 * d)
+        if self.num_experts:
+            block += self.num_experts * (mats * d * (self.moe_d_ff or ff) + d)
+            if self.moe_dense_residual:
+                block += mats * d * ff
+        else:
+            block += mats * d * ff
+        head = 0 if self.tie_embeddings else self.vocab_size * d
+        return self.vocab_size * d + head + self.num_layers * block + d

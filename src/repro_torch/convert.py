@@ -34,11 +34,16 @@ def _tree(tree, r=None):
 def params_from_jax(np_tree, cfg: ModelConfig) -> Dict[str, Any]:
     """``np_tree``: the reference's ``init_params`` output with every leaf
     turned into a numpy array. Returns the port's parameter dictionary, on
-    the CPU; a block keeps the reference's keys (ln1, attn, ln2, mlp)."""
+    the CPU; a block keeps the reference's keys (ln1, attn with its qk-norm
+    scales, ln2, mlp, moe: its stacked leaves (repeats, E, ...) become
+    (E, ...) a layer), and an untied head its ``lm_head``."""
     check_supported(cfg)
     stack = np_tree.get("stack", {})
     layers = [_tree(stack[f"b{i}"], r)
               for r in range(cfg.scan_repeats) for i in range(len(cfg.pattern))]
     layers += [_tree(rem) for rem in np_tree.get("rem", ())]
-    return {"embed": _tree(np_tree["embed"]), "layers": layers,
-            "final_norm": _tree(np_tree["final_norm"])}
+    out = {"embed": _tree(np_tree["embed"]), "layers": layers,
+           "final_norm": _tree(np_tree["final_norm"])}
+    if "lm_head" in np_tree:
+        out["lm_head"] = _tree(np_tree["lm_head"])
+    return out

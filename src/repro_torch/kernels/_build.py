@@ -93,24 +93,35 @@ def build(names: Iterable[str]) -> Dict[str, Built]:
                                log.read_text() if log.is_file() else "")
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        procs[name] = (subprocess.Popen(nvcc_command(src, tmp), stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, lib, log, time.perf_counter())
+        tmp_log = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+        with open(tmp_log, "w") as out:   # a file, not a pipe: nvcc never blocks on it
+            proc = subprocess.Popen(nvcc_command(src, tmp), stdout=out,
+                                    stderr=subprocess.STDOUT)
+        procs[name] = (proc, tmp, tmp_log, lib, log, time.perf_counter())
+    # each build's own seconds: the time its nvcc exited, seen by polling
+    ended = {}
+    while len(ended) < len(procs):
+        for name, (proc, *_rest, t0) in procs.items():
+            if name not in ended and (proc.poll() is not None
+                                      or time.perf_counter() - t0 > BUILD_TIMEOUT_S):
+                ended[name] = time.perf_counter() - t0
+        time.sleep(0.05)
     failures = []
-    for name, (proc, tmp, lib, log, t0) in procs.items():
-        try:
-            out, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
+    for name, (proc, tmp, tmp_log, lib, log, t0) in procs.items():
+        if proc.poll() is None:
             proc.kill()
-            out, _ = proc.communicate()
-            out += f"\nnvcc timed out after {BUILD_TIMEOUT_S} s"
+            proc.wait()
+            with open(tmp_log, "a") as out:
+                out.write(f"\nnvcc timed out after {BUILD_TIMEOUT_S} s")
+        out = tmp_log.read_text()
         if proc.returncode != 0:
             failures.append(f"--- {name} (nvcc exit {proc.returncode})\n{out}")
             tmp.unlink(missing_ok=True)
+            tmp_log.unlink(missing_ok=True)
             continue
-        log.write_text(out)
+        os.replace(tmp_log, log)
         os.replace(tmp, lib)
-        done[name] = Built(name, lib, time.perf_counter() - t0, out)
+        done[name] = Built(name, lib, ended[name], out)
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return done

@@ -40,8 +40,13 @@
 //    shared-memory limit raised once a device.
 //  * every other dtype pair and head dim: decode_split_kernel, where a warp
 //    loads 4 keys of K and V into registers per step, and a second launch,
-//    decode_combine_kernel, merges the splits. It serves f32 checks and the
-//    reduced model, not the bf16 serving path.
+//    decode_combine_kernel, merges the splits. It serves f32 checks, the
+//    reduced models and the bf16 serving path of the D = 64 and 128 archs
+//    (granite-moe, qwen3, nemotron, command-r, arctic), at G = 1, 2, 4, 8
+//    and, at those two head dims, 3, 6 and 7: one instantiation a G, with
+//    the G query rows' q and accumulators in registers (launch_d). Its
+//    grid aims at several resident blocks an SM (kernel.plan_for), since a
+//    block keeps only one step's loads in flight.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -606,6 +611,13 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, const int*
   return cudaGetLastError();
 }
 
+// Groups of the split kernel: 1, 2, 4 and 8 at every head dim; 3, 6 and 7
+// (granite-moe, nemotron, arctic: Hq/Hkv = 24/8, 48/8, 56/8) at D = 64 and
+// 128 only, the head dims of those archs, so the build instantiates no case
+// that no configuration runs (kernel.check_supported holds the same table).
+template <int D>
+constexpr bool kOddGroups = D == 64 || D == 128;
+
 template <typename TQ, typename TKV, int D>
 cudaError_t launch_d(int G, const void* q, const void* k, const void* v, const int* lengths,
                      void* out, float* pa, float* pm, int B, int S, int Hkv, int nsplit,
@@ -615,6 +627,15 @@ cudaError_t launch_d(int G, const void* q, const void* k, const void* v, const i
     case 2: return launch_typed<TQ, TKV, D, 2>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
     case 4: return launch_typed<TQ, TKV, D, 4>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
     case 8: return launch_typed<TQ, TKV, D, 8>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    case 3:
+      if constexpr (kOddGroups<D>) return launch_typed<TQ, TKV, D, 3>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+      return cudaErrorInvalidValue;
+    case 6:
+      if constexpr (kOddGroups<D>) return launch_typed<TQ, TKV, D, 6>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+      return cudaErrorInvalidValue;
+    case 7:
+      if constexpr (kOddGroups<D>) return launch_typed<TQ, TKV, D, 7>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

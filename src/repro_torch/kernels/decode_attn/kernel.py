@@ -19,8 +19,21 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 DTYPE_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
                (torch.float32, torch.bfloat16))
 HEAD_DIMS = (32, 64, 128, 256)
+# Query heads a KV head (G = Hq/Hkv) the kernels are built for: the bf16
+# ring kernel (D = 256) and the split kernel take GROUPS at every head dim;
+# the split kernel also takes ODD_GROUPS at ODD_GROUP_DIMS (granite-moe's
+# G 3 at D 64, nemotron's 6 and arctic's 7 at D 128). decode_attn.cu's
+# launch_d holds the same table.
 GROUPS = (1, 2, 4, 8)
+ODD_GROUPS, ODD_GROUP_DIMS = (3, 6, 7), (64, 128)
 MIN_KEYS_PER_SPLIT = 64   # no more splits than 64-slot pieces of the cache
+# Blocks an SM that the split kernel's plan aims at. Its warps load a few
+# keys into registers a step with nothing in flight between steps, so one
+# block an SM leaves the memory system idle; several resident blocks (each
+# holds few registers and under 8 KB of shared memory at D <= 128) keep
+# more loads in flight. The ring kernel pipelines its own loads (128 KB a
+# block) and keeps one block an SM.
+SPLIT_BLOCKS_PER_SM = 8
 
 
 @functools.cache
@@ -38,13 +51,36 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_plan(batch: int, hkv: int, s: int, sm_count: int) -> int:
-    """Splits of each (batch row, kv head)'s keys: one block an SM, and the
-    grid in one wave (batch * hkv * splits <= sm_count) wherever the pairs
-    alone do not exceed the SMs, but no more splits than the cache has
-    pieces of MIN_KEYS_PER_SPLIT slots."""
+def check_supported(hq: int, hkv: int, d: int, q_dtype, kv_dtype) -> None:
+    """Raise ``ValueError`` for a head shape or dtype pair the CUDA side
+    refuses (it returns cudaErrorInvalidValue for the same)."""
+    if (q_dtype, kv_dtype) not in DTYPE_PAIRS:
+        raise ValueError(f"unsupported dtypes q {q_dtype} cache {kv_dtype}")
+    groups = GROUPS + ODD_GROUPS if d in ODD_GROUP_DIMS else GROUPS
+    if d not in HEAD_DIMS or hkv <= 0 or hq % hkv or hq // hkv not in groups:
+        raise ValueError(f"unsupported head_dim {d} or group {hq}/{hkv}")
+
+
+def split_plan(batch: int, hkv: int, s: int, sm_count: int, blocks_per_sm: int = 1) -> int:
+    """Splits of each (batch row, kv head)'s keys: ``blocks_per_sm`` blocks
+    an SM, and the grid in one wave (batch * hkv * splits <= blocks_per_sm
+    * sm_count) wherever the pairs alone do not exceed it, but no more
+    splits than the cache has pieces of MIN_KEYS_PER_SPLIT slots."""
     pairs = max(batch * hkv, 1)
-    return max(1, min(sm_count // pairs, math.ceil(s / MIN_KEYS_PER_SPLIT)))
+    return max(1, min(blocks_per_sm * sm_count // pairs, math.ceil(s / MIN_KEYS_PER_SPLIT)))
+
+
+def uses_ring(q_dtype, kv_dtype, d: int) -> bool:
+    """Whether a call goes to the ring kernel (bf16 q and cache at D 256)
+    rather than the split + combine kernels."""
+    return q_dtype == kv_dtype == torch.bfloat16 and d == 256
+
+
+def plan_for(b: int, hkv: int, s: int, d: int, q_dtype, kv_dtype, sm_count: int) -> int:
+    """The splits a call takes: one block an SM for the ring kernel,
+    SPLIT_BLOCKS_PER_SM for the split kernel."""
+    per_sm = 1 if uses_ring(q_dtype, kv_dtype, d) else SPLIT_BLOCKS_PER_SM
+    return split_plan(b, hkv, s, sm_count, per_sm)
 
 
 def split_range(length: int, s: int, splits: int, split: int):
@@ -89,10 +125,9 @@ def decode_attention_cuda(q, cache_k, cache_v, lengths, *, scale: float,
         raise ValueError("q, cache_k and cache_v disagree in shape")
     if tuple(lengths.shape) != (b,):
         raise ValueError(f"lengths must be ({b},), got {tuple(lengths.shape)}")
-    if d not in HEAD_DIMS or hq % hkv or hq // hkv not in GROUPS:
-        raise ValueError(f"unsupported head_dim {d} or group {hq}/{hkv}")
-    if cache_v.dtype != cache_k.dtype or (q.dtype, cache_k.dtype) not in DTYPE_PAIRS:
-        raise ValueError(f"unsupported dtypes q {q.dtype} cache {cache_k.dtype}")
+    if cache_v.dtype != cache_k.dtype:
+        raise ValueError(f"cache_k {cache_k.dtype} and cache_v {cache_v.dtype} differ")
+    check_supported(hq, hkv, d, q.dtype, cache_k.dtype)
     if not (cache_k.is_contiguous() and cache_v.is_contiguous()):
         raise ValueError("the KV cache must be contiguous")
     if s == 0:
@@ -103,7 +138,7 @@ def decode_attention_cuda(q, cache_k, cache_v, lengths, *, scale: float,
         if t.data_ptr() % 16:
             raise ValueError("decode_attention_cuda needs 16-byte aligned tensors")
 
-    splits = split_plan(b, hkv, s, _sm_count(q.device.index or 0))
+    splits = plan_for(b, hkv, s, d, q.dtype, cache_k.dtype, _sm_count(q.device.index or 0))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
     n_acc = b * hq * splits * d      # part_acc, then part_ml (b * hq * splits * 2)

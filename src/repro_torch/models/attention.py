@@ -1,7 +1,7 @@
 """GQA attention: projections, prefill attention, KV caches, decode.
 
-Counterparts of the reference's ``models/attention.py`` for the dense
-decoder. ``attention_core`` computes what the reference's flash-attention
+Counterparts of the reference's ``models/attention.py`` for decoder-only
+attention stacks (qk-norm included). ``attention_core`` computes what the reference's flash-attention
 kernel computes and goes through ``kernels/flash_attn``; ``decode_attend``
 computes what its decode kernel computes and goes through
 ``kernels/decode_attn``. On CUDA tensors both launch the port's kernels, on
@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels.decode_attn.ops import decode_attention
 from repro_torch.kernels.flash_attn.ops import flash_attention
-from repro_torch.models.layers import rope
+from repro_torch.models.layers import rms_headnorm, rope
 
 
 def _scale(cfg) -> float:
@@ -26,11 +26,15 @@ def _scale(cfg) -> float:
 
 
 def project_qkv(cfg, params, x, *, positions):
-    """(B, S, d) -> q (B, S, Hq, Dh), k, v (B, S, Hkv, Dh), RoPE applied at
-    absolute positions so cached K never needs re-rotation."""
+    """(B, S, d) -> q (B, S, Hq, Dh), k, v (B, S, Hkv, Dh): qk-norm (when the
+    config has it) on q and k, then RoPE at absolute positions so cached K
+    never needs re-rotation."""
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if cfg.use_qk_norm:
+        q = rms_headnorm(params["q_norm"], q, cfg.norm_eps)
+        k = rms_headnorm(params["k_norm"], k, cfg.norm_eps)
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 

@@ -13,12 +13,28 @@ import torch
 import torch.nn.functional as F
 
 
+# The largest f32 temporary nd_init makes: 2.5 GiB, just above gemma2-2b's
+# 256000 x 2304 table (2.36 GB in f32), which is thus drawn whole.
+DRAW_BYTES = 5 << 29
+
+
 def nd_init(shape, fan_in: int, dtype, generator: torch.Generator, device):
-    """Truncated normal over +-3 sigma, sigma = 1/sqrt(fan_in), drawn in f32."""
+    """Truncated normal over +-3 sigma, sigma = 1/sqrt(fan_in), drawn in f32.
+
+    A tensor whose f32 copy would exceed DRAW_BYTES is drawn in slices along
+    its first axis, so drawing a full-width expert stack or a 256000-row
+    table never holds more than that much f32 beside the result."""
     std = 1.0 / math.sqrt(max(fan_in, 1))
-    w = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
-    return (w * std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = out.shape[0] if out.dim() else 1
+    per_row = 4 * out.numel() // max(rows, 1)
+    step = max(1, DRAW_BYTES // max(per_row, 1))
+    for r0 in range(0, rows, step):
+        part = out[r0:r0 + step] if out.dim() else out
+        w = torch.empty(part.shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
+        part.copy_(w * std)
+    return out
 
 
 def softcap(x, cap: float):
@@ -45,6 +61,15 @@ def _rope_freq(d: int, theta: float, device: torch.device):
         theta ** (-np.arange(0, d // 2, dtype=np.float32) * 2.0 / d)).to(device)
 
 
+def rms_headnorm(scale, x, eps: float = 1e-6):
+    """Per-head qk-norm (qwen3): RMSNorm over head_dim in f32 with the
+    ``1 + scale`` gain, ``scale`` f32 of shape (head_dim,)."""
+    dtype = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + scale)).to(dtype)
+
+
 def rope(x, positions, theta: float):
     """Rotary embedding, half-split layout. x: (..., S, H, D); positions
     (..., S) broadcast against x's sequence dims, taken as f32."""
@@ -57,12 +82,29 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
-def mlp_apply(params, x):
-    """Gated GELU MLP (geglu): tanh-approximate GELU of the gate times the
-    input projection, then the output projection."""
+GATED = ("swiglu", "geglu")
+
+
+def mlp_activate(activation: str, h, g=None):
+    """The MLP's nonlinearity: gated (swiglu, geglu: of the gate ``g``, times
+    ``h``) or not (tanh-approximate gelu, squared relu: of ``h``)."""
+    if activation == "swiglu":
+        return F.silu(g) * h
+    if activation == "geglu":
+        return F.gelu(g, approximate="tanh") * h
+    if activation == "gelu":
+        return F.gelu(h, approximate="tanh")
+    if activation == "squared_relu":
+        return torch.relu(h).square()
+    raise ValueError(activation)
+
+
+def mlp_apply(params, x, activation: str):
+    """Input projection (and the gate's, for the gated kinds), the
+    activation, then the output projection."""
     h = x @ params["w_in"]
-    g = x @ params["w_gate"]
-    return (F.gelu(g, approximate="tanh") * h) @ params["w_out"]
+    g = x @ params["w_gate"] if activation in GATED else None
+    return mlp_activate(activation, h, g) @ params["w_out"]
 
 
 def embed_lookup(params, tokens, scale: bool):
@@ -74,6 +116,8 @@ def embed_lookup(params, tokens, scale: bool):
     return x
 
 
-def unembed(params_embed, x, cap: float = 0.0):
-    """Logits through the tied embedding table, then the final softcap."""
-    return softcap(x @ params_embed["table"].T, cap)
+def unembed(params_embed, x, tie: bool = True, head=None, cap: float = 0.0):
+    """Logits through the tied embedding table, or through the untied head
+    ``head["w"]`` of shape (d, V), then the final softcap."""
+    logits = x @ params_embed["table"].T if tie else x @ head["w"]
+    return softcap(logits, cap)

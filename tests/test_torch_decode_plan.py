@@ -73,6 +73,22 @@ def test_split_plan(batch, hkv, s, want):
     assert splits <= math.ceil(s / DK.MIN_KEYS_PER_SPLIT)
 
 
+@pytest.mark.parametrize("b,hkv,s,d,dtypes,want", [
+    (4, 4, 4640, 256, (torch.bfloat16, torch.bfloat16), 8),     # gemma2: the ring kernel
+    (4, 4, 4640, 256, (torch.float32, torch.bfloat16), 66),     # f32 q: the split kernel
+    (4, 8, 4640, 64, (torch.bfloat16, torch.bfloat16), 33),     # granite-moe
+    (2, 8, 1032, 128, (torch.bfloat16, torch.bfloat16), 17),    # nemotron, arctic: 64-slot cap
+])
+def test_plan_for_gives_the_split_kernel_several_blocks_an_sm(b, hkv, s, d, dtypes, want):
+    """The ring kernel keeps one block an SM; the split kernel's grid aims
+    at SPLIT_BLOCKS_PER_SM resident blocks an SM, within the 64-slot cap."""
+    splits = DK.plan_for(b, hkv, s, d, *dtypes, sm_count=132)
+    assert splits == want
+    per_sm = 1 if DK.uses_ring(*dtypes, d) else DK.SPLIT_BLOCKS_PER_SM
+    assert b * hkv * splits <= per_sm * 132
+    assert splits <= math.ceil(s / DK.MIN_KEYS_PER_SPLIT)
+
+
 def _split_merge(q, k, v, length, scale, softcap, splits):
     """The bf16 kernel's arithmetic in numpy (f64): each split's base-2
     online softmax state (m, l, acc), merged across the splits."""

@@ -59,6 +59,26 @@ def test_gemma2_config_equals_the_reference(reduced):
     assert dataclasses.asdict(get("gemma2-2b")) == dataclasses.asdict(ref_get("gemma2-2b"))
 
 
+ZOO = [n for n in C.ARCH_NAMES if n != "gemma2-2b"]
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_config_equals_the_reference(name, reduced):
+    """Every other registered arch, as gemma2-2b above."""
+    get = C.reduced_config if reduced else C.get_config
+    ref_get = ref_reduced_config if reduced else ref_get_config
+    assert dataclasses.asdict(get(name)) == dataclasses.asdict(ref_get(name))
+
+
+def _count(tree):
+    if isinstance(tree, dict):
+        return sum(_count(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_count(v) for v in tree)
+    return tree.numel()
+
+
 def test_param_count_counts_init_params():
     from repro_torch.models.model import init_params
     cfg = C.reduced_config("gemma2-2b")
@@ -66,6 +86,25 @@ def test_param_count_counts_init_params():
     leaves = [params["embed"]["table"], params["final_norm"]["scale"]]
     leaves += [t for lp in params["layers"] for sub in lp.values() for t in sub.values()]
     assert cfg.param_count() == sum(t.numel() for t in leaves)
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_param_count_counts_init_params(name):
+    """MoE (router and experts), arctic's dense residual, qk-norm scales
+    and the untied head are counted as ``init_params`` draws them."""
+    from repro_torch.models.model import init_params
+    cfg = C.reduced_config(name)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
+    assert cfg.param_count() == _count(params)
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_param_count_at_full_width_is_the_references_moe_and_head(name):
+    """At full width the port's count differs from the reference's only by
+    the reference's extra d a dense block (its ``mlp + d`` term)."""
+    cfg, ref = C.get_config(name), ref_get_config(name)
+    dense_blocks = 0 if cfg.num_experts else cfg.num_layers
+    assert ref.param_count() - cfg.param_count() == dense_blocks * cfg.d_model
 
 
 def test_resolve_device_raises_without_a_card(monkeypatch):

@@ -67,6 +67,9 @@ def test_flash_attention_matches_reference(b, s, hq, hkv, d, causal, window,
     (3, 512, 4, 4, 128),
     (1, 300, 8, 2, 32),                     # not a multiple of the block
     (2, 300, 8, 4, 256),                    # gemma2-2b's heads
+    (2, 300, 24, 8, 64),                    # granite-moe's heads (G 3)
+    (1, 200, 48, 8, 128),                   # nemotron's (G 6)
+    (1, 130, 56, 8, 128),                   # arctic's (G 7)
 ])
 def test_decode_attention_matches_reference(b, s, hq, hkv, d, dtype, atol):
     rng = np.random.default_rng(1)
@@ -155,6 +158,24 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     assert not list(tmp_path.glob("*.so"))
 
 
+def test_build_times_each_source_on_its_own(monkeypatch, tmp_path):
+    """Sources build in parallel, and each reports its own nvcc seconds and
+    output, not those of the slowest build before it."""
+    delays = {"decode_attn": 0.6, "flash_attn": 0.05}
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+
+    def fake_nvcc(src, out):
+        name = src.parent.parent.name
+        return ["sh", "-c", f"sleep {delays[name]}; echo built {name}; touch {out}"]
+
+    monkeypatch.setattr(_build, "nvcc_command", fake_nvcc)
+    built = _build.build(["decode_attn", "flash_attn"])
+    assert built["flash_attn"].seconds < 0.4 <= built["decode_attn"].seconds
+    assert built["flash_attn"].log.strip() == "built flash_attn"
+    assert all(b.path.is_file() for b in built.values())
+    assert _build.build(["flash_attn"])["flash_attn"].seconds == 0.0   # already built
+
+
 def test_failed_launch_raises():
     lib = types.SimpleNamespace(k_error_string=lambda code: b"invalid argument")
     _build.check(lib, "k", 0)
@@ -195,3 +216,42 @@ def test_every_included_header_is_on_the_include_path(monkeypatch):
     for name in ("ciao_gather", "decode_attn", "flash_attn"):
         for header in re.findall(r'#include "([^"]+)"', _build.source(name).read_text()):
             assert (include / header) in _build.headers(), (name, header)
+
+
+@pytest.mark.parametrize("hq,hkv,d,ok", [
+    (24, 8, 64, True), (48, 8, 128, True), (56, 8, 128, True), (64, 8, 128, True),
+    (24, 8, 128, True), (12, 4, 64, True),
+    (24, 8, 32, False), (24, 8, 256, False), (56, 8, 256, False),   # no G 3/6/7 there
+    (40, 8, 128, False), (128, 8, 128, False), (128, 8, 256, False),  # G 5, 16
+    (8, 3, 128, False), (8, 4, 96, False),
+])
+def test_decode_wrapper_refuses_groups_the_kernel_lacks(hq, hkv, d, ok):
+    """The wrapper's table of (G, D): G 1, 2, 4, 8 everywhere, 3, 6, 7 at D
+    64 and 128; anything else raises before a launch."""
+    for q_dtype, kv_dtype in DK.DTYPE_PAIRS:
+        if ok:
+            DK.check_supported(hq, hkv, d, q_dtype, kv_dtype)
+        else:
+            with pytest.raises(ValueError, match="group|head_dim"):
+                DK.check_supported(hq, hkv, d, q_dtype, kv_dtype)
+    with pytest.raises(ValueError, match="dtypes"):
+        DK.check_supported(hq, hkv, d, torch.bfloat16, torch.float32)
+
+
+def test_decode_group_table_matches_the_source():
+    """``kernel.GROUPS``/``ODD_GROUPS`` are the cases decode_attn.cu
+    instantiates: the split kernel's ``launch_d`` switch (odd groups under
+    ``kOddGroups``, whose head dims are ``ODD_GROUP_DIMS``) and the bf16 ring
+    kernel's switch."""
+    import re
+    src = _build.source("decode_attn").read_text()
+    launch_d = src[src.index("cudaError_t launch_d("):src.index("cudaError_t launch_t(")]
+    cases = [int(c) for c in re.findall(r"case (\d+):", launch_d)]
+    odd = [int(c) for c in re.findall(r"case (\d+):\s*\n\s*if constexpr \(kOddGroups", launch_d)]
+    assert sorted(set(cases) - set(odd)) == sorted(DK.GROUPS)
+    assert sorted(odd) == sorted(DK.ODD_GROUPS)
+    dims = re.search(r"kOddGroups = (.*);", src).group(1)
+    assert sorted(int(x) for x in re.findall(r"D == (\d+)", dims)) == sorted(DK.ODD_GROUP_DIMS)
+    ring = src[src.index("if (q_dtype == 1 && kv_dtype == 1 && D == kRingD)"):]
+    ring = ring[:ring.index("default:")]
+    assert sorted(int(c) for c in re.findall(r"case (\d+):", ring)) == sorted(DK.GROUPS)

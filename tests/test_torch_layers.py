@@ -78,9 +78,45 @@ def test_mlp_apply_geglu(env, dtype, atol):
     pairs = {k: _both(rng.standard_normal(s, np.float32) / 8, dtype) for k, s in shapes.items()}
     xj, xt = _both(rng.standard_normal((2, 3, d), np.float32), dtype)
     ref = RL.mlp_apply(env, {k: p[0] for k, p in pairs.items()}, xj, "geglu")
-    out = L.mlp_apply({k: p[1] for k, p in pairs.items()}, xt)
+    out = L.mlp_apply({k: p[1] for k, p in pairs.items()}, xt, "geglu")
     assert out.dtype == xt.dtype
     _close(out, ref, atol)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "gelu", "squared_relu"])
+def test_mlp_activations(env, activation, dtype, atol):
+    """Each MLP kind against the reference's ``mlp_apply``; ``w_gate`` only
+    for the gated ones, as ``mlp_init`` draws it."""
+    rng = _rng(13)
+    d, ff = 64, 96
+    shapes = {"w_in": (d, ff), "w_out": (ff, d)}
+    if activation in L.GATED:
+        shapes["w_gate"] = (d, ff)
+    pairs = {k: _both(rng.standard_normal(s, np.float32) / 8, dtype) for k, s in shapes.items()}
+    xj, xt = _both(rng.standard_normal((2, 3, d), np.float32), dtype)
+    ref = RL.mlp_apply(env, {k: p[0] for k, p in pairs.items()}, xj, activation)
+    out = L.mlp_apply({k: p[1] for k, p in pairs.items()}, xt, activation)
+    assert out.dtype == xt.dtype
+    _close(out, ref, atol)
+    hj, ht = _both(3 * rng.standard_normal((4, ff), np.float32))
+    gj, gt = _both(3 * rng.standard_normal((4, ff), np.float32))
+    _close(L.mlp_activate(activation, ht, gt), RL.mlp_activate(activation, hj, gj), 1e-5)
+
+
+def test_mlp_activate_refuses_unknown_kinds():
+    with pytest.raises(ValueError):
+        L.mlp_activate("relu6", torch.zeros(2))
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5), ("bfloat16", 3e-2)])
+def test_rms_headnorm(dtype, atol):
+    rng = _rng(14)
+    xj, xt = _both(3 * rng.standard_normal((2, 5, 4, 32), np.float32), dtype)
+    scale = rng.standard_normal(32).astype(np.float32)
+    out = L.rms_headnorm(torch.from_numpy(scale), xt)
+    assert out.dtype == xt.dtype
+    _close(out, RL.rms_headnorm(jnp.asarray(scale), xj), atol)
 
 
 @pytest.mark.parametrize("dtype,d", [("float32", 128), ("bfloat16", 128), ("bfloat16", 2304)])
@@ -103,6 +139,31 @@ def test_unembed_tied(env, cap):
     xj, xt = _both(rng.standard_normal((2, 3, 128), np.float32))
     _close(L.unembed({"table": tt}, xt, cap=cap),
            RL.unembed(env, {"table": tj}, xj, True, cap=cap), 1e-4)
+
+
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+def test_unembed_untied(env, cap):
+    """An untied head ``head["w"]`` (d, V) gives the logits; the embedding
+    table is not read."""
+    rng = _rng(15)
+    tj, tt = _both(rng.standard_normal((512, 128), np.float32) / 4)
+    hj, ht = _both(rng.standard_normal((128, 512), np.float32) / 4)
+    xj, xt = _both(rng.standard_normal((2, 3, 128), np.float32))
+    out = L.unembed({"table": tt}, xt, False, head={"w": ht}, cap=cap)
+    _close(out, RL.unembed(env, {"table": tj}, xj, False, head={"w": hj}, cap=cap), 1e-4)
+    assert not torch.allclose(out, L.unembed({"table": tt}, xt, cap=cap))
+
+
+def test_nd_init_draws_large_tensors_in_slices(monkeypatch):
+    """Past DRAW_BYTES of f32 the draw goes slice by slice along the first
+    axis; the result keeps the shape, dtype and distribution."""
+    monkeypatch.setattr(L, "DRAW_BYTES", 4 * 64 * 100)   # 100 rows of 64 a slice
+    w = L.nd_init((1050, 64), 64, torch.bfloat16, torch.Generator().manual_seed(0), "cpu")
+    assert w.shape == (1050, 64) and w.dtype == torch.bfloat16
+    sigma = 1 / 8
+    assert w.float().abs().max().item() <= 3 * sigma * (1 + 2 ** -8)
+    assert abs(w.float().std().item() / sigma - 0.98659) < 0.02
+    assert not torch.equal(w[:100], w[100:200])       # each slice is a fresh draw
 
 
 def test_nd_init_is_a_truncated_normal():
@@ -137,6 +198,27 @@ def test_project_qkv_and_output_proj(env, attn_params):
         _close(o, r, 1e-5)
     _close(A.output_proj(port_p, out[0]),
            RA.output_proj(env, REF_CFG, ref_p, ref[0]), 1e-5)
+
+
+def test_project_qkv_with_qk_norm(env):
+    """qwen3's qk-norm: q and k normalised over head_dim with their f32
+    ``1 + scale`` gains, before RoPE at rope theta 1e6."""
+    import jax
+    cfg, ref_cfg = reduced_config("qwen3-4b"), ref_reduced_config("qwen3-4b")
+    ref_p = RA.attn_init(ref_cfg, jax.random.PRNGKey(8), jnp.float32)[0]
+    rng = _rng(16)
+    ref_p["q_norm"] = jnp.asarray(rng.standard_normal(32).astype(np.float32))
+    ref_p["k_norm"] = jnp.asarray(rng.standard_normal(32).astype(np.float32))
+    port_p = {k: to_torch(np.asarray(v)) for k, v in ref_p.items()}
+    xj, xt = _both(rng.standard_normal((2, 20, 128), np.float32))
+    pos = np.arange(100, 120)
+    ref = RA.project_qkv(env, ref_cfg, ref_p, xj, positions=jnp.asarray(pos))
+    out = A.project_qkv(cfg, port_p, xt, positions=torch.from_numpy(pos))
+    for o, r in zip(out, ref):
+        _close(o, r, 1e-5)
+    plain = A.project_qkv(dataclasses.replace(cfg, use_qk_norm=False), port_p, xt,
+                          positions=torch.from_numpy(pos))
+    assert not torch.allclose(plain[0], out[0])
 
 
 @pytest.mark.parametrize("dtype,atol", [("float32", 2e-5), ("bfloat16", 3e-2)])

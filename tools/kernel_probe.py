@@ -3,6 +3,7 @@
 
     python3 tools/kernel_probe.py [--check] [--broken] [--variants] [--parent DIR]
                                   [--source KERNEL:NAME=PATH ...] [--decode] [--scaling]
+                                  [--build-times DIR] [--split-blocks N [N ...]]
 
 --check     build the kernels and run phase 2 of chip_smoke.py (each kernel
             against its plain version at its grid and edge cases);
@@ -27,7 +28,16 @@
             a profiled step of each;
 --scaling   K1 at larger traces and caches than the gather path's (4x the
             requests, 4096 + 1024 slots), every K1 library in turns, with
-            the device time of each of its kernels.
+            the device time of each of its kernels;
+--build-times DIR
+            nvcc's wall seconds for decode_attn.cu of the older revision
+            DIR (as for --parent) and of the current one, one build at a
+            time, in turns (older, current, current, older);
+--split-blocks N [N ...]
+            K2's split kernel at the zoo paths' last decode steps (granite-moe,
+            nemotron, arctic; chip_smoke.ZOO_DECODE) with its plan aimed at
+            each N blocks an SM (kernel.SPLIT_BLOCKS_PER_SM), in turns,
+            each held against the plain version.
 
 K2 is timed three ways: CUDA events around 50 back-to-back calls (as
 chip_smoke.py's phase 6 times it, host launch cost included), a CUDA graph
@@ -212,7 +222,7 @@ def host_breakdown(dq, ck, cv, lens, args):
     from repro_torch.kernels.decode_attn import kernel as DK
     b, _, hq, d = dq.shape
     s, hkv = ck.shape[1], ck.shape[2]
-    splits = DK.split_plan(b, hkv, s, DK._sm_count(0))
+    splits = DK.plan_for(b, hkv, s, d, dq.dtype, ck.dtype, DK._sm_count(0))
     stream = torch.cuda.current_stream().cuda_stream
     out = torch.empty_like(dq)
     n_acc = b * hq * splits * d
@@ -424,6 +434,58 @@ GATHER_SCALING = [("4x requests", 4.0, 256, 64), ("5120 slots", 1.0, 4096, 1024)
                   ("4x requests, 5120 slots", 4.0, 4096, 1024)]
 
 
+def build_times(parent: Path) -> None:
+    """decode_attn.cu's build time, older revision against current, one nvcc
+    at a time so the builds do not share the machine's cores."""
+    from repro_torch.kernels import _build
+    srcs = {"older": parent / "decode_attn" / "csrc" / "decode_attn.cu",
+            "current": _build.source("decode_attn")}
+    times = {tag: [] for tag in srcs}
+    for tag in ("older", "current", "current", "older"):
+        t0 = time.perf_counter()
+        build_all({f"decode_attn_build_{tag}": srcs[tag]})
+        times[tag].append(time.perf_counter() - t0)
+    for tag, ts in times.items():
+        C.log(f"decode_attn.cu {tag}: nvcc {', '.join(f'{t:.1f}' for t in ts)} s "
+              f"({srcs[tag].resolve().relative_to(ROOT)})")
+
+
+def time_split_blocks(values, card):
+    """K2 at the zoo's decode shapes with SPLIT_BLOCKS_PER_SM at each of
+    ``values``, in turns (values, then reversed): events around 50 calls and
+    a CUDA graph of 100, and max |err| against the plain version."""
+    import torch
+    from repro_torch.kernels.decode_attn import kernel as DK, ops as DO
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    keep = DK.SPLIT_BLOCKS_PER_SM
+    for name, b, sq, steps, hq, hkv, d, scale in C.zoo_paths():
+        if name not in C.ZOO_DECODE:
+            continue
+        s = sq + steps
+        dq = torch.randn(b, 1, hq, d, generator=gen, device="cuda").to(torch.bfloat16)
+        ck, cv = (torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        args = dict(scale=scale, softcap=0.0)
+        plain = DO.decode_attention_plain(dq, ck, cv, lens, **args)
+        times = {n: [] for n in values}
+        for n in list(values) + list(values)[::-1]:
+            DK.SPLIT_BLOCKS_PER_SM = n
+            call = lambda: DK.decode_attention_cuda(dq, ck, cv, lens, **args)  # noqa: E731
+            err = C.max_err(call(), plain)
+            times[n].append((C.cuda_ms(call, 50, warmup=5), C.graph_ms(call, 100), err))
+        DK.SPLIT_BLOCKS_PER_SM = keep
+        b_ms, by = C.bound_ms(*C.decode_bound(dq, ck, lens))
+        C.log(f"K2 {name} (B {b}, S {s}, {hq}/{hkv} heads of {d}), bound {b_ms:.4f} ms ({by}), "
+              f"{card}:")
+        for n, ts in times.items():
+            splits = DK.split_plan(b, hkv, s, DK._sm_count(0), n)
+            C.log(f"  {n:2d} blocks an SM ({splits} splits): events "
+                  f"{', '.join(f'{t[0]:.4f}' for t in ts)} ms; graph "
+                  f"{', '.join(f'{t[1]:.4f}' for t in ts)} ms; max|err| {max(t[2] for t in ts):.3g}")
+        del dq, ck, cv
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--check", action="store_true")
@@ -433,6 +495,8 @@ def main() -> None:
     ap.add_argument("--source", action="append", default=[], metavar="KERNEL:NAME=PATH")
     ap.add_argument("--decode", action="store_true")
     ap.add_argument("--scaling", action="store_true")
+    ap.add_argument("--build-times", type=Path, metavar="DIR")
+    ap.add_argument("--split-blocks", type=int, nargs="+", metavar="N")
     ap.add_argument("--broken-one", nargs=2, metavar=("KERNEL", "LIB"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.broken_one:
@@ -453,6 +517,11 @@ def main() -> None:
         C.log(f"phase 2: {len(failed)} checks fail: {failed}")
     if args.broken:
         run_broken()
+    if args.build_times:
+        build_times(args.build_times)
+    if args.split_blocks:
+        C.build_kernels()
+        time_split_blocks(args.split_blocks, card)
     if not (args.variants or args.parent or args.source or args.scaling):
         return
     mods = wrappers()
