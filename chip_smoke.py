@@ -16,13 +16,19 @@ Phases, each of which exits non-zero on failure:
     batch, with requests out of range, and at the isolation case, where
     isolating the sweeping stream must cut the others' misses by more than
     3x; K3 and K2 also at the heads of the zoo's decoder archs (G 3 at D 64,
-    G 4, 6, 7 and 8 at D 128), K2 at random and ragged lengths; and both
-    at the shapes of phases 4b and 4c: K3 at each arch's prefill, K2 at its
-    last decode step, with f32 queries against a bf16 cache too;
+    G 4, 6, 7 and 8 at D 128), K2 at random and ragged lengths, and K2's
+    bf16 ring kernel at G 16 (recurrentgemma's MQA, D 256) at random and
+    ragged lengths, at length S, at S shorter than a tile and with a zero
+    length; and both at the shapes of phases 4b, 4c and 4d: K3 at each
+    arch's prefill (recurrentgemma's with its 2,048-token window), K2 at
+    its last decode step (recurrentgemma's wrapped 2,048-slot ring), with
+    f32 queries against a bf16 cache too where the split kernel takes the
+    group;
  3. the reduced configs of gemma2-2b, granite-moe-3b-a800m, arctic-480b,
-    qwen3-4b, nemotron-4-15b and command-r-35b: the port's CPU plain path
-    against its CUDA kernel path, logits and greedy tokens, with an f32 and
-    a bf16 cache, and the launch counts;
+    qwen3-4b, nemotron-4-15b, command-r-35b, mamba2-2.7b and
+    recurrentgemma-9b: the port's CPU plain path against its CUDA kernel
+    path, logits and greedy tokens, with an f32 and a bf16 cache, and the
+    launch counts (K3 and K2 once an attention layer: none for mamba2);
  4. full-width gemma2-2b in bf16 with random weights from a seeded
     generator: 4 requests of 4608-token prompts (longer than the 4096-token
     local window), 32 greedy decode steps through ``generate``; the launch
@@ -35,6 +41,11 @@ Phases, each of which exits non-zero on failure:
     to 20 layers only if its reckoned peak passes 70 GB) and arctic-480b at
     1 of its 35 layers (a layer is 13.6 B parameters): 2 x 1024-token
     prompts, 8 greedy steps, phase 4's checks;
+ 4d. mamba2-2.7b (64 SSD layers) and recurrentgemma-9b (26 RG-LRU and 12
+    local MQA layers) whole, with phase 4's workload and checks (K3 and K2
+    launches 0 and 12 a prefill, 0 and 12 a step), the peak memory beside
+    the reckoned one, and one recurrent block's device time at the
+    prefill's tokens and at a decode step, split into GEMMs and plain torch;
  5. the CIAO gather path at full width: the gather workload's index stream
     (72,000 requests of 48 streams, 6 of them isolated) against a bf16 table
     of gemma2-2b's vocab x d_model, through ``ciao_gather`` with the trace's
@@ -45,7 +56,8 @@ Phases, each of which exits non-zero on failure:
     call of the same function, with the device time of K1's and K2's
     launches under the profiler, and K2's time over a CUDA graph of 100
     calls (``device_ms``: without the host's launch cost); K2 also at the
-    last decode step of granite-moe, nemotron and arctic;
+    last decode step of granite-moe, nemotron, arctic and recurrentgemma
+    (the ring kernel at G 16), K3 also at recurrentgemma's prefill;
  7. the simulator path: the port's C stepper builds; the 7 single-SM golden
     cells through ``run_batched(cells)`` (the torch stepper, on the card by
     default) equal the golden records field by field; the fig8 grid (12
@@ -162,17 +174,23 @@ def build_kernels():
     for b in built.values():
         log(f"  ptxas -v, {b.name} (registers and spills per instantiation; full log "
             f"{b.path.with_suffix('.log').relative_to(ROOT)}):")
-        report, fn = {}, ""
-        for line in b.log.splitlines():
-            if "Compiling entry function" in line:
-                fn = line.split("'")[1]
-            elif "spill stores" in line:
-                report.setdefault(fn, []).append(line.strip().split(" stack frame, ")[-1])
-            elif "Used" in line and "registers" in line:
-                report.setdefault(fn, []).insert(0, line.split("Used")[1].split(",")[0].strip())
-        names = demangle(list(report))
-        for fn, items in report.items():
-            log(f"    {', '.join(items)}  {names[fn]}")
+        for name, items in ptxas_report(b.log).items():
+            log(f"    {items}  {name}")
+
+
+def ptxas_report(text: str):
+    """{kernel: "N registers, S bytes spill stores, L bytes spill loads"}
+    from nvcc's -Xptxas -v output, with readable kernel names."""
+    report, fn = {}, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill stores" in line:
+            report.setdefault(fn, []).append(line.strip().split(" stack frame, ")[-1])
+        elif "Used" in line and "registers" in line:
+            report.setdefault(fn, []).insert(0, line.split("Used")[1].split(",")[0].strip())
+    names = demangle(list(report))
+    return {names[fn]: ", ".join(items) for fn, items in report.items()}
 
 
 def demangle(symbols):
@@ -224,6 +242,15 @@ DECODE_GRID = [(2, 256, 4, 2, 64, None), (3, 512, 4, 4, 128, None), (1, 300, 8, 
 # (a full row and one that ends inside a split)
 DECODE_GRID += [case for hq, hkv, d in ZOO_HEADS
                 for case in ((2, 700, hq, hkv, d, None), (2, 700, hq, hkv, d, [700, 517]))]
+# the bf16 ring kernel at G 16 (recurrentgemma's 16 query heads on one KV
+# head of 256), bf16 only (the split kernel takes no G 16), with and without
+# a softcap: recurrentgemma's last decode step (B 4, its 2,048-slot ring
+# wrapped, every slot valid) at random lengths, ragged ones (a row that
+# ends inside a split, one of a few keys, one of one key), at length S, at
+# S shorter than one 32-key tile, and with a lengths == 0 row
+RING16_GRID = [(4, 2048, 16, 1, 256, None), (4, 2048, 16, 1, 256, [2048, 1500, 37, 1]),
+               (4, 2048, 16, 1, 256, [2048] * 4), (4, 20, 16, 1, 256, [20, 7, 1, 13]),
+               (2, 300, 16, 1, 256, [0, 300])]
 SCALE = 256 ** -0.5
 
 
@@ -248,23 +275,29 @@ def main_path_inputs(dtype, gen):
 
 
 def zoo_paths():
-    """(arch, batch, prompt, steps, Hq, Hkv, D, scale) of the zoo's serving
-    paths: granite-moe with phase 4's workload (4b), the others with 4c's."""
+    """(arch, batch, prompt, steps, Hq, Hkv, D, scale, window) of the zoo's
+    serving paths that attend: granite-moe and recurrentgemma with phase 4's
+    workload (4b, 4d), the others with 4c's. ``window`` is the local
+    layers' (recurrentgemma's 2,048: its layers are all local), else 0.
+    mamba2 has no attention, so no path here."""
     from repro_torch.configs import get_config
     out = []
     for name, (b, sq, steps) in ((GRANITE, (BATCH, SEQ, STEPS)),
-                                 *((a, (ZOO_BATCH, ZOO_SEQ, ZOO_STEPS)) for a in ZOO_ARCHS)):
+                                 *((a, (ZOO_BATCH, ZOO_SEQ, ZOO_STEPS)) for a in ZOO_ARCHS),
+                                 (RECURRENTGEMMA, (BATCH, SEQ, STEPS))):
         cfg = get_config(name)
         out.append((name, b, sq, steps, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-                    cfg.query_scale or cfg.head_dim ** -0.5))
+                    cfg.query_scale or cfg.head_dim ** -0.5, cfg.local_window))
     return out
 
 
 def hold_zoo_paths(dtype, gen, hold, only):
     """Phase 2 at the zoo paths' own shapes, as ``main_path_inputs`` gives
-    gemma2-2b's: K3 at each prefill (causal, no window, no softcap), K2 at
-    each last decode step (every slot valid), and K2 with f32 queries
-    against a bf16 cache."""
+    gemma2-2b's: K3 at each prefill (causal, the path's window, no
+    softcap), K2 at each last decode step (every slot of the cache or of the
+    wrapped ring valid), and K2 with f32 queries against a bf16 cache where
+    the split kernel takes the group (not recurrentgemma's G 16, which only
+    the bf16 ring kernel takes)."""
     import torch
     from repro_torch.kernels.decode_attn import kernel as DK, ops as DO
     from repro_torch.kernels.flash_attn import kernel as FK, ops as FO
@@ -272,10 +305,10 @@ def hold_zoo_paths(dtype, gen, hold, only):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    for name, b, sq, steps, hq, hkv, d, scale in zoo_paths():
+    for name, b, sq, steps, hq, hkv, d, scale, window in zoo_paths():
         if "flash_attn" in only:
             q, k, v = rnd(b, sq, hq, d), rnd(b, sq, hkv, d), rnd(b, sq, hkv, d)
-            args = dict(scale=scale, causal=True, window=0, softcap=0.0)
+            args = dict(scale=scale, causal=True, window=window, softcap=0.0)
             # the plain version a batch row at a time: granite's (24, 4608,
             # 4608) f32 scores are 2 GB a row
             hold("flash_attn", f"{dtype} main {name} prefill {(b, sq, hq, hkv, d)}",
@@ -286,7 +319,9 @@ def hold_zoo_paths(dtype, gen, hold, only):
             del q, k, v
         if "decode_attn" not in only:
             continue
-        s = sq + steps
+        if hq // hkv in DK.RING_GROUPS and dtype != torch.bfloat16:
+            continue
+        s = min(sq + steps, window or sq + steps)
         dq, ck, cv = rnd(b, 1, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d)
         lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
         args = dict(scale=scale, softcap=0.0)
@@ -355,6 +390,20 @@ def check_kernels(only=KERNELS):
                 cap = 0.0 if (hq, hkv, d) in ZOO_HEADS else 50.0
                 args = dict(scale=d ** -0.5, softcap=cap)
                 hold("decode_attn", f"{dtype}/{kv_dtype} grid {(b, s, hq, hkv, d, lengths)}",
+                     DK.decode_attention_cuda(q, ck, cv, lens, **args),
+                     lambda w: DO.decode_attention_plain(q, ck, w, lens, **args), cv)
+        for (b, s, hq, hkv, d, lengths) in (RING16_GRID if "decode_attn" in only
+                                            and dtype == torch.bfloat16 else ()):
+            for cap in (0.0, 50.0):
+                q = torch.randn(b, 1, hq, d, generator=gen, device="cuda").to(dtype)
+                ck, cv = (torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dtype)
+                          for _ in range(2))
+                lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda",
+                                     dtype=torch.int32) if lengths is None else \
+                    torch.tensor(lengths, dtype=torch.int32, device="cuda")
+                args = dict(scale=d ** -0.5, softcap=cap)
+                hold("decode_attn", f"{dtype} ring G 16 softcap {cap:g} "
+                     f"{(b, s, hq, hkv, d, lengths)}",
                      DK.decode_attention_cuda(q, ck, cv, lens, **args),
                      lambda w: DO.decode_attention_plain(q, ck, w, lens, **args), cv)
         (q, k, v), decode = main_path_inputs(dtype, gen)
@@ -515,6 +564,13 @@ def check_forward_only():
 
 
 # ------------------------------------------------------------------ phase 3
+def attention_layers(cfg) -> int:
+    """The layers that attend (K3 once each a prefill, K2 once each a step):
+    all of a transformer's, 12 of recurrentgemma-9b's 38, none of mamba2's."""
+    from repro_torch.configs.base import ATTN_BLOCKS
+    return sum(kind in ATTN_BLOCKS for kind in cfg.layer_kinds())
+
+
 def to_device(tree, device):
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
@@ -533,7 +589,7 @@ def check_reduced():
     from repro_torch.models.model import init_params
     from repro_torch.serving import generate
     steps = 10
-    for name in ("gemma2-2b", GRANITE) + ZOO_ARCHS:
+    for name in ("gemma2-2b", GRANITE) + ZOO_ARCHS + RECURRENT_ARCHS:
         log(f"[3] reduced {name} f32: CPU plain path against the CUDA kernel path")
         cfg = reduced_config(name)
         params = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
@@ -556,7 +612,7 @@ def check_reduced():
                 f"decode {counts[1]}")
             if err > tol or not same:
                 fail(f"reduced {name} CUDA path disagrees with the CPU path (kv {kv_dtype})")
-            if counts != (cfg.num_layers, cfg.num_layers * steps):
+            if counts != (attention_layers(cfg), attention_layers(cfg) * steps):
                 fail(f"reduced {name} launch counts {counts}")
 
 
@@ -585,8 +641,9 @@ def device_profile(fn, top: int = 8):
 def serve(card, cfg, batch, seq, steps, label, profile=True):
     """Serve ``cfg`` (bf16, random weights from a seeded generator) through
     ``generate``: ``batch`` prompts of ``seq`` tokens and ``steps`` greedy
-    steps. Fails unless the launch counts show the kernels ran (K3 once a
-    layer, K2 once a layer a step), the logits are finite, the greedy
+    steps. Fails unless the launch counts show the kernels ran (K3 once an
+    attention layer, K2 once an attention layer a step: none for mamba2),
+    the logits are finite, the greedy
     tokens follow them and a second run of prefill and decode gives the
     same tokens. Returns (the run's numbers, with prefill and a decode step
     under the profiler when ``profile``; the parameters)."""
@@ -615,8 +672,10 @@ def serve(card, cfg, batch, seq, steps, label, profile=True):
     launches = {"flash_attn": flash_attention_cuda.launches,
                 "decode_attn": decode_attention_cuda.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {"flash_attn": cfg.num_layers, "decode_attn": cfg.num_layers * steps}
-    log(f"  generate: {total_s * 1e3:.1f} ms, launches {launches} (want {want}), "
+    n_attn = attention_layers(cfg)
+    want = {"flash_attn": n_attn, "decode_attn": n_attn * steps}
+    log(f"  generate: {total_s * 1e3:.1f} ms, launches {launches} (want {want}: "
+        f"{n_attn} of {cfg.num_layers} layers attend), "
         f"peak memory {peak_gb:.2f} GB (while drawing the weights {init_peak_gb:.2f} GB), "
         f"init {init_s:.1f} s")
     if launches != want:
@@ -770,17 +829,35 @@ DEPTH_CUTS = {"arctic-480b": 1, "command-r-35b": 20}
 PEAK_BUDGET_GB = 70.0
 
 
-def reckoned_peak_gb(cfg, batch, seq):
-    """What serving ``cfg`` should hold at most: the bf16 weights, the
-    largest f32 temporary of drawing them (``nd_init``'s slices), the bf16
-    cache and four prefill activations of the widest MLP."""
+def reckoned_peak_gb(cfg, batch, prompt, steps):
+    """What serving ``cfg`` to ``batch`` prompts of ``prompt`` tokens and
+    ``steps`` decode steps should hold at most: the bf16 weights, the
+    largest f32 temporary of drawing them (``nd_init``'s slices), the cache
+    (a bf16 K/V a global layer, a ring of the window a local one, the f32
+    state and conv window an RG-LRU or SSD layer), and the larger of four
+    prefill activations of the widest MLP and the SSD's intra-chunk f32
+    temporaries (``ssd_forward``: three of (B, S/q, q, q, nh) alive at once)."""
+    from repro_torch.configs.base import (BLOCK_GLOBAL_ATTN, BLOCK_LOCAL_ATTN, BLOCK_RGLRU,
+                                          BLOCK_SSD)
     from repro_torch.models.layers import DRAW_BYTES
-    d = cfg.d_model
+    from repro_torch.models.ssd import chunk_len
+    d, rw = cfg.d_model, cfg.rglru_width or cfg.d_model
     widest = max(cfg.d_ff, d, cfg.num_experts_per_tok * (cfg.moe_d_ff or 0))
     draw = min(DRAW_BYTES, 4 * max(cfg.vocab_size * d, cfg.num_experts * d * (cfg.moe_d_ff or 0),
                                    d * cfg.d_ff))
-    kv = 2 * cfg.num_layers * batch * seq * cfg.num_kv_heads * cfg.head_dim * 2
-    return (2 * cfg.param_count() + draw + kv + 4 * batch * seq * widest * 2) / 1e9
+    conv, seq = cfg.conv_width - 1, prompt + steps
+    per_layer = {
+        BLOCK_GLOBAL_ATTN: 2 * batch * seq * cfg.num_kv_heads * cfg.head_dim * 2,
+        BLOCK_LOCAL_ATTN: 2 * batch * min(cfg.local_window or seq, seq) * cfg.num_kv_heads
+        * cfg.head_dim * 2,
+        BLOCK_RGLRU: 4 * batch * rw * (1 + conv),
+        BLOCK_SSD: 4 * batch * (cfg.ssm_num_heads * cfg.ssm_head_dim * cfg.ssm_state_dim
+                            + conv * (cfg.d_inner + 2 * cfg.ssm_state_dim))}
+    cache = sum(per_layer[kind] for kind in cfg.layer_kinds())
+    act = 4 * batch * prompt * widest * 2
+    if BLOCK_SSD in cfg.pattern:
+        act = max(act, 3 * 4 * batch * prompt * chunk_len(cfg, prompt) * cfg.ssm_num_heads)
+    return (2 * cfg.param_count() + draw + cache + act) / 1e9
 
 
 def serve_zoo(card: str):
@@ -791,7 +868,7 @@ def serve_zoo(card: str):
     for name in ZOO_ARCHS:
         t_phase = time.perf_counter()
         cfg = get_config(name)
-        reckoned = reckoned_peak_gb(cfg, ZOO_BATCH, ZOO_SEQ + ZOO_STEPS)
+        reckoned = reckoned_peak_gb(cfg, ZOO_BATCH, ZOO_SEQ, ZOO_STEPS)
         cut = None
         if name in DEPTH_CUTS and (name == "arctic-480b" or reckoned > PEAK_BUDGET_GB):
             cut = DEPTH_CUTS[name]
@@ -801,7 +878,7 @@ def serve_zoo(card: str):
                f" B params reckoned at {reckoned:.1f} GB of device memory" if cut else "")
             + f"; d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
             f"{cfg.param_count() / 1e9:.2f} B params, peak reckoned "
-            f"{reckoned_peak_gb(cfg, ZOO_BATCH, ZOO_SEQ + ZOO_STEPS):.1f} GB): {ZOO_BATCH} x "
+            f"{reckoned_peak_gb(cfg, ZOO_BATCH, ZOO_SEQ, ZOO_STEPS):.1f} GB): {ZOO_BATCH} x "
             f"{ZOO_SEQ}-token prompts, {ZOO_STEPS} greedy steps")
         result = serve(card, cfg, ZOO_BATCH, ZOO_SEQ, ZOO_STEPS, name, profile=False)[0]
         result["depth_cut_from"] = get_config(name).num_layers if cut else None
@@ -810,6 +887,83 @@ def serve_zoo(card: str):
         out[name] = result
         torch.cuda.empty_cache()
     log(json.dumps({"zoo": out}))
+    return out
+
+
+# Phase 4d: the two archs with recurrent blocks, whole, at phase 4's workload.
+RECURRENTGEMMA = "recurrentgemma-9b"
+RECURRENT_ARCHS = ("mamba2-2.7b", RECURRENTGEMMA)
+GEMM_NAMES = MOE_KINDS[2][1]
+
+
+def recurrent_breakdown(cfg, kind, block, batch, seq):
+    """One RG-LRU or SSD block (its mixer alone: no norm, no FFN) under the
+    profiler on random bf16 input, at the prefill's (batch, seq) tokens and
+    at one decode step from the prefill's state: device ms, and how much of
+    it the dense products (GEMM kernels) take; the rest is the plain-torch
+    conv, gates, scan and the SSD's intra-chunk work."""
+    import torch
+    from repro_torch.models import rglru, ssd
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(batch, seq, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+    forward, step = ((ssd.ssd_forward, ssd.ssd_step) if kind == "ssd"
+                     else (rglru.rglru_forward, rglru.rglru_step))
+    _, state = forward(cfg, block, x, return_state=True)
+    out = {}
+    for what, fn in (("prefill", lambda: forward(cfg, block, x, return_state=True)),
+                     ("decode", lambda: step(cfg, block, x[:, -1:], state))):
+        fn()
+        prof = device_profile(fn, top=400)
+        gemm = sum(ms for name, ms, _ in prof["top"] if any(w in name for w in GEMM_NAMES))
+        busy = prof["device_busy_ms"]
+        out[what] = {"tokens": batch * (seq if what == "prefill" else 1),
+                     "device_busy_ms": busy, "gemm_ms": gemm,
+                     "plain_ms": None if busy is None else busy - gemm, "top": prof["top"][:8]}
+    del x, state
+    return out
+
+
+def serve_recurrent(card: str):
+    """Phase 4d: mamba2-2.7b (64 SSD layers, no attention) and
+    recurrentgemma-9b (26 RG-LRU and 12 local MQA layers, the 4608-token
+    prompt wrapping its 2,048-slot ring) whole, at phase 4's workload and
+    checks, with the reckoned peak beside the measured one and the
+    recurrent blocks' share of the prefill's and a decode step's device
+    time."""
+    import torch
+    from repro_torch.configs import get_config
+    out = {}
+    for name in RECURRENT_ARCHS:
+        t_phase = time.perf_counter()
+        cfg = get_config(name)
+        kinds = cfg.layer_kinds()
+        reckoned = reckoned_peak_gb(cfg, BATCH, SEQ, STEPS)
+        log(f"[4d] {name} bf16 at full width ({cfg.num_layers} layers: "
+            + ", ".join(f"{kinds.count(k)} {k}" for k in dict.fromkeys(kinds))
+            + f"; d {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.param_count() / 1e9:.2f} B "
+            f"params, peak reckoned {reckoned:.1f} GB): {BATCH} x {SEQ}-token prompts, "
+            f"{STEPS} greedy steps")
+        result, params = serve(card, cfg, BATCH, SEQ, STEPS, name)
+        kind = "ssd" if "ssd" in kinds else "rglru"
+        block = params["layers"][kinds.index(kind)][kind]
+        rec = recurrent_breakdown(cfg, kind, block, BATCH, SEQ)
+        for what, key in (("prefill", "prefill_profile"), ("decode", "decode_step_profile")):
+            total, r = result[key]["device_busy_ms"], rec[what]
+            for part in ("device_busy_ms", "plain_ms"):
+                r[f"{part.split('_')[0]}_share"] = (kinds.count(kind) * r[part] / total
+                                                    if total and r[part] is not None else None)
+            log(f"  one {kind} block at {what}'s {r['tokens']} tokens: device "
+                f"{r['device_busy_ms']} ms, of which GEMM {r['gemm_ms']:.4f} ms and plain torch "
+                f"{r['plain_ms']} ms; x {kinds.count(kind)} layers = {r['device_share']} of "
+                f"the {what}'s device time, the plain part {r['plain_share']}")
+        result.update(recurrent_block=rec, reckoned_peak_gb=reckoned,
+                      phase_s=time.perf_counter() - t_phase)
+        log(f"  peak memory {result['peak_mem_gb']:.2f} GB against {reckoned:.2f} GB reckoned; "
+            f"{name} took {result['phase_s']:.1f} s")
+        out[name] = result
+        del params, block
+        torch.cuda.empty_cache()
+    log(json.dumps({"recurrent": out}))
     return out
 
 
@@ -949,8 +1103,11 @@ def time_gather(table, idx, st, isos):
 
 
 # the zoo paths whose last decode step phase 6 times K2 at: granite-moe
-# (4b; G 3, D 64), nemotron and arctic (4c; G 6 and 7, D 128)
-ZOO_DECODE = (GRANITE, "nemotron-4-15b", "arctic-480b")
+# (4b; G 3, D 64), nemotron and arctic (4c; G 6 and 7, D 128) and
+# recurrentgemma (4d; the ring kernel at G 16, D 256); and whose prefill it
+# times K3 at: recurrentgemma's (G 16, window 2048)
+ZOO_DECODE = (GRANITE, "nemotron-4-15b", "arctic-480b", RECURRENTGEMMA)
+ZOO_PREFILL = (RECURRENTGEMMA,)
 
 
 def time_decode(label, dq, ck, cv, lens, scale, cap):
@@ -1012,13 +1169,40 @@ def time_kernels(errs, launches, card, gather, paths):
     for kind in ("local", "global"):
         rows["decode_attn"].append(time_decode(f"decode_attn {kind}", *decode[kind],
                                                SCALE, 50.0))
-    # K2 at the zoo's decode shapes on the split kernel: each arch's last
-    # step of its phase-4b/4c run, no softcap
+    # K3 at the zoo's prefill shapes: recurrentgemma's (4d), no softcap
+    zoo_prefill = {}
+    for name, b, sq, steps, hq, hkv, d, scale, window in zoo_paths():
+        if name not in ZOO_PREFILL:
+            continue
+        q = torch.randn(b, sq, hq, d, generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(b, sq, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        args = dict(scale=scale, causal=True, window=window, softcap=0.0)
+        ms = cuda_ms(lambda: FK.flash_attention_cuda(q, k, v, **args), 5)
+        plain = cuda_ms(lambda: FO.flash_attention_plain(q, k, v, **args), 2)
+        lib = lib_err = None
+        try:
+            call, back = library_flash(q, k, v, window, scale=scale, cap=0.0)
+            lib_err = max_err(back(call()), FK.flash_attention_cuda(q, k, v, **args))
+            lib = cuda_ms(call, 5, warmup=2)
+        except Exception as e:  # the yardstick only; the port does not depend on it
+            log(f"  flex_attention unavailable ({type(e).__name__}: {e}); library_ms null")
+        b_ms, by = bound_ms(*flash_bound(q, k, v, window))
+        zoo_prefill[name] = {"shape": {"batch": b, "seq": sq, "hq": hq, "hkv": hkv, "d": d,
+                                       "window": window},
+                             "launches": paths[name]["flash_attn"], "ms": ms, "plain_ms": plain,
+                             "library_ms": lib, "bound_ms": b_ms, "bound_by": by}
+        log(f"  flash_attn {name} prefill (B {b}, S {sq}, {hq}/{hkv} heads of {d}, window "
+            f"{window}): kernel {ms:.4f} ms, plain {plain:.4f} ms, flex_attention {lib} ms "
+            f"(max|diff| {lib_err}), bound {b_ms:.4f} ms ({by})")
+        del q, k, v
+    # K2 at the zoo's decode shapes: each arch's last step of its
+    # phase-4b/4c/4d run (recurrentgemma's wrapped ring), no softcap
     zoo = {}
-    for name, b, sq, steps, hq, hkv, d, scale in zoo_paths():
+    for name, b, sq, steps, hq, hkv, d, scale, window in zoo_paths():
         if name not in ZOO_DECODE:
             continue
-        s = sq + steps
+        s = min(sq + steps, window or sq + steps)
         dq = torch.randn(b, 1, hq, d, generator=gen, device="cuda").to(torch.bfloat16)
         ck, cv = (torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
                   for _ in range(2))
@@ -1057,7 +1241,7 @@ def time_kernels(errs, launches, card, gather, paths):
                                       "bound_ms": x[3], "bound_by": x[4], **x[5]}
                                for kind, x in zip(("local", "global"), r)},
             "launches_by_path": {path: n[name] for path, n in paths.items()},
-            **({"zoo_shapes": zoo} if name == "decode_attn" else {}),
+            "zoo_shapes": zoo if name == "decode_attn" else zoo_prefill,
             "card": card})
     g = time_gather(*gather)
     kernels.append({
@@ -1301,6 +1485,8 @@ def main() -> None:
     took("4b")
     paths.update({name: r["launches"] for name, r in serve_zoo(card).items()})
     took("4c")
+    paths.update({name: r["launches"] for name, r in serve_recurrent(card).items()})
+    took("4d")
     launches = {k: sum(n[k] for n in paths.values()) for k in ("flash_attn", "decode_attn")}
     launches["ciao_gather"], gather = gather_full_width(errs)
     took("5")

@@ -2,8 +2,9 @@
 
 Only the architectures whose every block kind the port runs are registered:
 the decoder-only attention stacks (dense, MoE, qk-norm, parallel blocks,
-untied heads). The others (SSD, RG-LRU, the encoder-decoder and the vision
-prefix-LM) are ROADMAP item 9.
+untied heads), the Mamba-2 SSD stack and the RG-LRU + local-attention
+hybrid. The others (the encoder-decoder and the vision prefix-LM) are
+ROADMAP item 9.
 """
 from __future__ import annotations
 
@@ -15,11 +16,14 @@ from repro_torch.configs.arctic_480b import CONFIG as _arctic
 from repro_torch.configs.command_r_35b import CONFIG as _commandr
 from repro_torch.configs.gemma2_2b import CONFIG as _gemma2
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as _granite
+from repro_torch.configs.mamba2_2_7b import CONFIG as _mamba2
 from repro_torch.configs.nemotron_4_15b import CONFIG as _nemotron
 from repro_torch.configs.qwen3_4b import CONFIG as _qwen3
+from repro_torch.configs.recurrentgemma_9b import CONFIG as _recurrentgemma
 
 REGISTRY: Dict[str, ModelConfig] = {
-    c.name: c for c in (_gemma2, _nemotron, _qwen3, _commandr, _arctic, _granite)}
+    c.name: c for c in (_gemma2, _nemotron, _qwen3, _commandr, _arctic, _granite, _mamba2,
+                        _recurrentgemma)}
 
 ARCH_NAMES: List[str] = list(REGISTRY)
 

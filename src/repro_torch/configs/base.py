@@ -100,6 +100,18 @@ class ModelConfig:
         return self.num_heads // max(self.num_kv_heads, 1)
 
     @property
+    def attention_free(self) -> bool:
+        return all(b not in ATTN_BLOCKS for b in self.pattern)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_num_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
     def scan_repeats(self) -> int:
         return self.num_layers // len(self.pattern)
 
@@ -110,14 +122,27 @@ class ModelConfig:
         p = self.pattern
         return tuple(p[i % len(p)] for i in range(self.num_layers))
 
-    def param_count(self) -> int:
-        """Parameters of the port's decoder, as ``init_params`` draws them:
-        the embedding (and an untied head), per block q/k/v/o projections
-        (and qk-norm scales), two norms and the MLP or the MoE (router and
-        experts, plus the dense residual MLP where the config has one), and
-        the final norm."""
+    def block_param_count(self, kind: str) -> int:
+        """Parameters of one block of ``kind`` as ``init_params`` draws it.
+
+        Attention: q/k/v/o projections (and qk-norm scales), two norms and
+        the MLP or the MoE (router and experts, plus the dense residual MLP
+        where the config has one). RG-LRU: ``ln1``, the two branch
+        projections and the output, the conv's weight and bias, five gate
+        vectors (w_r, b_r, w_i, b_i, lam), ``ln2`` and the MLP. SSD:
+        ``ln1``, the fused input projection, the output, the conv over
+        (x, B, C) with its bias, a_log, dt_bias and d_skip a head and the
+        gated norm's scale."""
         d, ff = self.d_model, self.d_ff
         mats = 3 if self.mlp_activation in ("swiglu", "geglu") else 2
+        if kind == BLOCK_RGLRU:
+            rw = self.rglru_width or d
+            return (3 * d * rw + (self.conv_width + 1) * rw + 5 * rw + 2 * d
+                    + mats * d * ff)
+        if kind == BLOCK_SSD:
+            di, n, nh = self.d_inner, self.ssm_state_dim, self.ssm_num_heads
+            return (d * (2 * di + 2 * n + nh) + di * d + (self.conv_width + 1) * (di + 2 * n)
+                    + 3 * nh + di + d)
         block = (d * self.head_dim * (2 * self.num_heads + 2 * self.num_kv_heads)
                  + (2 * self.head_dim if self.use_qk_norm else 0) + 2 * d)
         if self.num_experts:
@@ -126,5 +151,12 @@ class ModelConfig:
                 block += mats * d * ff
         else:
             block += mats * d * ff
-        head = 0 if self.tie_embeddings else self.vocab_size * d
-        return self.vocab_size * d + head + self.num_layers * block + d
+        return block
+
+    def param_count(self) -> int:
+        """Parameters of the port's decoder, as ``init_params`` draws them:
+        the embedding (and an untied head), every layer's block
+        (``block_param_count``) and the final norm."""
+        head = 0 if self.tie_embeddings else self.vocab_size * self.d_model
+        return (self.vocab_size * self.d_model + head + self.d_model
+                + sum(self.block_param_count(k) for k in self.layer_kinds()))

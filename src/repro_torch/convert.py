@@ -36,7 +36,8 @@ def params_from_jax(np_tree, cfg: ModelConfig) -> Dict[str, Any]:
     turned into a numpy array. Returns the port's parameter dictionary, on
     the CPU; a block keeps the reference's keys (ln1, attn with its qk-norm
     scales, ln2, mlp, moe: its stacked leaves (repeats, E, ...) become
-    (E, ...) a layer), and an untied head its ``lm_head``."""
+    (E, ...) a layer; rglru and ssd with their nested conv {w, b}), and an
+    untied head its ``lm_head``."""
     check_supported(cfg)
     stack = np_tree.get("stack", {})
     layers = [_tree(stack[f"b{i}"], r)

@@ -29,6 +29,9 @@
 //    owns 4 keys of a tile: 8 lanes a key read whole 16-byte chunks of K
 //    from shared memory (3 shuffle levels instead of a 5-level butterfly
 //    per key), then each lane takes 8 columns of V for the warp's keys.
+//    It serves G = 1, 2, 4, 8 and 16 query rows a KV head; at G 16
+//    (recurrentgemma's MQA) a warp holds 8 of the rows and owns 8 keys,
+//    walked 4 at a time (kRingRows), so its registers stay those of G 8.
 //    The softcap's tanh is 1 - 2/(e^{2y}+1): one ex2 and one rcp, with
 //    scale*log2e folded in, and the softmax runs in base 2. The block
 //    merges its warps in shared memory; the last block of a (b, kv head)
@@ -277,6 +280,19 @@ constexpr int kRingThreads = (kConsumers + 1) * 32;
 constexpr int kStageB = 2 * kTileKeys * kRowB;     // K rows, then V rows: 32 KB
 constexpr int kRingB = kStages * kStageB;
 
+// Query rows a consumer warp holds: all G up to 8. The 288-thread block is
+// allocated registers as 12 warps, which caps a thread at 168, and G 8
+// takes 164-167 of them (phase 1's -Xptxas -v), so at G 16 (recurrentgemma's
+// MQA, 16 query heads on one KV head) the warps split the rows instead:
+// warp w holds R = 8 rows, (w % H) * R .. + R of the H = G / R groups, and
+// walks 4 H keys of each stage in H passes of 4 keys out of shared memory,
+// reading each K and V row in H warps instead of one; a lane holds what it
+// holds at G 8. The passes are not unrolled: unrolled, ptxas spills 1.3 KB
+// a thread (4 rows a warp unrolled: 0.3-0.4 KB), which cost 0.0506 against
+// 0.0335 ms at recurrentgemma's decode step on an H100 (PERF.md).
+template <int G>
+constexpr int kRingRows = G > 8 ? 8 : G;
+
 template <int G>
 constexpr size_t ring_smem_bytes() {
   // the ring, q as f32, 2 * kStages mbarriers, the last-block flag
@@ -337,9 +353,11 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
   for (int e = threadIdx.x; e < G * D; e += blockDim.x) sq[e] = __bfloat162float(q[qrow * D + e]);
   __syncthreads();
 
-  float m[G], l[G], acc[G][8];
+  constexpr int R = kRingRows<G>, H = G / R;
+  static_assert(G % R == 0 && kConsumers % H == 0, "rows must split evenly over the warps");
+  float m[R], l[R], acc[R][8];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < R; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
@@ -376,26 +394,31 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
       }
     }
   } else {
-    const int mine = 4 * warp + (lane >> 3), sub = lane & 7;   // this lane's key of the tile
-    const float4* q4 = reinterpret_cast<const float4*>(sq);
+    // this warp's rows (half * R .. + R) and keys (key0 .. + 4 H of a stage)
+    const int half = warp % H, key0 = 4 * H * (warp / H), sub = lane & 7;
+    const float4* q4 = reinterpret_cast<const float4*>(sq + half * R * D);
     for (int i = 0; i < ntiles; ++i) {
       const int st = i % kStages;
       const int n = min(kTileKeys, end - (start + i * kTileKeys));
       mbar_wait(full0 + 8 * st, (i / kStages) & 1);
-      if (4 * warp < n) {
-        const unsigned char* tile = ring_smem + st * kStageB;
+      const unsigned char* tile = ring_smem + st * kStageB;
+#pragma unroll 1
+      for (int u = 0; u < H; ++u) {
+        const int base = key0 + 4 * u;        // the pass's 4 keys
+        if (base >= n) break;
+        const int mine = base + (lane >> 3);  // this lane's key of the tile
         // scores: 8 lanes a key, each over 4 chunks of 8 columns
         const uint4* kr = reinterpret_cast<const uint4*>(tile + mine * kRowB);
-        float s[G];
+        float s[R];
 #pragma unroll
-        for (int g = 0; g < G; ++g) s[g] = 0.f;
+        for (int g = 0; g < R; ++g) s[g] = 0.f;
 #pragma unroll
         for (int j = 0; j < D / 64; ++j) {
           const int c = sub + 8 * j;
           float kf[8];
           unpack8(kr[c], kf);
 #pragma unroll
-          for (int g = 0; g < G; ++g) {
+          for (int g = 0; g < R; ++g) {
             const float4 qa = q4[(g * D + 8 * c) / 4], qb = q4[(g * D + 8 * c) / 4 + 1];
             float d = s[g];
             d = fmaf(qa.x, kf[0], d); d = fmaf(qa.y, kf[1], d);
@@ -406,9 +429,9 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
           }
         }
         const bool valid = mine < n;
-        float p[G];
+        float p[R];
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
+        for (int g = 0; g < R; ++g) {
           float x = s[g];
           x += __shfl_xor_sync(0xffffffffu, x, 4);
           x += __shfl_xor_sync(0xffffffffu, x, 2);
@@ -428,16 +451,16 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
 #pragma unroll
           for (int e = 0; e < 8; ++e) acc[g][e] *= corr;
         }
-        // PV: lane takes columns 8*lane.. of the warp's 4 V rows
+        // PV: lane takes columns 8*lane.. of the pass's 4 V rows
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          if (4 * warp + u < n) {
+        for (int v4 = 0; v4 < 4; ++v4) {
+          if (base + v4 < n) {
             float vf[8];
-            unpack8(reinterpret_cast<const uint4*>(tile + (kTileKeys + 4 * warp + u) * kRowB)[lane],
+            unpack8(reinterpret_cast<const uint4*>(tile + (kTileKeys + base + v4) * kRowB)[lane],
                     vf);
 #pragma unroll
-            for (int g = 0; g < G; ++g) {
-              const float pu = __shfl_sync(0xffffffffu, p[g], 8 * u);
+            for (int g = 0; g < R; ++g) {
+              const float pu = __shfl_sync(0xffffffffu, p[g], 8 * v4);
 #pragma unroll
               for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(pu, vf[e], acc[g][e]);
             }
@@ -452,33 +475,35 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
   // Every copy has landed (the consumers waited on each), so the ring is
   // free: merge the consumer warps there.
   __syncthreads();
-  float* s_acc = reinterpret_cast<float*>(ring_smem);   // [kConsumers][G][D]
-  float* s_m = s_acc + kConsumers * G * D;          // [kConsumers][G]
-  float* s_l = s_m + kConsumers * G;
+  float* s_acc = reinterpret_cast<float*>(ring_smem);   // [kConsumers][R][D]
+  float* s_m = s_acc + kConsumers * R * D;          // [kConsumers][R]
+  float* s_l = s_m + kConsumers * R;
   if (warp < kConsumers) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float4* dst = reinterpret_cast<float4*>(s_acc + (warp * G + g) * D + 8 * lane);
+    for (int g = 0; g < R; ++g) {
+      float4* dst = reinterpret_cast<float4*>(s_acc + (warp * R + g) * D + 8 * lane);
       dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
       dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
       if (lane == 0) {
-        s_m[warp * G + g] = m[g];
-        s_l[warp * G + g] = l[g];
+        s_m[warp * R + g] = m[g];
+        s_l[warp * R + g] = l[g];
       }
     }
   }
   __syncthreads();
+  // query row (qrow + g) was held by the warps w = half, half + H, ... as
+  // their row g % R (half = g / R)
   for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
-    const int g = idx / D, d = idx % D;
+    const int g = idx / D, d = idx % D, w0 = g / R, r = g % R;
     float M = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kConsumers; ++w) M = fmaxf(M, s_m[w * G + g]);
+    for (int w = w0; w < kConsumers; w += H) M = fmaxf(M, s_m[w * R + r]);
     float L = 0.f, A = 0.f;
 #pragma unroll
-    for (int w = 0; w < kConsumers; ++w) {
-      const float c = ex2(s_m[w * G + g] - M);
-      L += s_l[w * G + g] * c;
-      A += s_acc[(w * G + g) * D + d] * c;
+    for (int w = w0; w < kConsumers; w += H) {
+      const float c = ex2(s_m[w * R + r] - M);
+      L += s_l[w * R + r] * c;
+      A += s_acc[(w * R + r) * D + d] * c;
     }
     if (nsplit == 1) {
       out[(qrow + g) * D + d] = __float2bfloat16_rn(A / fmaxf(L, 1e-30f));
@@ -502,18 +527,47 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
   if (!*last_flag) return;
   __threadfence();
   if (threadIdx.x == 0) *ticket = 0;   // ready for the next launch
-  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
-    const int g = idx / D, d = idx % D;
-    const size_t row0 = (qrow + g) * nsplit;
+  // Each query row's splits are weighted once, a warp a row: 2^(m_s - M) / L
+  // into the ring, which is free again. Then each thread sums 4 columns'
+  // partial accumulators over the splits with those weights, so the
+  // merge reads each partial once (at G 16 and 32 splits, 512 KB).
+  float* s_w = reinterpret_cast<float*>(ring_smem);   // [G][nsplit]
+  for (int g = warp; g < G; g += kRingThreads / 32) {
+    const float* ml = part_ml + (qrow + g) * nsplit * 2;
     float M = kNegInf;
-    for (int s = 0; s < nsplit; ++s) M = fmaxf(M, __ldcg(part_ml + (row0 + s) * 2));
-    float L = 0.f, A = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const float c = ex2(__ldcg(part_ml + (row0 + s) * 2) - M);
-      L += __ldcg(part_ml + (row0 + s) * 2 + 1) * c;
-      A += __ldcg(part_acc + (row0 + s) * D + d) * c;
+    for (int s = lane; s < nsplit; s += 32) M = fmaxf(M, __ldcg(ml + 2 * s));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
+    float L = 0.f;
+    for (int s = lane; s < nsplit; s += 32) {
+      const float c = ex2(__ldcg(ml + 2 * s) - M);
+      s_w[g * nsplit + s] = c;
+      L += __ldcg(ml + 2 * s + 1) * c;
     }
-    out[(qrow + g) * D + d] = __float2bfloat16_rn(A / fmaxf(L, 1e-30f));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) L += __shfl_xor_sync(0xffffffffu, L, o);
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+    for (int s = lane; s < nsplit; s += 32) s_w[g * nsplit + s] *= inv;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < G * D / 4; idx += blockDim.x) {
+    const int g = idx / (D / 4), c4 = idx % (D / 4);
+    const float4* acc4 = reinterpret_cast<const float4*>(part_acc + (qrow + g) * nsplit * D) + c4;
+    const float* w = s_w + g * nsplit;
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int s = 0; s < nsplit; ++s) {
+      const float4 a = __ldcg(acc4 + s * (D / 4));
+      A.x = fmaf(a.x, w[s], A.x);
+      A.y = fmaf(a.y, w[s], A.y);
+      A.z = fmaf(a.z, w[s], A.z);
+      A.w = fmaf(a.w, w[s], A.w);
+    }
+    __nv_bfloat16* o = out + (qrow + g) * D + 4 * c4;
+    o[0] = __float2bfloat16_rn(A.x);
+    o[1] = __float2bfloat16_rn(A.y);
+    o[2] = __float2bfloat16_rn(A.z);
+    o[3] = __float2bfloat16_rn(A.w);
   }
 }
 
@@ -685,6 +739,7 @@ int decode_attn_launch(const void* q, const void* k, const void* v, const void* 
       case 2: return launch_ring<2>(q, k, v, len, out, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
       case 4: return launch_ring<4>(q, k, v, len, out, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
       case 8: return launch_ring<8>(q, k, v, len, out, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+      case 16: return launch_ring<16>(q, k, v, len, out, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
       default: return cudaErrorInvalidValue;
     }
   }

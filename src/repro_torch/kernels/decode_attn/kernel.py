@@ -21,10 +21,12 @@ DTYPE_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
 HEAD_DIMS = (32, 64, 128, 256)
 # Query heads a KV head (G = Hq/Hkv) the kernels are built for: the bf16
 # ring kernel (D = 256) and the split kernel take GROUPS at every head dim;
-# the split kernel also takes ODD_GROUPS at ODD_GROUP_DIMS (granite-moe's
-# G 3 at D 64, nemotron's 6 and arctic's 7 at D 128). decode_attn.cu's
-# launch_d holds the same table.
+# the ring kernel also takes RING_GROUPS (recurrentgemma's 16 query heads on
+# one KV head); the split kernel also takes ODD_GROUPS at ODD_GROUP_DIMS
+# (granite-moe's G 3 at D 64, nemotron's 6 and arctic's 7 at D 128).
+# decode_attn.cu's switches hold the same table.
 GROUPS = (1, 2, 4, 8)
+RING_GROUPS = (16,)
 ODD_GROUPS, ODD_GROUP_DIMS = (3, 6, 7), (64, 128)
 MIN_KEYS_PER_SPLIT = 64   # no more splits than 64-slot pieces of the cache
 # Blocks an SM that the split kernel's plan aims at. Its warps load a few
@@ -56,7 +58,8 @@ def check_supported(hq: int, hkv: int, d: int, q_dtype, kv_dtype) -> None:
     refuses (it returns cudaErrorInvalidValue for the same)."""
     if (q_dtype, kv_dtype) not in DTYPE_PAIRS:
         raise ValueError(f"unsupported dtypes q {q_dtype} cache {kv_dtype}")
-    groups = GROUPS + ODD_GROUPS if d in ODD_GROUP_DIMS else GROUPS
+    groups = GROUPS + (ODD_GROUPS if d in ODD_GROUP_DIMS else ()) + (
+        RING_GROUPS if uses_ring(q_dtype, kv_dtype, d) else ())
     if d not in HEAD_DIMS or hkv <= 0 or hq % hkv or hq // hkv not in groups:
         raise ValueError(f"unsupported head_dim {d} or group {hq}/{hkv}")
 

@@ -1,4 +1,5 @@
-"""Primitive layers: init, softcap, RMSNorm, RoPE, MLP, embedding.
+"""Primitive layers: init, softcap, RMSNorm, RoPE, MLP, embedding, the
+causal depthwise conv of the SSD and RG-LRU blocks.
 
 Counterparts of the reference's ``models/layers.py`` on torch tensors, with
 the same layouts and the same places of f32 computation and rounding.
@@ -121,3 +122,33 @@ def unembed(params_embed, x, tie: bool = True, head=None, cap: float = 0.0):
     ``head["w"]`` of shape (d, V), then the final softcap."""
     logits = x @ params_embed["table"].T if tie else x @ head["w"]
     return softcap(logits, cap)
+
+
+def conv1d_apply(params, x):
+    """Causal depthwise conv over (B, S, C) with ``params["w"]`` (width, C)
+    and ``params["b"]`` (C,): output t sums inputs t-width+1..t, each times
+    its tap, in f32 in the reference's order (the newest input first), plus
+    the bias, cast back to x's dtype."""
+    width, s = params["w"].shape[0], x.shape[1]
+    w = params["w"].float()
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for j in range(width):
+        shifted = x if j == 0 else F.pad(x, (0, 0, j, 0))[:, :s]
+        out = out + shifted.float() * w[width - 1 - j]
+    return (out + params["b"].float()).to(x.dtype)
+
+
+def conv1d_tail(hist, width: int):
+    """The last width-1 inputs of ``hist`` (B, T, C), zero-padded on the
+    left when T is shorter: the conv state a decode step continues from."""
+    keep = width - 1
+    return F.pad(hist, (0, 0, max(keep - hist.shape[1], 0), 0))[:, -keep:]
+
+
+def conv1d_step(params, x_t, state):
+    """One decode step. x_t: (B, C); state: (B, width-1, C), the past
+    inputs, oldest first. Returns (out (B, C) in x_t's dtype, the new
+    state: the window's last width-1 inputs)."""
+    window = torch.cat([state, x_t[:, None, :]], dim=1)           # (B, width, C)
+    out = (window.float() * params["w"].float()).sum(dim=1) + params["b"].float()
+    return out.to(x_t.dtype), window[:, 1:]

@@ -1,35 +1,50 @@
-"""Decoder-only LM: parameters, KV cache, prefill and decode.
+"""Decoder-only LM: parameters, caches, prefill and decode.
 
-The counterpart of the reference's ``models/model.py`` for stacks of
-attention blocks: gemma2's alternating local/global pattern, dense MLPs of
-every activation, MoE blocks (with arctic's dense residual), qk-norm,
-command-r's parallel attention + FFN block and untied heads. The reference
-scans over the repeating block pattern; here the layers are a list, and
-layer ``r*len(pattern)+i`` has kind ``pattern[i]``.
+The counterpart of the reference's ``models/model.py`` for decoder-only
+stacks: gemma2's alternating local/global attention, dense MLPs of every
+activation, MoE blocks (with arctic's dense residual), qk-norm, command-r's
+parallel attention + FFN block, untied heads, Mamba-2's SSD blocks and
+recurrentgemma's RG-LRU blocks. The reference scans over the repeating
+block pattern; here the layers are a list, and layer ``r*len(pattern)+i``
+has kind ``pattern[i]`` (the remainder layers continue the pattern).
 
 Parameters are a plain dictionary::
 
     {"embed": {"table": (V, d)},
      "lm_head": {"w": (d, V)},                        # untied heads only
-     "layers": [{"ln1": {"scale"},
+     "layers": [{"ln1": {"scale"},                    # attention blocks
                  "attn": {"wq", "wk", "wv", "wo", "q_norm", "k_norm"},
                  "ln2": {"scale"},
                  "mlp": {"w_in", "w_gate", "w_out"},  # dense, or MoE's residual
-                 "moe": {"router", "w_in", "w_gate", "w_out"}}, ...],
+                 "moe": {"router", "w_in", "w_gate", "w_out"}},
+                {"ln1", "ln2", "mlp",                 # RG-LRU blocks
+                 "rglru": {"w_a", "w_b", "w_out", "conv": {"w", "b"},
+                           "w_r", "b_r", "w_i", "b_i", "lam"}},
+                {"ln1",                               # SSD blocks: no MLP
+                 "ssd": {"w_in", "w_out", "conv": {"w", "b"}, "a_log",
+                         "dt_bias", "d_skip", "norm_scale"}}, ...],
      "final_norm": {"scale"}}
 
 with the reference's shapes (``wq`` (d, Hq, Dh), ``wo`` (Hq, Dh, d), the
-experts' ``w_in`` (E, d, ff) and ``w_out`` (E, ff, d)) and its dtypes (norm
-and qk-norm scales and the router in f32). ``w_gate`` exists for the gated
-activations only, ``q_norm``/``k_norm`` with qk-norm only, ``moe`` in MoE
-configs and ``mlp`` in dense ones and beside ``moe`` where the config has a
-dense residual. The cache is a list with one ``{"k", "v"}`` entry of
-(B, L, Hkv, Dh) per layer: L = max_len for global layers and
-min(local_window, max_len) slots of a ring for local ones.
+experts' ``w_in`` (E, d, ff) and ``w_out`` (E, ff, d); RG-LRU's ``w_a``,
+``w_b`` (d, W) and ``w_out`` (W, d) and its (W,) gate vectors; SSD's fused
+``w_in`` (d, 2·d_inner + 2N + nh), ``w_out`` (d_inner, d) and its (nh,)
+head vectors; a conv's ``w`` (width, C) and ``b`` (C,)) and its dtypes
+(norm and qk-norm scales, the router, the gate vectors and the SSD head
+vectors in f32; conv weights and biases in the parameter dtype).
+``w_gate`` exists for the gated activations only, ``q_norm``/``k_norm``
+with qk-norm only, ``moe`` in MoE configs and ``mlp`` in dense ones and
+beside ``moe`` where the config has a dense residual.
 
-Not ported yet (ROADMAP item 9): RG-LRU and SSD blocks, the
-encoder-decoder, vision prefixes (prefix-LM) and attention biases; they
-raise ``NotImplementedError``.
+The cache is a list with one entry a layer: ``{"k", "v"}`` of
+(B, L, Hkv, Dh) for attention (L = max_len for global layers and
+min(local_window, max_len) slots of a ring for local ones), in
+``kv_dtype``; ``{"h", "conv"}`` for the recurrent blocks, in f32 whatever
+``kv_dtype`` is: RG-LRU's h (B, W) and SSD's h (B, nh, P, N), and the conv
+window (B, width-1, C) of past inputs (C = W, or d_inner + 2N for SSD).
+
+Not ported yet (ROADMAP item 9): the encoder-decoder, vision prefixes
+(prefix-LM) and attention biases; they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,17 +52,18 @@ from typing import Any, Dict, List
 
 import torch
 
-from repro_torch.configs.base import ATTN_BLOCKS, BLOCK_LOCAL_ATTN, ModelConfig
+from repro_torch.configs.base import BLOCK_LOCAL_ATTN, BLOCK_RGLRU, BLOCK_SSD, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssd as ssd_mod
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the parts of the reference's model zoo the port lacks."""
     missing = [what for what, present in (
-        ("RG-LRU/SSD blocks", any(k not in ATTN_BLOCKS for k in cfg.pattern)),
         ("encoder-decoder", cfg.is_encoder_decoder),
         ("vision prefix-LM", bool(cfg.frontend) or cfg.prefix_lm),
         ("attention bias", cfg.attn_bias),
@@ -62,8 +78,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
                 dtype=torch.bfloat16) -> Dict[str, Any]:
     """Random parameters: truncated normal (+-3 sigma, sigma = 1/sqrt(fan_in))
     for weights (the router in f32), zeros for the f32 norm and qk-norm
-    scales, as the reference inits. On the card unless ``device="cpu"``; the
-    generator must live there too."""
+    scales and the biases, and the reference's fixed values for the SSD's
+    a_log (log 1..nh), d_skip (ones) and RG-LRU's lam (decays from 0.9 to
+    0.999), as the reference inits. On the card unless ``device="cpu"``;
+    the generator must live there too."""
     check_supported(cfg)
     device = resolve_device(device)
     d, hq, hkv, dh, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -73,8 +91,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     def w(shape, fan_in, dt=dtype):
         return L.nd_init(shape, fan_in, dt, generator, device)
 
-    def zeros(n):
-        return torch.zeros(n, dtype=torch.float32, device=device)
+    def zeros(n, dt=torch.float32):
+        return torch.zeros(n, dtype=dt, device=device)
 
     def mlp(lead=()):
         e_ff = (cfg.moe_d_ff or ff) if lead else ff
@@ -83,8 +101,35 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
             p["w_gate"] = w(lead + (d, e_ff), d)
         return p
 
+    def conv(channels):
+        return {"w": w((cfg.conv_width, channels), cfg.conv_width), "b": zeros(channels, dtype)}
+
+    def rglru():
+        rw = cfg.rglru_width or d
+        decay = torch.linspace(0.9, 0.999, rw, dtype=torch.float32, device=device)
+        return {"w_a": w((d, rw), d), "w_b": w((d, rw), d), "w_out": w((rw, d), rw),
+                "conv": conv(rw), "w_r": zeros(rw), "b_r": zeros(rw), "w_i": zeros(rw),
+                "b_i": zeros(rw),
+                "lam": torch.log(torch.expm1(-torch.log(decay) / rglru_mod.RGLRU_C))}
+
+    def ssd():
+        di, n, nh = cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_num_heads
+        return {"w_in": w((d, 2 * di + 2 * n + nh), d), "w_out": w((di, d), di),
+                "conv": conv(di + 2 * n),
+                "a_log": torch.log(torch.arange(1, nh + 1, dtype=torch.float32,
+                                                device=device)),
+                "dt_bias": zeros(nh), "d_skip": torch.ones(nh, device=device),
+                "norm_scale": zeros(di)}
+
     layers = []
-    for _ in range(cfg.num_layers):
+    for kind in cfg.layer_kinds():
+        if kind == BLOCK_SSD:
+            layers.append({"ln1": {"scale": zeros(d)}, "ssd": ssd()})
+            continue
+        if kind == BLOCK_RGLRU:
+            layers.append({"ln1": {"scale": zeros(d)}, "rglru": rglru(),
+                           "ln2": {"scale": zeros(d)}, "mlp": mlp()})
+            continue
         attn_p = {"wq": w((d, hq, dh), d), "wk": w((d, hkv, dh), d),
                   "wv": w((d, hkv, dh), d), "wo": w((hq, dh, d), hq * dh)}
         if cfg.use_qk_norm:
@@ -106,11 +151,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
 # =================================================================== cache
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                kv_dtype=torch.bfloat16, device=None) -> List[Dict[str, Any]]:
-    """A zeroed cache, on the card unless ``device="cpu"``."""
+    """A zeroed cache, on the card unless ``device="cpu"``: K/V in
+    ``kv_dtype`` for attention layers, the recurrent state in f32."""
     check_supported(cfg)
     device = resolve_device(device)
+
+    def f32(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
     cache = []
     for kind in cfg.layer_kinds():
+        if kind == BLOCK_RGLRU:
+            rw = cfg.rglru_width or cfg.d_model
+            cache.append({"h": f32(batch, rw), "conv": f32(batch, cfg.conv_width - 1, rw)})
+            continue
+        if kind == BLOCK_SSD:
+            cache.append({"h": f32(batch, cfg.ssm_num_heads, cfg.ssm_head_dim,
+                                   cfg.ssm_state_dim),
+                          "conv": f32(batch, cfg.conv_width - 1,
+                                      cfg.d_inner + 2 * cfg.ssm_state_dim)})
+            continue
         length = (min(cfg.local_window or max_len, max_len)
                   if kind == BLOCK_LOCAL_ATTN else max_len)
         shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
@@ -142,8 +202,24 @@ def _residual(cfg, lp, x, h, out):
     return _ffn(cfg, lp, x + out)
 
 
+def _keep_state(entry, state):
+    """Write a recurrent block's new (h, conv) into its cache entry in place."""
+    entry["h"].copy_(state[0])
+    entry["conv"].copy_(state[1])
+
+
 def _block_prefill(cfg, kind, lp, x, entry, positions):
+    """One block over the prompt, filling its cache entry. RG-LRU has its
+    FFN after it; SSD only its residual."""
     h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    if kind == BLOCK_RGLRU:
+        out, state = rglru_mod.rglru_forward(cfg, lp["rglru"], h, return_state=True)
+        _keep_state(entry, state)
+        return _ffn(cfg, lp, x + out)
+    if kind == BLOCK_SSD:
+        out, state = ssd_mod.ssd_forward(cfg, lp["ssd"], h, return_state=True)
+        _keep_state(entry, state)
+        return x + out
     q, k, v = attn.project_qkv(cfg, lp["attn"], h, positions=positions)
     mask = "local" if kind == BLOCK_LOCAL_ATTN else "causal"
     o = attn.attention_core(cfg, q, k, v, mask_kind=mask)
@@ -157,6 +233,14 @@ def _block_prefill(cfg, kind, lp, x, entry, positions):
 
 def _block_decode(cfg, kind, lp, x_t, entry, pos):
     h = L.rmsnorm(lp["ln1"], x_t, cfg.norm_eps)
+    if kind == BLOCK_RGLRU:
+        out, state = rglru_mod.rglru_step(cfg, lp["rglru"], h, (entry["h"], entry["conv"]))
+        _keep_state(entry, state)
+        return _ffn(cfg, lp, x_t + out)
+    if kind == BLOCK_SSD:
+        out, state = ssd_mod.ssd_step(cfg, lp["ssd"], h, (entry["h"], entry["conv"]))
+        _keep_state(entry, state)
+        return x_t + out
     q, k, v = attn.project_qkv(cfg, lp["attn"], h, positions=pos[:, None])
     ring = kind == BLOCK_LOCAL_ATTN
     attn.decode_write(entry["k"], entry["v"], k, v, pos, ring)

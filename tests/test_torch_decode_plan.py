@@ -78,6 +78,7 @@ def test_split_plan(batch, hkv, s, want):
     (4, 4, 4640, 256, (torch.float32, torch.bfloat16), 66),     # f32 q: the split kernel
     (4, 8, 4640, 64, (torch.bfloat16, torch.bfloat16), 33),     # granite-moe
     (2, 8, 1032, 128, (torch.bfloat16, torch.bfloat16), 17),    # nemotron, arctic: 64-slot cap
+    (4, 1, 2048, 256, (torch.bfloat16, torch.bfloat16), 32),    # recurrentgemma's 2048-slot ring
 ])
 def test_plan_for_gives_the_split_kernel_several_blocks_an_sm(b, hkv, s, d, dtypes, want):
     """The ring kernel keeps one block an SM; the split kernel's grid aims

@@ -101,10 +101,17 @@ def test_zoo_param_count_counts_init_params(name):
 @pytest.mark.parametrize("name", ZOO)
 def test_zoo_param_count_at_full_width_is_the_references_moe_and_head(name):
     """At full width the port's count differs from the reference's only by
-    the reference's extra d a dense block (its ``mlp + d`` term)."""
+    the reference's extra d a dense attention block (its ``mlp + d`` term)
+    and, in the recurrent blocks, by what the reference's count leaves out
+    (``tests/test_torch_ssm.py`` spells out those terms)."""
     cfg, ref = C.get_config(name), ref_get_config(name)
-    dense_blocks = 0 if cfg.num_experts else cfg.num_layers
-    assert ref.param_count() - cfg.param_count() == dense_blocks * cfg.d_model
+    dense_blocks = 0 if cfg.num_experts else sum(
+        k in ("local", "global") for k in cfg.layer_kinds())
+    rw, di, n, nh = (cfg.rglru_width or cfg.d_model, cfg.d_inner, cfg.ssm_state_dim,
+                     cfg.ssm_num_heads)
+    recurrent = sum({"rglru": 3 * rw, "ssd": di + 2 * n + nh - cfg.d_model}.get(k, 0)
+                    for k in cfg.layer_kinds())
+    assert ref.param_count() - cfg.param_count() == dense_blocks * cfg.d_model - recurrent
 
 
 def test_resolve_device_raises_without_a_card(monkeypatch):

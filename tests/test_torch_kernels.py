@@ -70,6 +70,7 @@ def test_flash_attention_matches_reference(b, s, hq, hkv, d, causal, window,
     (2, 300, 24, 8, 64),                    # granite-moe's heads (G 3)
     (1, 200, 48, 8, 128),                   # nemotron's (G 6)
     (1, 130, 56, 8, 128),                   # arctic's (G 7)
+    (2, 300, 16, 1, 256),                   # recurrentgemma's MQA (G 16)
 ])
 def test_decode_attention_matches_reference(b, s, hq, hkv, d, dtype, atol):
     rng = np.random.default_rng(1)
@@ -222,14 +223,16 @@ def test_every_included_header_is_on_the_include_path(monkeypatch):
     (24, 8, 64, True), (48, 8, 128, True), (56, 8, 128, True), (64, 8, 128, True),
     (24, 8, 128, True), (12, 4, 64, True),
     (24, 8, 32, False), (24, 8, 256, False), (56, 8, 256, False),   # no G 3/6/7 there
-    (40, 8, 128, False), (128, 8, 128, False), (128, 8, 256, False),  # G 5, 16
+    (40, 8, 128, False), (128, 8, 128, False), (128, 8, 256, "ring"),  # G 5, 16
+    (16, 1, 256, "ring"), (16, 1, 128, False), (32, 2, 64, False),   # recurrentgemma's G 16
     (8, 3, 128, False), (8, 4, 96, False),
 ])
 def test_decode_wrapper_refuses_groups_the_kernel_lacks(hq, hkv, d, ok):
     """The wrapper's table of (G, D): G 1, 2, 4, 8 everywhere, 3, 6, 7 at D
-    64 and 128; anything else raises before a launch."""
+    64 and 128, 16 on the bf16 ring kernel (bf16 q and cache at D 256) only;
+    anything else raises before a launch."""
     for q_dtype, kv_dtype in DK.DTYPE_PAIRS:
-        if ok:
+        if ok is True or ok == "ring" and DK.uses_ring(q_dtype, kv_dtype, d):
             DK.check_supported(hq, hkv, d, q_dtype, kv_dtype)
         else:
             with pytest.raises(ValueError, match="group|head_dim"):
@@ -239,10 +242,10 @@ def test_decode_wrapper_refuses_groups_the_kernel_lacks(hq, hkv, d, ok):
 
 
 def test_decode_group_table_matches_the_source():
-    """``kernel.GROUPS``/``ODD_GROUPS`` are the cases decode_attn.cu
-    instantiates: the split kernel's ``launch_d`` switch (odd groups under
-    ``kOddGroups``, whose head dims are ``ODD_GROUP_DIMS``) and the bf16 ring
-    kernel's switch."""
+    """``kernel.GROUPS``/``ODD_GROUPS``/``RING_GROUPS`` are the cases
+    decode_attn.cu instantiates: the split kernel's ``launch_d`` switch (odd
+    groups under ``kOddGroups``, whose head dims are ``ODD_GROUP_DIMS``) and
+    the bf16 ring kernel's switch (GROUPS and RING_GROUPS)."""
     import re
     src = _build.source("decode_attn").read_text()
     launch_d = src[src.index("cudaError_t launch_d("):src.index("cudaError_t launch_t(")]
@@ -254,4 +257,6 @@ def test_decode_group_table_matches_the_source():
     assert sorted(int(x) for x in re.findall(r"D == (\d+)", dims)) == sorted(DK.ODD_GROUP_DIMS)
     ring = src[src.index("if (q_dtype == 1 && kv_dtype == 1 && D == kRingD)"):]
     ring = ring[:ring.index("default:")]
-    assert sorted(int(c) for c in re.findall(r"case (\d+):", ring)) == sorted(DK.GROUPS)
+    assert sorted(int(c) for c in re.findall(r"case (\d+):", ring)) == sorted(
+        DK.GROUPS + DK.RING_GROUPS)
+    assert not set(DK.RING_GROUPS) & set(cases)      # the split kernel has no G 16

@@ -167,31 +167,71 @@ def test_init_cache_layout():
     assert cache[0]["v"].shape == (2, 16, 2, 32) and cache[0]["v"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("change", [
-    {"pattern": ("rglru",)}, {"pattern": ("ssd",)},
-    {"is_encoder_decoder": True}, {"frontend": "vision"},
-])
+@pytest.mark.parametrize("change", [{"is_encoder_decoder": True}, {"frontend": "vision"}])
 def test_unported_blocks_raise(change):
     cfg = dataclasses.replace(CFG, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
 
-@pytest.mark.parametrize("arch", [
-    "mamba2-2.7b", "recurrentgemma-9b", "seamless-m4t-medium", "paligemma-3b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "paligemma-3b"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         C.get_config(arch)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b"])
+def test_formerly_unported_archs_run(arch):
+    """The two archs that used to raise are registered and serve: the
+    reduced config through ``generate`` on the CPU with the port's own
+    init, finite logits that the greedy tokens follow. (Their agreement
+    with the reference is in test_torch_zoo.py and test_torch_ssm.py.)"""
+    cfg = C.reduced_config(arch)
+    assert C.get_config(arch).num_layers == {"mamba2-2.7b": 64, "recurrentgemma-9b": 38}[arch]
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 12), generator=torch.Generator().manual_seed(1))
+    tokens, logits = generate(cfg, params, prompts, 4, device="cpu")
+    assert tokens.shape == (2, 4) and logits.shape == (2, 4, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert torch.equal(logits[:, :-1].argmax(-1), tokens[:, 1:])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b"])
+def test_init_cache_layout_of_recurrent_blocks(arch):
+    """RG-LRU and SSD layers hold {"h", "conv"} in f32 under a bf16
+    kv_dtype; recurrentgemma's local layers keep a bf16 ring of min(window,
+    max_len) slots with its one KV head."""
+    cfg = C.reduced_config(arch)
+    cache = M.init_cache(cfg, 2, MAX_LEN, torch.bfloat16, "cpu")
+    assert len(cache) == cfg.num_layers
+    width = cfg.conv_width - 1
+    for kind, entry in zip(cfg.layer_kinds(), cache):
+        if kind == "local":
+            assert set(entry) == {"k", "v"}
+            assert entry["k"].shape == (2, 16, 1, 32) and entry["k"].dtype == torch.bfloat16
+            continue
+        assert set(entry) == {"h", "conv"}
+        assert entry["h"].dtype == entry["conv"].dtype == torch.float32
+        if kind == "rglru":
+            assert entry["h"].shape == (2, cfg.rglru_width)
+            assert entry["conv"].shape == (2, width, cfg.rglru_width)
+        else:
+            assert entry["h"].shape == (2, cfg.ssm_num_heads, cfg.ssm_head_dim,
+                                        cfg.ssm_state_dim)
+            assert entry["conv"].shape == (2, width, cfg.d_inner + 2 * cfg.ssm_state_dim)
+        assert not entry["h"].any() and not entry["conv"].any()
+
+
 @pytest.mark.parametrize("change", [
     {"num_experts": 4, "num_experts_per_tok": 2}, {"use_qk_norm": True},
     {"mlp_activation": "swiglu"}, {"tie_embeddings": False},
-], ids=["moe", "qk_norm", "swiglu", "untied_head"])
+    {"pattern": ("rglru", "local")}, {"pattern": ("ssd",), "ssm_state_dim": 16},
+], ids=["moe", "qk_norm", "swiglu", "untied_head", "rglru", "ssd"])
 def test_formerly_unported_blocks_run(env, change):
-    """The four block variants that used to raise here now run: reduced
-    gemma2-2b with each change, prefill and 3 greedy steps at f32 against
-    the reference with the same change, logits within 1e-4."""
+    """The block variants that used to raise here now run: reduced gemma2-2b
+    with each change (RG-LRU beside local attention; SSD blocks alone),
+    prefill and 3 greedy steps at f32 against the reference with the same
+    change, logits within 1e-4."""
     cfg, ref_cfg = (dataclasses.replace(c, **change) for c in (CFG, REF_CFG))
     ref = RM.init_params(ref_cfg, jax.random.PRNGKey(2), RUN)
     port = params_from_jax(jax.tree.map(np.asarray, ref), cfg)

@@ -91,8 +91,8 @@ BROKEN = [
         "      mbar_wait(full0 + 8 * st, (i / kStages) & 1);\n",
         "      if (st != 1) mbar_wait(full0 + 8 * st, (i / kStages) & 1);\n")]),
     ("decode_attn", "drop_last_split", [(
-        "    for (int s = 0; s < nsplit; ++s) {\n      const float c = ex2(__ldcg(",
-        "    for (int s = 0; s < nsplit - 1; ++s) {\n      const float c = ex2(__ldcg(")]),
+        "    for (int s = 0; s < nsplit; ++s) {\n      const float4 a = __ldcg(",
+        "    for (int s = 0; s < nsplit - 1; ++s) {\n      const float4 a = __ldcg(")]),
     ("ciao_gather", "every_request_a_miss", [(
         "atomicAdd(&cnt[2 * r.z + (r0 + lane == p ? 1 : 0)], 1)",
         "atomicAdd(&cnt[2 * r.z + 1], 1)")]),
@@ -101,16 +101,15 @@ BROKEN = [
 ]
 VARIANTS = [
     ("decode_attn", "kernel", True, []),
-    ("decode_attn", "no_math", False, [("      if (4 * warp < n) {\n", "      if (false) {\n")]),
+    ("decode_attn", "no_math", False, [("        if (base >= n) break;\n",
+                                        "        if (true) break;\n")]),
     ("decode_attn", "rows_only", True, [("      if (n == kTileKeys) {\n", "      if (false) {\n")]),
     ("decode_attn", "no_tiles", False, [(
         "  const int ntiles = (end - start + kTileKeys - 1) / kTileKeys;",
         "  const int ntiles = 0;")]),
     ("decode_attn", "no_split_merge", False, [(
-        "  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {\n"
-        "    const int g = idx / D, d = idx % D;\n    const size_t row0",
-        "  for (int idx = G * D; idx < G * D; idx += blockDim.x) {\n"
-        "    const int g = idx / D, d = idx % D;\n    const size_t row0")]),
+        "  for (int idx = threadIdx.x; idx < G * D / 4; idx += blockDim.x) {",
+        "  for (int idx = G * D; idx < G * D / 4; idx += blockDim.x) {")]),
     ("decode_attn", "stages_2", True, [("constexpr int kStages = 4;", "constexpr int kStages = 2;")]),
     ("decode_attn", "stages_6", True, [("constexpr int kStages = 4;", "constexpr int kStages = 6;")]),
     ("ciao_gather", "kernel", True, []),
@@ -253,16 +252,34 @@ def per_launch(prof):
     return "; ".join(f"{k[:60]} {ms / n:.4f} ms ({n} launches)" for k, ms, n in prof["top"])
 
 
+def decode_cases(gen):
+    """K2's bf16 ring-kernel shapes on the serving paths, {label: ((q,
+    cache_k, cache_v, lengths), args)}: gemma2-2b's last decode step on a
+    local and a global layer (G 2, softcap 50) and recurrentgemma-9b's on
+    its wrapped 2,048-slot ring (G 16, no softcap)."""
+    import torch
+    _, decode = C.main_path_inputs(torch.bfloat16, gen)
+    cases = {kind: (decode[kind], dict(scale=C.SCALE, softcap=50.0))
+             for kind in ("local", "global")}
+    for name, b, sq, steps, hq, hkv, d, scale, window in C.zoo_paths():
+        if name == C.RECURRENTGEMMA:
+            s = min(sq + steps, window)
+            dq = torch.randn(b, 1, hq, d, generator=gen, device="cuda").to(torch.bfloat16)
+            ck, cv = (torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
+                      for _ in range(2))
+            lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+            cases[name] = ((dq, ck, cv, lens), dict(scale=scale, softcap=0.0))
+    return cases
+
+
 def time_decode(libs_k2, card, profile):
-    """K2 at the serving shapes: events (host launch cost included), a CUDA
-    graph (device time) and the host's time a call, each library in turns."""
+    """K2 at the serving shapes (``decode_cases``): events (host launch cost
+    included), a CUDA graph (device time) and the host's time a call, each
+    library in turns."""
     import torch
     from repro_torch.kernels.decode_attn import ops as DO
     gen = torch.Generator(device="cuda").manual_seed(2)
-    _, decode = C.main_path_inputs(torch.bfloat16, gen)
-    args = dict(scale=C.SCALE, softcap=50.0)
-    for kind in ("local", "global"):
-        dq, ck, cv, lens = decode[kind]
+    for kind, ((dq, ck, cv, lens), args) in decode_cases(gen).items():
         ref = DO.decode_attention_plain(dq, ck, cv, lens, **args).float()
         atol, rtol, _ = C.TOL["bfloat16"]["decode_attn"]
         limit = atol + rtol * ref.abs()
@@ -281,7 +298,8 @@ def time_decode(libs_k2, card, profile):
         plain = C.cuda_ms(lambda: DO.decode_attention_plain(dq, ck, cv, lens, **args), 10)
         lib = None
         try:
-            fn, _ = C.library_flash(dq, ck, cv, 0, lengths=lens)
+            fn, _ = C.library_flash(dq, ck, cv, 0, lengths=lens, scale=args["scale"],
+                                    cap=args["softcap"])
             fn()
             lib = C.cuda_ms(fn, 50, warmup=5)
         except Exception as e:  # the yardstick only
@@ -304,7 +322,6 @@ def time_decode(libs_k2, card, profile):
                 prof = C.device_profile(lambda: [call(mod) for _ in range(5)])
                 C.log(f"  {name}: 5 calls under the profiler, device ms a launch: "
                       + per_launch(prof))
-    del decode
     torch.cuda.empty_cache()
 
 
@@ -545,6 +562,12 @@ def main() -> None:
     t0 = time.perf_counter()
     built = build_all(sources)
     C.log(f"built {len(built)} libraries in {time.perf_counter() - t0:.1f} s")
+    for key, so in built.items():
+        if planned[key][0] == "decode_attn":
+            C.log(f"  ptxas -v, {key}: " + "; ".join(
+                f"{name} {items}" for name, items in
+                C.ptxas_report(so.with_suffix(".log").read_text()).items()
+                if "decode_ring_kernel" in name))
     libs = {"decode_attn": {}, "ciao_gather": {}}
     for key, (kernel, tag, mod) in planned.items():
         libs[kernel][tag] = (mod, bind(mod, built[key]))

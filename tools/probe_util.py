@@ -30,7 +30,9 @@ def edited(src: str, edits) -> str:
 
 def build_all(sources):
     """{name: path.cu} -> {name: path.so} under OUT, one nvcc each, all
-    started together; raises SystemExit with nvcc's output if one fails."""
+    started together, nvcc's output (its -Xptxas -v report) beside each
+    library as lib{name}.log; raises SystemExit with that output if one
+    fails."""
     from repro_torch.kernels import _build
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -42,6 +44,7 @@ def build_all(sources):
     built = {}
     for name, (proc, so) in procs.items():
         log, _ = proc.communicate(timeout=_build.BUILD_TIMEOUT_S)
+        so.with_suffix(".log").write_text(log)
         if proc.returncode:
             raise SystemExit(f"{Path(sys.argv[0]).name}: {name} does not build:\n{log[-4000:]}")
         built[name] = so
