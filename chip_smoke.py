@@ -19,16 +19,23 @@ Phases, each of which exits non-zero on failure:
     G 4, 6, 7 and 8 at D 128), K2 at random and ragged lengths, and K2's
     bf16 ring kernel at G 16 (recurrentgemma's MQA, D 256) at random and
     ragged lengths, at length S, at S shorter than a tile and with a zero
-    length; and both at the shapes of phases 4b, 4c and 4d: K3 at each
-    arch's prefill (recurrentgemma's with its 2,048-token window), K2 at
-    its last decode step (recurrentgemma's wrapped 2,048-slot ring), with
-    f32 queries against a bf16 cache too where the split kernel takes the
-    group;
+    length; K3 with a prefix-LM prefix (1, 100, 200, 300, = Sq and > Sq
+    at a ragged Sq) at paligemma's heads (G 8, D 256) and at D 32, and
+    non-causal at seamless's (G 1, D 64) with Sq != Skv, both ragged; K2 at
+    seamless's heads with every length = S; and both at the shapes of
+    phases 4b, 4c, 4d and 4e: K3 at each arch's prefill (recurrentgemma's
+    with its 2,048-token window, paligemma's with its 256-patch prefix,
+    seamless's encoder and its self and cross prefill), K2 at its last
+    decode step (recurrentgemma's wrapped 2,048-slot ring, seamless's self
+    and cross steps), with f32 queries against a bf16 cache too where the
+    split kernel takes the group;
  3. the reduced configs of gemma2-2b, granite-moe-3b-a800m, arctic-480b,
-    qwen3-4b, nemotron-4-15b, command-r-35b, mamba2-2.7b and
-    recurrentgemma-9b: the port's CPU plain path against its CUDA kernel
-    path, logits and greedy tokens, with an f32 and a bf16 cache, and the
-    launch counts (K3 and K2 once an attention layer: none for mamba2);
+    qwen3-4b, nemotron-4-15b, command-r-35b, mamba2-2.7b, recurrentgemma-9b,
+    seamless-m4t-medium and paligemma-3b (their frontend inputs drawn from
+    the seeded generator): the port's CPU plain path against its CUDA
+    kernel path, logits and greedy tokens, with an f32 and a bf16 cache,
+    and the launch counts (``attention_calls``: K3 and K2 once an attention
+    layer, none for mamba2; seamless K3 3 a layer, K2 2 a layer a step);
  4. full-width gemma2-2b in bf16 with random weights from a seeded
     generator: 4 requests of 4608-token prompts (longer than the 4096-token
     local window), 32 greedy decode steps through ``generate``; the launch
@@ -46,6 +53,12 @@ Phases, each of which exits non-zero on failure:
     launches 0 and 12 a prefill, 0 and 12 a step), the peak memory beside
     the reckoned one, and one recurrent block's device time at the
     prefill's tokens and at a decode step, split into GEMMs and plain torch;
+ 4e. seamless-m4t-medium (12 encoder and 12 decoder layers, cross-attention,
+    biases) over 4 sources of 4,096 frame embeddings with 64-token decoder
+    prompts, and paligemma-3b (18 layers, the prefix-LM mask) over 4 x (256
+    patch embeddings + 768 text tokens), whole, 32 greedy steps each, with
+    phase 4's checks (K3 36 and K2 24 a step for seamless, 18 and 18 for
+    paligemma) and the peak memory beside the reckoned one;
  5. the CIAO gather path at full width: the gather workload's index stream
     (72,000 requests of 48 streams, 6 of them isolated) against a bf16 table
     of gemma2-2b's vocab x d_model, through ``ciao_gather`` with the trace's
@@ -57,7 +70,10 @@ Phases, each of which exits non-zero on failure:
     launches under the profiler, and K2's time over a CUDA graph of 100
     calls (``device_ms``: without the host's launch cost); K2 also at the
     last decode step of granite-moe, nemotron, arctic and recurrentgemma
-    (the ring kernel at G 16), K3 also at recurrentgemma's prefill;
+    (the ring kernel at G 16), K3 also at recurrentgemma's prefill; K3 at
+    seamless's encoder and cross prefill and paligemma's prefill (a prefix
+    mask_mod for flex_attention), K2 at seamless's cross step and
+    paligemma's last step;
  7. the simulator path: the port's C stepper builds; the 7 single-SM golden
     cells through ``run_batched(cells)`` (the torch stepper, on the card by
     default) equal the golden records field by field; the fig8 grid (12
@@ -226,6 +242,15 @@ FLASH_GRID = [
 ZOO_HEADS = [(24, 8, 64), (32, 8, 128), (48, 8, 128), (56, 8, 128), (64, 8, 128)]
 # K3 at those heads, causal at a ragged length, no softcap (none of them has one)
 FLASH_GRID += [(1, 300, 300, hq, hkv, d, True, 0, 0.0) for hq, hkv, d in ZOO_HEADS]
+# seamless-m4t-medium's heads (16 of 64, G 1): K3 non-causal (the encoder,
+# and cross-attention) with Sq != Skv, both ragged
+FLASH_GRID += [(2, 77, 301, 16, 16, 64, False, 0, 0.0), (1, 300, 190, 16, 16, 64, False, 0, 0.0)]
+# (b, sq, hq, hkv, d, prefix): K3 causal with a prefix-LM prefix at a ragged
+# Sq, at paligemma-3b's heads (8 q on 1 kv head of 256) and at D 32 (the
+# 64-byte swizzle): prefixes that are no multiple of the 64-key tile or of
+# the 128-row block, one that ends the sequence (P = Sq) and one past it
+FLASH_PREFIX_GRID = [(2, 333, hq, hkv, d, p) for hq, hkv, d in ((8, 1, 256), (4, 2, 32))
+                     for p in (1, 100, 200, 300, 333, 400)]
 # (b, s, hq, hkv, d, lengths or None for random ones): the kernel tests'
 # grid, then the edges of the bf16 ring kernel (D = 256, 32-key tiles, one
 # split per SM's share): length 1 (all but one split empty), length S,
@@ -242,6 +267,10 @@ DECODE_GRID = [(2, 256, 4, 2, 64, None), (3, 512, 4, 4, 128, None), (1, 300, 8, 
 # (a full row and one that ends inside a split)
 DECODE_GRID += [case for hq, hkv, d in ZOO_HEADS
                 for case in ((2, 700, hq, hkv, d, None), (2, 700, hq, hkv, d, [700, 517]))]
+# K2 at seamless-m4t-medium's heads (the split kernel, G 1, D 64) with every
+# length = S, as its cross-attention step reads the whole encoder cache
+SEAMLESS_HEADS = (16, 16, 64)
+DECODE_GRID += [(2, 700, *SEAMLESS_HEADS, [700, 700]), (3, 333, *SEAMLESS_HEADS, [333] * 3)]
 # the bf16 ring kernel at G 16 (recurrentgemma's 16 query heads on one KV
 # head of 256), bf16 only (the split kernel takes no G 16), with and without
 # a softcap: recurrentgemma's last decode step (B 4, its 2,048-slot ring
@@ -337,7 +366,86 @@ def hold_zoo_paths(dtype, gen, hold, only):
     torch.cuda.empty_cache()
 
 
-KERNELS =("flash_attn", "decode_attn", "ciao_gather")
+def frontend_calls():
+    """The attention calls of phase 4e's paths, as (arch, call, kernel,
+    shape, scale): K3's shape (b, sq, skv, hq, hkv, d, causal, prefix), K2's
+    (b, s, hq, hkv, d) at the last decode step, every slot valid.
+    seamless: the encoder over SRC_LEN frames (non-causal), the decoder's
+    self-attention over its DEC_PROMPT-token prompt, its cross-attention
+    over the encoder output (non-causal, Sq << Skv), and a step's self and
+    cross attention; paligemma: the prefill over its patches and text (the
+    prefix-LM mask) and the last step."""
+    from repro_torch.configs import get_config
+    out = []
+    for name in FRONTEND_ARCHS:
+        cfg = get_config(name)
+        heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        scale = cfg.query_scale or cfg.head_dim ** -0.5
+        if cfg.is_encoder_decoder:
+            calls = [("encoder", "flash_attn", (BATCH, SRC_LEN, SRC_LEN, *heads, False, 0)),
+                     ("self prefill", "flash_attn",
+                      (BATCH, DEC_PROMPT, DEC_PROMPT, *heads, True, 0)),
+                     ("cross prefill", "flash_attn",
+                      (BATCH, DEC_PROMPT, SRC_LEN, *heads, False, 0)),
+                     ("self step", "decode_attn", (BATCH, DEC_PROMPT + STEPS, *heads)),
+                     ("cross step", "decode_attn", (BATCH, SRC_LEN, *heads))]
+        else:
+            s = cfg.frontend_len + TEXT_LEN
+            calls = [("prefill", "flash_attn", (BATCH, s, s, *heads, True, cfg.frontend_len)),
+                     ("last step", "decode_attn", (BATCH, s + STEPS, *heads))]
+        out += [(name, call, kernel, shape, scale) for call, kernel, shape in calls]
+    return out
+
+
+def frontend_inputs(kernel, shape, scale, dtype, gen):
+    """Random inputs of one of ``frontend_calls``: (q, k, v, K3's keyword
+    arguments) or (q, cache_k, cache_v, lengths, K2's)."""
+    import torch
+
+    def rnd(*dims):
+        return torch.randn(dims, generator=gen, device="cuda").to(dtype)
+
+    if kernel == "flash_attn":
+        b, sq, skv, hq, hkv, d, causal, prefix = shape
+        return (rnd(b, sq, hq, d), rnd(b, skv, hkv, d), rnd(b, skv, hkv, d),
+                dict(scale=scale, causal=causal, prefix_len=prefix, softcap=0.0))
+    b, s, hq, hkv, d = shape
+    return (rnd(b, 1, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d),
+            torch.full((b,), s, dtype=torch.int32, device="cuda"), dict(scale=scale, softcap=0.0))
+
+
+def hold_frontend_paths(dtype, gen, hold, only):
+    """Phase 2 at phase 4e's shapes (``frontend_calls``): K3's plain version
+    a batch row at a time (seamless's encoder scores are 1 GB a row in
+    f32), and K2 with f32 queries against a bf16 cache too."""
+    import torch
+    from repro_torch.kernels.decode_attn import kernel as DK, ops as DO
+    from repro_torch.kernels.flash_attn import kernel as FK, ops as FO
+    for name, call, kernel, shape, scale in frontend_calls():
+        if kernel not in only:
+            continue
+        label = f"{dtype} main {name} {call} {shape}"
+        if kernel == "flash_attn":
+            q, k, v, args = frontend_inputs(kernel, shape, scale, dtype, gen)
+            hold("flash_attn", label, FK.flash_attention_cuda(q, k, v, **args),
+                 lambda w: torch.cat([FO.flash_attention_plain(q[i:i + 1], k[i:i + 1],
+                                                               w[i:i + 1], **args)
+                                      for i in range(q.shape[0])]), v)
+            del q, k, v
+            continue
+        dq, ck, cv, lens, args = frontend_inputs(kernel, shape, scale, dtype, gen)
+        hold("decode_attn", label, DK.decode_attention_cuda(dq, ck, cv, lens, **args),
+             lambda w: DO.decode_attention_plain(dq, ck, w, lens, **args), cv)
+        if dtype == torch.float32:     # f32 queries against a bf16 cache
+            ck, cv = ck.to(torch.bfloat16), cv.to(torch.bfloat16)
+            hold("decode_attn", f"{dtype} q, bf16 cache, main {name} {call}",
+                 DK.decode_attention_cuda(dq, ck, cv, lens, **args),
+                 lambda w: DO.decode_attention_plain(dq, ck, w, lens, **args), cv)
+        del dq, ck, cv
+    torch.cuda.empty_cache()
+
+
+KERNELS = ("flash_attn", "decode_attn", "ciao_gather")
 
 
 def check_kernels(only=KERNELS):
@@ -377,6 +485,15 @@ def check_kernels(only=KERNELS):
             hold("flash_attn", f"{dtype} grid {case}",
                  FK.flash_attention_cuda(q, k, v, **args),
                  lambda w: FO.flash_attention_plain(q, k, w, **args), v)
+        for case in FLASH_PREFIX_GRID if "flash_attn" in only else ():
+            b, sq, hq, hkv, d, prefix = case
+            q = torch.randn(b, sq, hq, d, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(b, sq, hkv, d, generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            args = dict(scale=d ** -0.5, causal=True, prefix_len=prefix)
+            hold("flash_attn", f"{dtype} prefix {case}",
+                 FK.flash_attention_cuda(q, k, v, **args),
+                 lambda w: FO.flash_attention_plain(q, k, w, **args), v)
         kv_dtypes = (torch.float32, torch.bfloat16) if dtype == torch.float32 else (dtype,)
         for (b, s, hq, hkv, d, lengths) in DECODE_GRID if "decode_attn" in only else ():
             for kv_dtype in kv_dtypes:
@@ -387,7 +504,7 @@ def check_kernels(only=KERNELS):
                                      dtype=torch.int32) if lengths is None else \
                     torch.tensor(lengths, dtype=torch.int32, device="cuda")
                 # the zoo's archs have no attention softcap; the others run gemma2's
-                cap = 0.0 if (hq, hkv, d) in ZOO_HEADS else 50.0
+                cap = 0.0 if (hq, hkv, d) in ZOO_HEADS + [SEAMLESS_HEADS] else 50.0
                 args = dict(scale=d ** -0.5, softcap=cap)
                 hold("decode_attn", f"{dtype}/{kv_dtype} grid {(b, s, hq, hkv, d, lengths)}",
                      DK.decode_attention_cuda(q, ck, cv, lens, **args),
@@ -428,6 +545,7 @@ def check_kernels(only=KERNELS):
         del q, k, v, decode
         torch.cuda.empty_cache()
         hold_zoo_paths(dtype, gen, hold, only)
+        hold_frontend_paths(dtype, gen, hold, only)
     if "ciao_gather" in only:
         check_gather(gen, errs["ciao_gather"], failed)
     return errs, failed
@@ -564,11 +682,32 @@ def check_forward_only():
 
 
 # ------------------------------------------------------------------ phase 3
-def attention_layers(cfg) -> int:
-    """The layers that attend (K3 once each a prefill, K2 once each a step):
-    all of a transformer's, 12 of recurrentgemma-9b's 38, none of mamba2's."""
+def attention_calls(cfg):
+    """(K3 launches a prefill, K2 launches a decode step): one each an
+    attention layer (all of a transformer's, 12 of recurrentgemma-9b's 38,
+    none of mamba2's), two in an encoder-decoder's decoder layer (self and
+    cross attention) and one an encoder layer."""
     from repro_torch.configs.base import ATTN_BLOCKS
-    return sum(kind in ATTN_BLOCKS for kind in cfg.layer_kinds())
+    layers = sum(kind in ATTN_BLOCKS for kind in cfg.layer_kinds())
+    per_layer = 2 if cfg.is_encoder_decoder else 1
+    return per_layer * layers + cfg.num_encoder_layers, per_layer * layers
+
+
+def frontend_batch(cfg, batch, src_len, dtype, gen, device):
+    """The frontend's inputs of ``batch`` requests, drawn from ``gen``:
+    ``src_embeds`` (batch, src_len, d) for an encoder-decoder,
+    ``patch_embeds`` (batch, frontend_len, d) for a vision frontend, else
+    nothing."""
+    import torch
+
+    def rnd(n):
+        return torch.randn(batch, n, cfg.d_model, generator=gen, device=device).to(dtype)
+
+    if cfg.is_encoder_decoder:
+        return {"src_embeds": rnd(src_len)}
+    if cfg.frontend == "vision":
+        return {"patch_embeds": rnd(cfg.frontend_len)}
+    return {}
 
 
 def to_device(tree, device):
@@ -589,18 +728,20 @@ def check_reduced():
     from repro_torch.models.model import init_params
     from repro_torch.serving import generate
     steps = 10
-    for name in ("gemma2-2b", GRANITE) + ZOO_ARCHS + RECURRENT_ARCHS:
+    for name in ("gemma2-2b", GRANITE) + ZOO_ARCHS + RECURRENT_ARCHS + FRONTEND_ARCHS:
         log(f"[3] reduced {name} f32: CPU plain path against the CUDA kernel path")
         cfg = reduced_config(name)
         params = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
-        prompts = torch.randint(0, cfg.vocab_size, (3, 24),
-                                generator=torch.Generator().manual_seed(1))
+        gen = torch.Generator().manual_seed(1)
+        prompts = torch.randint(0, cfg.vocab_size, (3, 24), generator=gen)
+        # seamless: 3 sources of 20 frames; paligemma: its 8 reduced patches
+        frontend = frontend_batch(cfg, 3, 20, torch.float32, gen, "cpu")
         for kv_dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
-            cpu_tok, cpu_logits = generate(cfg, params, prompts, steps, device="cpu",
-                                           kv_dtype=kv_dtype)
+            cpu_tok, cpu_logits = generate(cfg, params, prompts, steps, frontend=frontend,
+                                           device="cpu", kv_dtype=kv_dtype)
             flash_attention_cuda.launches = decode_attention_cuda.launches = 0
             tok, logits = generate(cfg, to_device(params, "cuda"), prompts, steps,
-                                   kv_dtype=kv_dtype)
+                                   frontend=frontend, kv_dtype=kv_dtype)
             counts = (flash_attention_cuda.launches, decode_attention_cuda.launches)
             err = max_err(logits.cpu(), cpu_logits)
             gap = cpu_logits.topk(2, dim=-1).values
@@ -612,8 +753,10 @@ def check_reduced():
                 f"decode {counts[1]}")
             if err > tol or not same:
                 fail(f"reduced {name} CUDA path disagrees with the CPU path (kv {kv_dtype})")
-            if counts != (attention_layers(cfg), attention_layers(cfg) * steps):
-                fail(f"reduced {name} launch counts {counts}")
+            per_prefill, per_step = attention_calls(cfg)
+            if counts != (per_prefill, per_step * steps):
+                fail(f"reduced {name} launch counts {counts}, want "
+                     f"{(per_prefill, per_step * steps)}")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -638,16 +781,19 @@ def device_profile(fn, top: int = 8):
             "top": [[e.key[:90], e.device_time_total / 1e3, e.count] for e in kernels[:top]]}
 
 
-def serve(card, cfg, batch, seq, steps, label, profile=True):
+def serve(card, cfg, batch, seq, steps, label, profile=True, src_len=0):
     """Serve ``cfg`` (bf16, random weights from a seeded generator) through
-    ``generate``: ``batch`` prompts of ``seq`` tokens and ``steps`` greedy
-    steps. Fails unless the launch counts show the kernels ran (K3 once an
-    attention layer, K2 once an attention layer a step: none for mamba2),
-    the logits are finite, the greedy
+    ``generate``: ``batch`` prompts of ``seq`` tokens (after the patch
+    embeddings of a vision frontend; an encoder-decoder's with sources of
+    ``src_len`` frame embeddings; both drawn from the generator) and
+    ``steps`` greedy steps. Fails unless the launch counts show the kernels
+    ran (``attention_calls``: none for mamba2), the logits are finite, the
+    greedy
     tokens follow them and a second run of prefill and decode gives the
     same tokens. Returns (the run's numbers, with prefill and a decode step
     under the profiler when ``profile``; the parameters)."""
     import torch
+    from repro_torch.configs.base import ATTN_BLOCKS
     from repro_torch.kernels.decode_attn.kernel import decode_attention_cuda
     from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
     from repro_torch.models import model as M
@@ -657,25 +803,28 @@ def serve(card, cfg, batch, seq, steps, label, profile=True):
     t0 = time.perf_counter()
     params = M.init_params(cfg, gen, "cuda", torch.bfloat16)
     prompts = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device="cuda")
+    frontend = frontend_batch(cfg, batch, src_len, torch.bfloat16, gen, "cuda")
     sync()
     init_s = time.perf_counter() - t0
     init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    generate(cfg, params, prompts[:, :min(seq, 256)], 2)     # warm-up: cuBLAS, allocator
+    # warm-up: cuBLAS, allocator
+    generate(cfg, params, prompts[:, :min(seq, 256)], 2, frontend=frontend)
     sync()
 
     torch.cuda.reset_peak_memory_stats()
     flash_attention_cuda.launches = decode_attention_cuda.launches = 0
     t0 = time.perf_counter()
-    tokens, logits = generate(cfg, params, prompts, steps)
+    tokens, logits = generate(cfg, params, prompts, steps, frontend=frontend)
     sync()
     total_s = time.perf_counter() - t0
     launches = {"flash_attn": flash_attention_cuda.launches,
                 "decode_attn": decode_attention_cuda.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_attn = attention_layers(cfg)
-    want = {"flash_attn": n_attn, "decode_attn": n_attn * steps}
+    per_prefill, per_step = attention_calls(cfg)
+    want = {"flash_attn": per_prefill, "decode_attn": per_step * steps}
     log(f"  generate: {total_s * 1e3:.1f} ms, launches {launches} (want {want}: "
-        f"{n_attn} of {cfg.num_layers} layers attend), "
+        f"{sum(k in ATTN_BLOCKS for k in cfg.layer_kinds())} of {cfg.num_layers} layers "
+        f"attend, {cfg.num_encoder_layers} encoder layers), "
         f"peak memory {peak_gb:.2f} GB (while drawing the weights {init_peak_gb:.2f} GB), "
         f"init {init_s:.1f} s")
     if launches != want:
@@ -690,8 +839,10 @@ def serve(card, cfg, batch, seq, steps, label, profile=True):
         fail(f"{label}: greedy tokens do not follow the logits")
 
     # the two phases apart: prefill alone, then the decode steps
+    inputs = {"tokens": prompts, **frontend}
+
     def run_prefill():
-        return M.prefill(cfg, params, {"tokens": prompts}, max_len=seq + steps)
+        return M.prefill(cfg, params, inputs, max_len=M.prompt_len(inputs) + steps)
 
     sync()
     t0 = time.perf_counter()
@@ -713,6 +864,7 @@ def serve(card, cfg, batch, seq, steps, label, profile=True):
         fail(f"{label}: a second run of prefill and decode gave other greedy tokens")
     result = {
         "layers": cfg.num_layers, "batch": batch, "prompt": seq, "steps": steps,
+        "frontend": {k: list(v.shape) for k, v in frontend.items()},
         "params_b": cfg.param_count() / 1e9,
         "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
         "decode_tokens_per_s": batch * 1e3 / decode_ms, "generate_ms": total_s * 1e3,
@@ -829,14 +981,18 @@ DEPTH_CUTS = {"arctic-480b": 1, "command-r-35b": 20}
 PEAK_BUDGET_GB = 70.0
 
 
-def reckoned_peak_gb(cfg, batch, prompt, steps):
-    """What serving ``cfg`` to ``batch`` prompts of ``prompt`` tokens and
-    ``steps`` decode steps should hold at most: the bf16 weights, the
-    largest f32 temporary of drawing them (``nd_init``'s slices), the cache
-    (a bf16 K/V a global layer, a ring of the window a local one, the f32
-    state and conv window an RG-LRU or SSD layer), and the larger of four
-    prefill activations of the widest MLP and the SSD's intra-chunk f32
-    temporaries (``ssd_forward``: three of (B, S/q, q, q, nh) alive at once)."""
+def reckoned_peak_gb(cfg, batch, prompt, steps, src_len=0):
+    """What serving ``cfg`` to ``batch`` prompts of ``prompt`` tokens (a
+    vision frontend's patches included; an encoder-decoder's sources of
+    ``src_len`` frames) and ``steps`` decode steps should hold at most: the
+    bf16 weights, the largest f32 temporary of drawing them (``nd_init``'s
+    slices), the cache (a bf16 K/V a global layer, with the cross-attention's
+    K/V of ``src_len`` slots in an encoder-decoder, a ring of the window a
+    local one, the f32 state and conv window an RG-LRU or SSD layer), and
+    the larger of four prefill activations of the widest MLP (over the
+    prompt or the sources, whichever is longer) and the SSD's intra-chunk
+    f32 temporaries (``ssd_forward``: three of (B, S/q, q, q, nh) alive at
+    once)."""
     from repro_torch.configs.base import (BLOCK_GLOBAL_ATTN, BLOCK_LOCAL_ATTN, BLOCK_RGLRU,
                                           BLOCK_SSD)
     from repro_torch.models.layers import DRAW_BYTES
@@ -847,14 +1003,14 @@ def reckoned_peak_gb(cfg, batch, prompt, steps):
                                    d * cfg.d_ff))
     conv, seq = cfg.conv_width - 1, prompt + steps
     per_layer = {
-        BLOCK_GLOBAL_ATTN: 2 * batch * seq * cfg.num_kv_heads * cfg.head_dim * 2,
+        BLOCK_GLOBAL_ATTN: 2 * batch * (seq + src_len) * cfg.num_kv_heads * cfg.head_dim * 2,
         BLOCK_LOCAL_ATTN: 2 * batch * min(cfg.local_window or seq, seq) * cfg.num_kv_heads
         * cfg.head_dim * 2,
         BLOCK_RGLRU: 4 * batch * rw * (1 + conv),
         BLOCK_SSD: 4 * batch * (cfg.ssm_num_heads * cfg.ssm_head_dim * cfg.ssm_state_dim
                             + conv * (cfg.d_inner + 2 * cfg.ssm_state_dim))}
     cache = sum(per_layer[kind] for kind in cfg.layer_kinds())
-    act = 4 * batch * prompt * widest * 2
+    act = 4 * batch * max(prompt, src_len) * widest * 2
     if BLOCK_SSD in cfg.pattern:
         act = max(act, 3 * 4 * batch * prompt * chunk_len(cfg, prompt) * cfg.ssm_num_heads)
     return (2 * cfg.param_count() + draw + cache + act) / 1e9
@@ -889,6 +1045,14 @@ def serve_zoo(card: str):
     log(json.dumps({"zoo": out}))
     return out
 
+
+# Phase 4e: the encoder-decoder and the vision prefix-LM, whole. seamless:
+# BATCH sources of SRC_LEN frame embeddings, a DEC_PROMPT-token decoder
+# prompt; paligemma: BATCH x (its 256 patch embeddings + TEXT_LEN text
+# tokens); STEPS greedy steps.
+SEAMLESS, PALIGEMMA = "seamless-m4t-medium", "paligemma-3b"
+FRONTEND_ARCHS = (SEAMLESS, PALIGEMMA)
+SRC_LEN, DEC_PROMPT, TEXT_LEN = 4096, 64, 768
 
 # Phase 4d: the two archs with recurrent blocks, whole, at phase 4's workload.
 RECURRENTGEMMA = "recurrentgemma-9b"
@@ -967,6 +1131,43 @@ def serve_recurrent(card: str):
     return out
 
 
+def serve_frontends(card: str):
+    """Phase 4e: seamless-m4t-medium (12 encoder and 12 decoder layers,
+    cross-attention, attention biases) over BATCH sources of SRC_LEN frame
+    embeddings with DEC_PROMPT-token decoder prompts, and paligemma-3b (18
+    layers, the prefix-LM mask over 256 patch embeddings) over BATCH x (256
+    patches + TEXT_LEN text tokens), whole, STEPS greedy steps each, with
+    phase 4's checks and the peak memory beside the reckoned one."""
+    import torch
+    from repro_torch.configs import get_config
+    out = {}
+    for name in FRONTEND_ARCHS:
+        t_phase = time.perf_counter()
+        cfg = get_config(name)
+        if cfg.is_encoder_decoder:
+            seq, src_len, prompt = DEC_PROMPT, SRC_LEN, DEC_PROMPT
+            work = (f"{BATCH} sources of {SRC_LEN} frame embeddings, {DEC_PROMPT}-token "
+                    f"decoder prompts")
+        else:
+            seq, src_len, prompt = TEXT_LEN, 0, cfg.frontend_len + TEXT_LEN
+            work = f"{BATCH} x ({cfg.frontend_len} patch embeddings + {TEXT_LEN} text tokens)"
+        reckoned = reckoned_peak_gb(cfg, BATCH, prompt, STEPS, src_len)
+        log(f"[4e] {name} bf16 at full width ({cfg.num_layers} layers"
+            + (f" + {cfg.num_encoder_layers} encoder layers" if cfg.is_encoder_decoder else "")
+            + f"; d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+            f"vocab {cfg.vocab_size}, {cfg.param_count() / 1e9:.2f} B params, peak reckoned "
+            f"{reckoned:.1f} GB): {work}, {STEPS} greedy steps")
+        result, params = serve(card, cfg, BATCH, seq, STEPS, name, src_len=src_len)
+        result.update(reckoned_peak_gb=reckoned, phase_s=time.perf_counter() - t_phase)
+        log(f"  peak memory {result['peak_mem_gb']:.2f} GB against {reckoned:.2f} GB reckoned; "
+            f"{name} took {result['phase_s']:.1f} s")
+        out[name] = result
+        del params
+        torch.cuda.empty_cache()
+    log(json.dumps({"frontends": out}))
+    return out
+
+
 # ------------------------------------------------------------------ phase 5
 def gather_full_width(errs):
     """The CIAO gather path at full width; returns its launch count and its
@@ -1017,9 +1218,18 @@ def gather_full_width(errs):
 
 
 # ------------------------------------------------------------------ phase 6
-def flash_bound(q, k, v, window):
-    b, s, hq, d = q.shape
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
+def flash_bound(q, k, v, window, causal=True, prefix=0):
+    """K3's (operations, bytes): 4 D operations a (query, key) pair the mask
+    allows (every pair when not causal; causal: keys up to the query's
+    position, inside the window, or before the prefix), q, k, v read once
+    and out written once."""
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    if not causal:
+        pairs = sq * skv
+    else:
+        pairs = sum(min(i + 1, window) if window else min(max(i + 1, prefix), skv)
+                    for i in range(sq))
     ops = 4 * d * b * hq * pairs
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))   # q, k, v in; out
     return ops, nbytes
@@ -1040,18 +1250,30 @@ def bound_ms(ops, nbytes):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def library_flash(q, k, v, window, lengths=None, scale=SCALE, cap=50.0):
+def library_flash(q, k, v, window, lengths=None, scale=SCALE, cap=50.0, causal=True,
+                  prefix=0):
     """One PyTorch call computing the same function: flex_attention with the
-    softcap (when ``cap``) as score_mod and the mask as a block mask,
-    compiled. Timed as a yardstick only; the port never calls it."""
+    softcap (when ``cap``) as score_mod and the mask as a block mask (K3's:
+    causal with the window or the prefix, or none; K2's: ``lengths``),
+    compiled. Timed as a yardstick only; the port never calls it. Each new
+    shape or mask compiles anew; past dynamo's recompile limit (8) a call
+    would run flex_attention unfused, which materialises the scores, so
+    the limit is raised to cover every shape the script times."""
     import torch
+    import torch._dynamo
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    torch._dynamo.config.recompile_limit = max(torch._dynamo.config.recompile_limit, 64)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     b, hq, sq, _ = qt.shape
     skv = kt.shape[2]
-    if lengths is None:
+    if lengths is None and not causal:
+        def mask(bi, h, qi, ki):
+            return ki >= 0
+    elif lengths is None:
         def mask(bi, h, qi, ki):
             ok = ki <= qi
+            if prefix:
+                ok = ok | (ki < prefix)
             return ok & (qi - ki < window) if window else ok
     else:
         def mask(bi, h, qi, ki):
@@ -1108,6 +1330,11 @@ def time_gather(table, idx, st, isos):
 # times K3 at: recurrentgemma's (G 16, window 2048)
 ZOO_DECODE = (GRANITE, "nemotron-4-15b", "arctic-480b", RECURRENTGEMMA)
 ZOO_PREFILL = (RECURRENTGEMMA,)
+# the calls of phase 4e's paths that phase 6 times (``frontend_calls``): K3
+# at seamless's encoder and cross prefill and at paligemma's prefill (the
+# prefix mask), K2 at seamless's cross step and at paligemma's last step
+FRONTEND_TIMED = ((SEAMLESS, "encoder"), (SEAMLESS, "cross prefill"), (PALIGEMMA, "prefill"),
+                  (SEAMLESS, "cross step"), (PALIGEMMA, "last step"))
 
 
 def time_decode(label, dq, ck, cv, lens, scale, cap):
@@ -1215,6 +1442,43 @@ def time_kernels(errs, launches, card, gather, paths):
                      "library_ms": lib, "bound_ms": b_ms, "bound_by": by,
                      "device_ms": extra["device_ms"]}
         del dq, ck, cv
+    # K3 and K2 at phase 4e's shapes (FRONTEND_TIMED), no softcap, each
+    # beside its kernel's launches over that path's run (seamless's K3
+    # count covers its encoder, self and cross calls, 12 each)
+    frontend = {"flash_attn": {}, "decode_attn": {}}
+    for name, call, kernel, shape, scale in frontend_calls():
+        if (name, call) not in FRONTEND_TIMED:
+            continue
+        label = f"{name} {call}"
+        if kernel == "decode_attn":
+            dq, ck, cv, lens, args = frontend_inputs(kernel, shape, scale, torch.bfloat16, gen)
+            ms, plain, lib, b_ms, by, extra = time_decode(
+                f"decode_attn {label} (B {shape[0]}, S {shape[1]}, {shape[2]}/{shape[3]} heads "
+                f"of {shape[4]})", dq, ck, cv, lens, scale, 0.0)
+            del dq, ck, cv
+        else:
+            q, k, v, args = frontend_inputs(kernel, shape, scale, torch.bfloat16, gen)
+            causal, prefix = args["causal"], args["prefix_len"]
+            ms = cuda_ms(lambda: FK.flash_attention_cuda(q, k, v, **args), 5)
+            plain = cuda_ms(lambda: FO.flash_attention_plain(q, k, v, **args), 2)
+            lib = lib_err = None
+            try:
+                fn, back = library_flash(q, k, v, 0, scale=scale, cap=0.0,
+                                         causal=causal, prefix=prefix)
+                lib_err = max_err(back(fn()), FK.flash_attention_cuda(q, k, v, **args))
+                lib = cuda_ms(fn, 5, warmup=2)
+            except Exception as e:  # the yardstick only; the port does not depend on it
+                log(f"  flex_attention unavailable ({type(e).__name__}: {e}); library_ms null")
+            b_ms, by = bound_ms(*flash_bound(q, k, v, 0, causal, prefix))
+            extra = {}
+            log(f"  flash_attn {label} (B {shape[0]}, Sq {shape[1]}, Skv {shape[2]}, "
+                f"{shape[3]}/{shape[4]} heads of {shape[5]}, causal {causal}, prefix {prefix}): "
+                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, flex_attention {lib} ms (max|diff| "
+                f"{lib_err}), bound {b_ms:.4f} ms ({by})")
+            del q, k, v
+        frontend[kernel][label] = {
+            "shape": list(shape), "path_launches": paths[name][kernel], "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms, "bound_by": by,
+            **({"device_ms": extra["device_ms"]} if "device_ms" in extra else {})}
 
     def mean(xs):   # over the two layer kinds, each half of the serving path's layers
         return None if None in xs else sum(xs) / len(xs)
@@ -1242,6 +1506,7 @@ def time_kernels(errs, launches, card, gather, paths):
                                for kind, x in zip(("local", "global"), r)},
             "launches_by_path": {path: n[name] for path, n in paths.items()},
             "zoo_shapes": zoo if name == "decode_attn" else zoo_prefill,
+            "frontend_shapes": frontend[name],
             "card": card})
     g = time_gather(*gather)
     kernels.append({
@@ -1487,6 +1752,8 @@ def main() -> None:
     took("4c")
     paths.update({name: r["launches"] for name, r in serve_recurrent(card).items()})
     took("4d")
+    paths.update({name: r["launches"] for name, r in serve_frontends(card).items()})
+    took("4e")
     launches = {k: sum(n[k] for n in paths.values()) for k in ("flash_attn", "decode_attn")}
     launches["ciao_gather"], gather = gather_full_width(errs)
     took("5")

@@ -1,10 +1,9 @@
 """Architecture registry of the port: ``get_config`` / ``reduced_config``.
 
-Only the architectures whose every block kind the port runs are registered:
-the decoder-only attention stacks (dense, MoE, qk-norm, parallel blocks,
-untied heads), the Mamba-2 SSD stack and the RG-LRU + local-attention
-hybrid. The others (the encoder-decoder and the vision prefix-LM) are
-ROADMAP item 9.
+All ten of the reference's architectures: the decoder-only attention
+stacks (dense, MoE, qk-norm, parallel blocks, untied heads), the Mamba-2
+SSD stack, the RG-LRU + local-attention hybrid, the encoder-decoder
+(seamless-m4t-medium) and the vision prefix-LM (paligemma-3b).
 """
 from __future__ import annotations
 
@@ -18,12 +17,14 @@ from repro_torch.configs.gemma2_2b import CONFIG as _gemma2
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as _granite
 from repro_torch.configs.mamba2_2_7b import CONFIG as _mamba2
 from repro_torch.configs.nemotron_4_15b import CONFIG as _nemotron
+from repro_torch.configs.paligemma_3b import CONFIG as _paligemma
 from repro_torch.configs.qwen3_4b import CONFIG as _qwen3
 from repro_torch.configs.recurrentgemma_9b import CONFIG as _recurrentgemma
+from repro_torch.configs.seamless_m4t_medium import CONFIG as _seamless
 
 REGISTRY: Dict[str, ModelConfig] = {
     c.name: c for c in (_gemma2, _nemotron, _qwen3, _commandr, _arctic, _granite, _mamba2,
-                        _recurrentgemma)}
+                        _recurrentgemma, _paligemma, _seamless)}
 
 ARCH_NAMES: List[str] = list(REGISTRY)
 
@@ -32,9 +33,7 @@ def get_config(name: str) -> ModelConfig:
     try:
         return REGISTRY[name]
     except KeyError:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported; ported: {ARCH_NAMES} "
-            "(the rest of the model zoo is ROADMAP item 9)") from None
+        raise KeyError(f"unknown arch {name!r}; choose from {ARCH_NAMES}") from None
 
 
 def reduced_config(name: str) -> ModelConfig:

@@ -122,12 +122,20 @@ class ModelConfig:
         p = self.pattern
         return tuple(p[i % len(p)] for i in range(self.num_layers))
 
+    def attn_param_count(self) -> int:
+        """One attention's parameters: the q/k/v/o projections, the
+        qk-norm scales and the q/k/v/o biases where the config has them."""
+        d, dh, hq, hkv = self.d_model, self.head_dim, self.num_heads, self.num_kv_heads
+        return (d * dh * (2 * hq + 2 * hkv) + (2 * dh if self.use_qk_norm else 0)
+                + ((hq + 2 * hkv) * dh + d if self.attn_bias else 0))
+
     def block_param_count(self, kind: str) -> int:
         """Parameters of one block of ``kind`` as ``init_params`` draws it.
 
-        Attention: q/k/v/o projections (and qk-norm scales), two norms and
-        the MLP or the MoE (router and experts, plus the dense residual MLP
-        where the config has one). RG-LRU: ``ln1``, the two branch
+        Attention: ``attn_param_count``, two norms and the MLP or the MoE
+        (router and experts, plus the dense residual MLP where the config
+        has one); in an encoder-decoder also ``ln_cross`` and the cross
+        attention. RG-LRU: ``ln1``, the two branch
         projections and the output, the conv's weight and bias, five gate
         vectors (w_r, b_r, w_i, b_i, lam), ``ln2`` and the MLP. SSD:
         ``ln1``, the fused input projection, the output, the conv over
@@ -143,8 +151,9 @@ class ModelConfig:
             di, n, nh = self.d_inner, self.ssm_state_dim, self.ssm_num_heads
             return (d * (2 * di + 2 * n + nh) + di * d + (self.conv_width + 1) * (di + 2 * n)
                     + 3 * nh + di + d)
-        block = (d * self.head_dim * (2 * self.num_heads + 2 * self.num_kv_heads)
-                 + (2 * self.head_dim if self.use_qk_norm else 0) + 2 * d)
+        block = self.attn_param_count() + 2 * d
+        if self.is_encoder_decoder:
+            block += self.attn_param_count() + d
         if self.num_experts:
             block += self.num_experts * (mats * d * (self.moe_d_ff or ff) + d)
             if self.moe_dense_residual:
@@ -153,10 +162,22 @@ class ModelConfig:
             block += mats * d * ff
         return block
 
+    def encoder_param_count(self) -> int:
+        """The encoder of an encoder-decoder: each layer's ``ln1``,
+        attention, ``ln2`` and dense MLP, and its final norm (0 without
+        one)."""
+        if not self.is_encoder_decoder:
+            return 0
+        mats = 3 if self.mlp_activation in ("swiglu", "geglu") else 2
+        layer = self.attn_param_count() + 2 * self.d_model + mats * self.d_model * self.d_ff
+        return self.num_encoder_layers * layer + self.d_model
+
     def param_count(self) -> int:
-        """Parameters of the port's decoder, as ``init_params`` draws them:
-        the embedding (and an untied head), every layer's block
-        (``block_param_count``) and the final norm."""
+        """Parameters of the port's model, as ``init_params`` draws them:
+        the embedding (and an untied head), every decoder layer's block
+        (``block_param_count``), the final norm and the encoder
+        (``encoder_param_count``)."""
         head = 0 if self.tie_embeddings else self.vocab_size * self.d_model
         return (self.vocab_size * self.d_model + head + self.d_model
-                + sum(self.block_param_count(k) for k in self.layer_kinds()))
+                + sum(self.block_param_count(k) for k in self.layer_kinds())
+                + self.encoder_param_count())

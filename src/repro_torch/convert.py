@@ -3,7 +3,9 @@
 The reference stacks each position of its block pattern along a leading
 layer axis (``stack/b{i}`` of shape (repeats, ...)) and keeps remainder
 layers in ``rem``. Layer ``r*len(pattern)+i`` of the port is
-``stack/b{i}[r]``; remainder layer ``i`` follows the stack.
+``stack/b{i}[r]``; remainder layer ``i`` follows the stack. An
+encoder-decoder's encoder stacks its layers along ``encoder/stack``
+directly (no ``b{i}`` level): encoder layer ``r`` is ``encoder/stack[r]``.
 """
 from __future__ import annotations
 
@@ -13,7 +15,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import check_supported
 
 
 def to_torch(a) -> torch.Tensor:
@@ -35,10 +36,10 @@ def params_from_jax(np_tree, cfg: ModelConfig) -> Dict[str, Any]:
     """``np_tree``: the reference's ``init_params`` output with every leaf
     turned into a numpy array. Returns the port's parameter dictionary, on
     the CPU; a block keeps the reference's keys (ln1, attn with its qk-norm
-    scales, ln2, mlp, moe: its stacked leaves (repeats, E, ...) become
-    (E, ...) a layer; rglru and ssd with their nested conv {w, b}), and an
-    untied head its ``lm_head``."""
-    check_supported(cfg)
+    scales and biases, ln2, mlp, moe: its stacked leaves (repeats, E, ...)
+    become (E, ...) a layer; rglru and ssd with their nested conv {w, b};
+    an encoder-decoder's ln_cross and cross), an untied head its
+    ``lm_head`` and an encoder-decoder its ``encoder``."""
     stack = np_tree.get("stack", {})
     layers = [_tree(stack[f"b{i}"], r)
               for r in range(cfg.scan_repeats) for i in range(len(cfg.pattern))]
@@ -47,4 +48,9 @@ def params_from_jax(np_tree, cfg: ModelConfig) -> Dict[str, Any]:
            "final_norm": _tree(np_tree["final_norm"])}
     if "lm_head" in np_tree:
         out["lm_head"] = _tree(np_tree["lm_head"])
+    if "encoder" in np_tree:
+        enc = np_tree["encoder"]
+        out["encoder"] = {"layers": [_tree(enc["stack"], r)
+                                     for r in range(cfg.num_encoder_layers)],
+                          "final_norm": _tree(enc["final_norm"])}
     return out

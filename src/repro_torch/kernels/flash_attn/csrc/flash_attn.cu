@@ -1,12 +1,16 @@
 // Flash attention forward for Hopper (sm_90a): q (B, Sq, Hq, D) against
-// k, v (B, Skv, Hkv, D), causal or not, with an optional local window (only
-// when causal) and an optional tanh softcap.
+// k, v (B, Skv, Hkv, D), causal or not, with an optional local window or an
+// optional prefix-LM prefix (only when causal, never both: keys before the
+// prefix are visible to every query) and an optional tanh softcap.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attn/kernel.py
 // (_attn_kernel / flash_attention_kernel): tiled online softmax in f32,
 // scale then softcap then mask, masked scores -1e30 (never -inf), keys past
-// Skv masked. Where the TPU kernel skips tiles wholly above the diagonal or
-// outside the window, a block here runs its KV loop only over [lo, hi).
+// Skv masked. The TPU kernel has no prefix; the reference computes its
+// prefix-LM mask in jnp (models/attention.py attention_core), which this
+// kernel serves. Where the TPU kernel skips tiles wholly above the diagonal or
+// outside the window, a block here runs its KV loop only over [lo, hi),
+// hi the end of its rows or of the prefix, whichever is later.
 // GQA is an index map (q head h reads kv head h / (Hq/Hkv)); no repeated
 // copy of K or V is built, and no padded copy either: rows past Sq or Skv
 // arrive as zeros in shared memory.
@@ -35,7 +39,8 @@
 //      turns to issue (named barriers), so one's softmax overlaps the
 //      other's products;
 //    - scale*log2e is folded into the exponent (ex2), only tiles that
-//      cross the diagonal, the window's edge or Skv apply the mask, and O
+//      cross the diagonal (outside the prefix), the window's edge or Skv
+//      apply the mask, and O
 //      is rescaled only when a row's maximum grows by more than 2^8;
 //    - the blocks late in the sequence, which have the most tiles, launch
 //      first.
@@ -76,12 +81,13 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // Score of one (query, key) pair after scale, softcap and mask.
 __device__ __forceinline__ float masked_score(float dot, float scale, float softcap, int qpos,
-                                              int kpos, int Skv, int causal, int window) {
+                                              int kpos, int Skv, int causal, int window,
+                                              int prefix) {
   float x = dot * scale;
   if (softcap != 0.f) x = tanhf(x / softcap) * softcap;
   bool valid = kpos < Skv;
   if (causal) {
-    valid = valid && kpos <= qpos;
+    valid = valid && (kpos <= qpos || kpos < prefix);
     if (window > 0) valid = valid && (qpos - kpos) < window;
   }
   return valid ? x : kNegInf;
@@ -90,11 +96,11 @@ __device__ __forceinline__ float masked_score(float dot, float scale, float soft
 // KV range [lo, hi) that a block of query rows [q_start, q_end) needs,
 // lo rounded down to a tile boundary.
 __device__ __forceinline__ void kv_range(int q_start, int q_end, int Skv, int causal, int window,
-                                         int tile, int& lo, int& hi) {
+                                         int prefix, int tile, int& lo, int& hi) {
   lo = 0;
   hi = Skv;
   if (causal) {
-    hi = min(Skv, q_end);
+    hi = min(Skv, max(q_end, prefix));
     if (window > 0) lo = max(0, q_start - window + 1);
   }
   lo -= lo % tile;
@@ -114,7 +120,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
-                 int Hq, int Hkv, float scale, float softcap, int causal, int window) {
+                 int Hq, int Hkv, float scale, float softcap, int causal, int window,
+                 int prefix) {
   constexpr int E = D / 32;
   constexpr int KP = D + 4;  // K row pitch: float4 reads by 8 lanes hit distinct banks
   extern __shared__ float smem[];
@@ -138,7 +145,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   const int q_end = min(q_start + kF32BQ, Sq);
   int lo, hi;
-  kv_range(q_start, q_end, Skv, causal, window, kF32BK, lo, hi);
+  kv_range(q_start, q_end, Skv, causal, window, prefix, kF32BK, lo, hi);
 
   float m[kF32Rows], l[kF32Rows], acc[kF32Rows][E];
 #pragma unroll
@@ -180,7 +187,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kF32Rows; ++i) {
       const int qpos = q_start + warp * kF32Rows + i;
-      const float x = masked_score(s[i], scale, softcap, qpos, kt + lane, Skv, causal, window);
+      const float x =
+          masked_score(s[i], scale, softcap, qpos, kt + lane, Skv, causal, window, prefix);
       const float m_new = fmaxf(m[i], warp_max(x));
       const float corr = expf(m[i] - m_new);
       const float p = expf(x - m_new);
@@ -430,7 +438,8 @@ __device__ __forceinline__ void gemm_pv(float (&o)[D / 2], const uint32_t (&p)[4
 // CAP: x = cap * tanh(dot * scale / cap) as cap - 2 cap / (e^{2 dot scale/cap} + 1),
 // one ex2 and one rcp; mul = 2 log2e scale / cap and cap2 = cap log2e.
 // Otherwise x = dot * mul with mul = scale log2e. MASK: scores of keys past
-// Skv, above the diagonal or outside the window become -1e30. A row keeps
+// Skv, above the diagonal and past the prefix, or outside the window become
+// -1e30. A row keeps
 // its reference maximum m until the tile's maximum exceeds it by more than
 // kRegrow (then corr takes the old sums to the new m; else corr = 1 and the
 // O rescale is skipped): p = 2^(x - m) stays below 2^kRegrow, which f32 sums
@@ -438,8 +447,8 @@ __device__ __forceinline__ void gemm_pv(float (&o)[D / 2], const uint32_t (&p)[4
 // On return s holds p and psum this thread's share of the row sums.
 template <bool CAP, bool MASK>
 __device__ __forceinline__ void softmax_tile(float (&s)[32], float mul, float cap2, int kt, int c0,
-                                             int ra, int Skv, int causal, int window, float (&m)[2],
-                                             float (&corr)[2], float (&psum)[2]) {
+                                             int ra, int Skv, int causal, int window, int prefix,
+                                             float (&m)[2], float (&corr)[2], float (&psum)[2]) {
   float mx[2] = {m[0], m[1]};
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
@@ -452,7 +461,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float mul, float ca
     if (MASK) {
       const int kpos = kt + (i / 4) * 8 + c0 + (i & 1), qpos = ra + ((i >> 1) & 1) * 8;
       bool valid = kpos < Skv;
-      if (causal) valid = valid && kpos <= qpos && (window == 0 || qpos - kpos < window);
+      if (causal)
+        valid = valid && (kpos <= qpos || kpos < prefix) && (window == 0 || qpos - kpos < window);
       x = valid ? x : kNegInf;
     }
     s[i] = x;
@@ -478,12 +488,13 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float mul, float ca
 template <bool CAP>
 __device__ __forceinline__ void softmax_tile(bool mask, float (&s)[32], float mul, float cap2,
                                              int kt, int c0, int ra, int Skv, int causal,
-                                             int window, float (&m)[2], float (&corr)[2],
-                                             float (&psum)[2]) {
+                                             int window, int prefix, float (&m)[2],
+                                             float (&corr)[2], float (&psum)[2]) {
   if (mask)
-    softmax_tile<CAP, true>(s, mul, cap2, kt, c0, ra, Skv, causal, window, m, corr, psum);
+    softmax_tile<CAP, true>(s, mul, cap2, kt, c0, ra, Skv, causal, window, prefix, m, corr, psum);
   else
-    softmax_tile<CAP, false>(s, mul, cap2, kt, c0, ra, Skv, causal, window, m, corr, psum);
+    softmax_tile<CAP, false>(s, mul, cap2, kt, c0, ra, Skv, causal, window, prefix, m, corr,
+                             psum);
 }
 
 // p of the tile as the bf16 A operand of the PV product: the accumulator
@@ -505,7 +516,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
                    int Sq, int Skv, int Hq, int Hkv, float mul, float cap2, int causal,
-                   int window) {
+                   int window, int prefix) {
   using T = Tile<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -520,7 +531,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int b = blockIdx.x / Hq, h = blockIdx.x % Hq, kvh = h / (Hq / Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // the longest causal blocks first
   int lo, hi;
-  kv_range(q0, min(q0 + kBQ, Sq), Skv, causal, window, kBK, lo, hi);
+  kv_range(q0, min(q0 + kBQ, Sq), Skv, causal, window, prefix, kBK, lo, hi);
   const int n = (hi - lo + kBK - 1) / kBK;             // tiles; tile i starts at key kt(i)
   const int last = lo + (n - 1) * kBK;
   auto kt = [&](int i) { return last - i * kBK; };
@@ -575,11 +586,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int rmin = q0 + kWgRows * cw, ra = rmin + 16 * warp + lane / 4;
     const uint32_t sQw = sQ + cw * T::BYTES;
     // Tiles that need no mask: every key before Skv, at or below the
-    // diagonal of every row of this warpgroup, and inside its window.
+    // diagonal of every row of this warpgroup or wholly inside the prefix,
+    // and inside its window.
     auto masked = [&](int k0) {
       return k0 + kBK > Skv ||
-             (causal &&
-              (k0 + kBK - 1 > rmin || (window > 0 && rmin + kWgRows - 1 - k0 >= window)));
+             (causal && ((k0 + kBK - 1 > rmin && k0 + kBK > prefix) ||
+                         (window > 0 && rmin + kWgRows - 1 - k0 >= window)));
     };
     float acc[D / 2], s[32], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2], psum[2];
     uint32_t p[4][4];
@@ -597,8 +609,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<0>();
       pin(s);
       if (tid == 0) mbar_arrive(empty_k(0));
-      softmax_tile<CAP>(masked(kt(0)), s, mul, cap2, kt(0), c0, ra, Skv, causal, window, m, corr,
-                        psum);
+      softmax_tile<CAP>(masked(kt(0)), s, mul, cap2, kt(0), c0, ra, Skv, causal, window, prefix, m,
+                        corr, psum);
       l[0] = psum[0];
       l[1] = psum[1];
       to_p(s, p);
@@ -615,8 +627,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_wait<1>();
         pin(s);
         if (tid == 0) mbar_arrive(empty_k(sk));
-        softmax_tile<CAP>(masked(kt(i)), s, mul, cap2, kt(i), c0, ra, Skv, causal, window, m,
-                          corr, psum);
+        softmax_tile<CAP>(masked(kt(i)), s, mul, cap2, kt(i), c0, ra, Skv, causal, window, prefix,
+                          m, corr, psum);
         wgmma_wait<0>();
         pin(acc);
         pin(p);
@@ -686,7 +698,7 @@ cudaError_t tensor_map(CUtensorMap* map, EncodeTiledFn encode, const void* ptr, 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                        int Skv, int Hq, int Hkv, float scale, float softcap, int causal,
-                       int window, cudaStream_t st) {
+                       int window, int prefix, cudaStream_t st) {
   constexpr size_t smem = f32_smem_bytes<D>();
   static std::atomic<uint64_t> smem_set{0};
   cudaError_t err = allow_smem(flash_f32_kernel<D>, (int)smem, smem_set);
@@ -694,28 +706,29 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   const dim3 grid((Sq + kF32BQ - 1) / kF32BQ, B * Hq);
   flash_f32_kernel<D><<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Sq, Skv, Hq, Hkv, scale, softcap, causal, window);
+      static_cast<float*>(o), Sq, Skv, Hq, Hkv, scale, softcap, causal, window, prefix);
   return cudaGetLastError();
 }
 
 template <int D, bool CAP>
 cudaError_t launch_wgmma_cap(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                              void* o, int B, int Sq, int Skv, int Hq, int Hkv, float mul,
-                             float cap2, int causal, int window, cudaStream_t st) {
+                             float cap2, int causal, int window, int prefix, cudaStream_t st) {
   constexpr size_t smem = Tile<D>::SMEM;
   static std::atomic<uint64_t> smem_set{0};
   cudaError_t err = allow_smem(flash_wgmma_kernel<D, CAP>, (int)smem, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
   flash_wgmma_kernel<D, CAP><<<grid, kWgmmaThreads, smem, st>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hkv, mul, cap2, causal, window);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hkv, mul, cap2, causal, window,
+      prefix);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                          int Skv, int Hq, int Hkv, float scale, float softcap, int causal,
-                         int window, cudaStream_t st) {
+                         int window, int prefix, cudaStream_t st) {
   EncodeTiledFn encode;
   cudaError_t err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
@@ -726,9 +739,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
   if (softcap != 0.f)
     return launch_wgmma_cap<D, true>(tq, tk, tv, o, B, Sq, Skv, Hq, Hkv,
                                      2.f * kLog2e * scale / softcap, softcap * kLog2e, causal,
-                                     window, st);
+                                     window, prefix, st);
   return launch_wgmma_cap<D, false>(tq, tk, tv, o, B, Sq, Skv, Hq, Hkv, scale * kLog2e, 0.f,
-                                    causal, window, st);
+                                    causal, window, prefix, st);
 }
 
 }  // namespace
@@ -736,14 +749,17 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
 extern "C" {
 
 // dtype codes: 0 = float32, 1 = bfloat16; q, k, v and o share one dtype.
+// prefix: keys before it are visible to every query when causal (0: none);
+// a window and a prefix do not combine.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
-// for a shape or type the kernel does not take.
+// for a shape, mask or type the kernel does not take.
 int flash_attn_launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                       int Skv, int Hq, int Hkv, int D, float scale, float softcap, int causal,
-                      int window, int dtype, void* stream) {
+                      int window, int prefix, int dtype, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0) return cudaErrorInvalidValue;
+  if (causal && window > 0 && prefix > 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_ARGS q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, softcap, causal, window, st
+#define FLASH_ARGS q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, softcap, causal, window, prefix, st
   if (dtype == 0) {
     switch (D) {
       case 32: return launch_f32<32>(FLASH_ARGS);

@@ -11,6 +11,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attn.ref import check_mask
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
@@ -19,21 +20,23 @@ HEAD_DIMS = (32, 64, 128, 256)
 BLOCK_Q, WG_ROWS, BLOCK_K = 128, 64, 64
 
 
-def tile_plan(sq: int, skv: int, causal: bool = True, window: int = 0):
+def tile_plan(sq: int, skv: int, causal: bool = True, window: int = 0, prefix_len: int = 0):
     """The bf16 kernel's schedule for one (batch, q head), as
     ``flash_wgmma_kernel`` computes it on the card: blocks in launch order
     (the last q-block first), and for each consumer warpgroup its first row
     and its KV tiles in the order it runs them (the last tile first), each
-    as (first key, masked). A tile is unmasked only when every key in it is
-    before ``skv``, at or below the diagonal of every row of the
-    warpgroup, and inside its window. Returns
-    ``[(q0, [(row0, [(k0, masked), ...]), ...]), ...]``."""
+    as (first key, masked). A block reaches keys up to the end of its rows
+    or of the prefix, whichever is later. A tile is unmasked only when every
+    key in it is before ``skv``, at or below the diagonal of every row of
+    the warpgroup or wholly inside the prefix, and inside its window.
+    Returns ``[(q0, [(row0, [(k0, masked), ...]), ...]), ...]``."""
     window = window if causal else 0
+    prefix = prefix_len if causal else 0
     plan = []
     for q0 in reversed(range(0, sq, BLOCK_Q)):
         lo, hi = 0, skv
         if causal:
-            hi = min(skv, q0 + BLOCK_Q, sq)
+            hi = min(skv, max(min(q0 + BLOCK_Q, sq), prefix))
             if window > 0:
                 lo = max(0, q0 - window + 1)
         lo -= lo % BLOCK_K
@@ -42,7 +45,7 @@ def tile_plan(sq: int, skv: int, causal: bool = True, window: int = 0):
         for row0 in (q0, q0 + WG_ROWS):
             def masked(k0):
                 return (k0 + BLOCK_K > skv or causal and (
-                    k0 + BLOCK_K - 1 > row0
+                    k0 + BLOCK_K - 1 > row0 and k0 + BLOCK_K > prefix
                     or window > 0 and row0 + WG_ROWS - 1 - k0 >= window))
             wgs.append((row0, [(k0, masked(k0)) for k0 in starts]))
         plan.append((q0, wgs))
@@ -54,15 +57,16 @@ def _entry():
     lib = _build.load("flash_attn")
     fn = lib.flash_attn_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 def flash_attention_cuda(q, k, v, *, scale: float, causal: bool = True,
-                         window: int = 0, softcap: float = 0.0):
+                         window: int = 0, prefix_len: int = 0, softcap: float = 0.0):
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), one dtype (f32 or bf16).
-    Returns (B, Sq, Hq, D)."""
+    ``window`` and ``prefix_len`` (0: none) apply only when causal, and not
+    together. Returns (B, Sq, Hq, D)."""
     if not all(t.is_cuda for t in (q, k, v)):
         raise ValueError("flash_attention_cuda takes CUDA tensors only")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -75,6 +79,7 @@ def flash_attention_cuda(q, k, v, *, scale: float, causal: bool = True,
         raise ValueError(f"unsupported head_dim {d}")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"unsupported dtypes {q.dtype} {k.dtype} {v.dtype}")
+    check_mask(causal, window, prefix_len)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     for t in (q, k, v):
         if t.data_ptr() % 16:
@@ -84,7 +89,8 @@ def flash_attention_cuda(q, k, v, *, scale: float, causal: bool = True,
     lib, fn = _entry()
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               b, sq, skv, hq, hkv, d, float(scale), float(softcap), int(causal),
-              int(window) if causal else 0, DTYPE_CODES[q.dtype],
+              int(window) if causal else 0, int(prefix_len) if causal else 0,
+              DTYPE_CODES[q.dtype],
               torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "flash_attn", code)
     flash_attention_cuda.launches += 1

@@ -15,24 +15,26 @@ from repro_torch.kernels.flash_attn import kernel
 from repro_torch.kernels.flash_attn.ref import attention_ref
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, prefix_len: int = 0,
                     softcap: float = 0.0, scale: float = 0.0):
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); Hq % Hkv == 0. The window
-    applies only when causal. Returns (B, Sq, Hq, D)."""
+    and the prefix (keys before ``prefix_len`` visible to every query, 0 for
+    none) apply only when causal, and not together. Returns (B, Sq, Hq, D)."""
     scale = scale or 1.0 / math.sqrt(q.shape[-1])
     devices = {t.device.type for t in (q, k, v)}
     if "cuda" in devices:
         forward_only("flash_attention", q, k, v)
         return kernel.flash_attention_cuda(q, k, v, scale=scale, causal=causal,
-                                           window=window, softcap=softcap)
+                                           window=window, prefix_len=prefix_len,
+                                           softcap=softcap)
     if devices != {"cpu"}:
         raise ValueError(f"flash_attention runs on cuda or cpu, not {devices}")
     return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 softcap=softcap, scale=scale)
+                                 prefix_len=prefix_len, softcap=softcap, scale=scale)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          softcap: float = 0.0, scale: float = 0.0):
+                          prefix_len: int = 0, softcap: float = 0.0, scale: float = 0.0):
     """The plain torch version on any device: KV heads repeated to the query
     heads, heads folded into the batch, then ``attention_ref``."""
     b, sq, hq, d = q.shape
@@ -43,6 +45,6 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         return t.repeat_interleave(g, dim=2).transpose(1, 2).reshape(b * hq, s, d)
 
     qf = q.transpose(1, 2).reshape(b * hq, sq, d)
-    out = attention_ref(qf, fold(k, skv), fold(v, skv), scale=scale,
-                        causal=causal, window=window, softcap=softcap)
+    out = attention_ref(qf, fold(k, skv), fold(v, skv), scale=scale, causal=causal,
+                        window=window, prefix_len=prefix_len, softcap=softcap)
     return out.reshape(b, hq, sq, d).transpose(1, 2)

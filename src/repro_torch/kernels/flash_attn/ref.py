@@ -9,9 +9,21 @@ import torch
 NEG_INF = -1e30
 
 
+def check_mask(causal: bool, window: int, prefix_len: int) -> None:
+    """Raise ``ValueError`` for a window with a prefix, which the kernel
+    does not take (the reference picks one mask kind a layer, "local" or
+    "prefix", never both)."""
+    if causal and window and prefix_len:
+        raise ValueError("a local window and a prefix-LM prefix do not combine")
+
+
 def attention_ref(q, k, v, *, scale: float = 0.0, causal: bool = True,
-                  window: int = 0, softcap: float = 0.0):
-    """q: (BH, Sq, D); k, v: (BH, Skv, D). f32 softmax over all keys."""
+                  window: int = 0, prefix_len: int = 0, softcap: float = 0.0):
+    """q: (BH, Sq, D); k, v: (BH, Skv, D). f32 softmax over all keys. When
+    causal, a key is valid at or below the query's position, inside the
+    window (when one is given) or before ``prefix_len`` (paligemma's
+    prefix-LM); a window and a prefix together raise."""
+    check_mask(causal, window, prefix_len)
     d = q.shape[-1]
     scale = scale or 1.0 / math.sqrt(d)
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
@@ -22,7 +34,7 @@ def attention_ref(q, k, v, *, scale: float = 0.0, causal: bool = True,
     kpos = torch.arange(skv, device=q.device)[None, :]
     valid = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:
-        valid &= kpos <= qpos
+        valid &= (kpos <= qpos) | (kpos < prefix_len)
         if window:
             valid &= (qpos - kpos) < window
     s = torch.where(valid[None], s, NEG_INF)

@@ -1,8 +1,10 @@
 """GQA attention: projections, prefill attention, KV caches, decode.
 
-Counterparts of the reference's ``models/attention.py`` for decoder-only
-attention stacks (qk-norm included). ``attention_core`` computes what the reference's flash-attention
-kernel computes and goes through ``kernels/flash_attn``; ``decode_attend``
+Counterparts of the reference's ``models/attention.py``: qk-norm, q/k/v/o
+biases, cross-attention (K/V from another sequence, no RoPE) and the
+causal, local, full and prefix-LM masks. ``attention_core`` computes what
+the reference's flash-attention kernel computes and goes through
+``kernels/flash_attn``; ``decode_attend``
 computes what its decode kernel computes and goes through
 ``kernels/decode_attn``. On CUDA tensors both launch the port's kernels, on
 CPU tensors their plain torch versions.
@@ -25,35 +27,53 @@ def _scale(cfg) -> float:
     return cfg.query_scale or 1.0 / math.sqrt(cfg.head_dim)
 
 
-def project_qkv(cfg, params, x, *, positions):
-    """(B, S, d) -> q (B, S, Hq, Dh), k, v (B, S, Hkv, Dh): qk-norm (when the
-    config has it) on q and k, then RoPE at absolute positions so cached K
-    never needs re-rotation."""
+def project_qkv(cfg, params, x, kv_x=None, *, positions=None, kv_positions=None,
+                use_rope: bool = True):
+    """x (B, S, d) -> q (B, S, Hq, Dh); k, v (B, Skv, Hkv, Dh) from ``kv_x``
+    (x itself unless given: cross-attention projects another sequence).
+    The biases (when the config has them), qk-norm on q and k, then RoPE at
+    absolute positions (k at ``kv_positions`` when given), so cached K never
+    needs re-rotation; cross-attention passes ``use_rope=False``."""
+    kv_x = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    k = torch.einsum("bsd,dhk->bshk", kv_x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", kv_x, params["wv"])
+    if cfg.attn_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     if cfg.use_qk_norm:
         q = rms_headnorm(params["q_norm"], q, cfg.norm_eps)
         k = rms_headnorm(params["k_norm"], k, cfg.norm_eps)
-    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions if kv_positions is None else kv_positions, cfg.rope_theta)
+    return q, k, v
 
 
-def output_proj(params, o):
-    return torch.einsum("bshk,hkd->bsd", o, params["wo"])
+def cross_query(cfg, params, x_t):
+    """A decode step's cross-attention query: ``wq`` and the bias only (no
+    qk-norm, no RoPE), as the reference's decode step projects it."""
+    q = torch.einsum("bsd,dhk->bshk", x_t, params["wq"])
+    return q + params["bq"] if cfg.attn_bias else q
 
 
-def attention_core(cfg, q, k, v, *, mask_kind: str):
+def output_proj(cfg, params, o):
+    out = torch.einsum("bshk,hkd->bsd", o, params["wo"])
+    return out + params["bo"] if cfg.attn_bias else out
+
+
+def attention_core(cfg, q, k, v, *, mask_kind: str, prefix_len: int = 0):
     """Prefill attention, q: (B, Sq, Hq, Dh); k, v: (B, Skv, Hkv, Dh).
 
-    ``mask_kind`` is "causal" or "local" (causal within ``cfg.local_window``).
-    The reference's "full" and "prefix" masks serve the encoder-decoder and
-    paligemma, which are not ported (ROADMAP item 9).
+    ``mask_kind``: "causal"; "local" (causal within ``cfg.local_window``);
+    "full" (no mask: the encoder's self-attention, and cross-attention with
+    Sq != Skv); "prefix" (causal, and keys before ``prefix_len`` visible to
+    every query: paligemma's image prefix).
     """
-    if mask_kind not in ("causal", "local"):
-        raise NotImplementedError(
-            f"mask_kind {mask_kind!r}: encoder and prefix-LM attention are ROADMAP item 9")
+    if mask_kind not in ("causal", "local", "full", "prefix"):
+        raise ValueError(f"unknown mask_kind {mask_kind!r}")
     window = cfg.local_window if mask_kind == "local" else 0
-    return flash_attention(q, k, v, causal=True, window=window,
+    return flash_attention(q, k, v, causal=mask_kind != "full", window=window,
+                           prefix_len=prefix_len if mask_kind == "prefix" else 0,
                            softcap=cfg.attn_logit_softcap, scale=_scale(cfg))
 
 
@@ -101,9 +121,13 @@ def decode_lengths(pos, slots: int, *, ring: bool):
     return (pos + 1).to(torch.int32)
 
 
-def decode_attend(cfg, q_t, cache_k, cache_v, pos, *, ring: bool):
+def decode_attend(cfg, q_t, cache_k, cache_v, pos, *, ring: bool, cross: bool = False):
     """One-token attention against a cache. q_t: (B, 1, Hq, Dh); cache:
-    (B, S, Hkv, Dh); pos: (B,) position of the new token, already written."""
-    lengths = decode_lengths(pos, cache_k.shape[1], ring=ring)
+    (B, S, Hkv, Dh); pos: (B,) position of the new token, already written.
+    ``cross``: the cache holds an encoder's K/V, every slot valid for every
+    row (``pos`` is not read)."""
+    b, s = cache_k.shape[:2]
+    lengths = (torch.full((b,), s, dtype=torch.int32, device=cache_k.device) if cross
+               else decode_lengths(pos, s, ring=ring))
     return decode_attention(q_t, cache_k, cache_v, lengths,
                             softcap=cfg.attn_logit_softcap, scale=_scale(cfg))

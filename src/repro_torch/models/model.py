@@ -1,10 +1,13 @@
-"""Decoder-only LM: parameters, caches, prefill and decode.
+"""The LM: parameters, caches, prefill and decode.
 
-The counterpart of the reference's ``models/model.py`` for decoder-only
-stacks: gemma2's alternating local/global attention, dense MLPs of every
+The counterpart of the reference's ``models/model.py`` for every arch of
+its zoo: gemma2's alternating local/global attention, dense MLPs of every
 activation, MoE blocks (with arctic's dense residual), qk-norm, command-r's
-parallel attention + FFN block, untied heads, Mamba-2's SSD blocks and
-recurrentgemma's RG-LRU blocks. The reference scans over the repeating
+parallel attention + FFN block, untied heads, Mamba-2's SSD blocks,
+recurrentgemma's RG-LRU blocks, seamless's encoder-decoder (an encoder
+stack over frame embeddings, cross-attention in every decoder layer,
+attention biases) and paligemma's vision prefix (patch embeddings before
+the text, a prefix-LM mask). The reference scans over the repeating
 block pattern; here the layers are a list, and layer ``r*len(pattern)+i``
 has kind ``pattern[i]`` (the remainder layers continue the pattern).
 
@@ -13,17 +16,21 @@ Parameters are a plain dictionary::
     {"embed": {"table": (V, d)},
      "lm_head": {"w": (d, V)},                        # untied heads only
      "layers": [{"ln1": {"scale"},                    # attention blocks
-                 "attn": {"wq", "wk", "wv", "wo", "q_norm", "k_norm"},
+                 "attn": {"wq", "wk", "wv", "wo", "q_norm", "k_norm",
+                          "bq", "bk", "bv", "bo"},
                  "ln2": {"scale"},
                  "mlp": {"w_in", "w_gate", "w_out"},  # dense, or MoE's residual
-                 "moe": {"router", "w_in", "w_gate", "w_out"}},
+                 "moe": {"router", "w_in", "w_gate", "w_out"},
+                 "ln_cross": {"scale"}, "cross": {...}},  # enc-dec: as "attn"
                 {"ln1", "ln2", "mlp",                 # RG-LRU blocks
                  "rglru": {"w_a", "w_b", "w_out", "conv": {"w", "b"},
                            "w_r", "b_r", "w_i", "b_i", "lam"}},
                 {"ln1",                               # SSD blocks: no MLP
                  "ssd": {"w_in", "w_out", "conv": {"w", "b"}, "a_log",
                          "dt_bias", "d_skip", "norm_scale"}}, ...],
-     "final_norm": {"scale"}}
+     "final_norm": {"scale"},
+     "encoder": {"layers": [{"ln1", "attn", "ln2", "mlp"}, ...],  # enc-dec only
+                 "final_norm": {"scale"}}}
 
 with the reference's shapes (``wq`` (d, Hq, Dh), ``wo`` (Hq, Dh, d), the
 experts' ``w_in`` (E, d, ff) and ``w_out`` (E, ff, d); RG-LRU's ``w_a``,
@@ -33,18 +40,25 @@ head vectors; a conv's ``w`` (width, C) and ``b`` (C,)) and its dtypes
 (norm and qk-norm scales, the router, the gate vectors and the SSD head
 vectors in f32; conv weights and biases in the parameter dtype).
 ``w_gate`` exists for the gated activations only, ``q_norm``/``k_norm``
-with qk-norm only, ``moe`` in MoE configs and ``mlp`` in dense ones and
-beside ``moe`` where the config has a dense residual.
+with qk-norm only, the biases ``bq``/``bk``/``bv`` (H, Dh) and ``bo`` (d,)
+(in the parameter dtype) with ``attn_bias`` only, ``moe`` in MoE configs
+and ``mlp`` in dense ones and beside ``moe`` where the config has a dense
+residual.
 
 The cache is a list with one entry a layer: ``{"k", "v"}`` of
 (B, L, Hkv, Dh) for attention (L = max_len for global layers and
 min(local_window, max_len) slots of a ring for local ones), in
-``kv_dtype``; ``{"h", "conv"}`` for the recurrent blocks, in f32 whatever
-``kv_dtype`` is: RG-LRU's h (B, W) and SSD's h (B, nh, P, N), and the conv
-window (B, width-1, C) of past inputs (C = W, or d_inner + 2N for SSD).
+``kv_dtype``, and in an encoder-decoder also ``{"ck", "cv"}`` of
+(B, cross_len, Hkv, Dh), the cross-attention's K/V of the encoder output
+(biases included, no RoPE); ``{"h", "conv"}`` for the recurrent blocks, in
+f32 whatever ``kv_dtype`` is: RG-LRU's h (B, W) and SSD's h (B, nh, P, N),
+and the conv window (B, width-1, C) of past inputs (C = W, or d_inner + 2N
+for SSD).
 
-Not ported yet (ROADMAP item 9): the encoder-decoder, vision prefixes
-(prefix-LM) and attention biases; they raise ``NotImplementedError``.
+A prefill's ``batch`` holds ``tokens`` (B, S) and the frontend's input:
+``src_embeds`` (B, S_src, d), the encoder's frame embeddings, for an
+encoder-decoder; ``patch_embeds`` (B, P, d), the image's projected patch
+embeddings, for a vision frontend.
 """
 from __future__ import annotations
 
@@ -61,28 +75,16 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the reference's model zoo the port lacks."""
-    missing = [what for what, present in (
-        ("encoder-decoder", cfg.is_encoder_decoder),
-        ("vision prefix-LM", bool(cfg.frontend) or cfg.prefix_lm),
-        ("attention bias", cfg.attn_bias),
-    ) if present]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP item 9)")
-
-
 # ================================================================== params
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
                 dtype=torch.bfloat16) -> Dict[str, Any]:
     """Random parameters: truncated normal (+-3 sigma, sigma = 1/sqrt(fan_in))
     for weights (the router in f32), zeros for the f32 norm and qk-norm
-    scales and the biases, and the reference's fixed values for the SSD's
+    scales, the attention biases and the conv biases, and the reference's
+    fixed values for the SSD's
     a_log (log 1..nh), d_skip (ones) and RG-LRU's lam (decays from 0.9 to
     0.999), as the reference inits. On the card unless ``device="cpu"``;
     the generator must live there too."""
-    check_supported(cfg)
     device = resolve_device(device)
     d, hq, hkv, dh, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                           cfg.head_dim, cfg.d_ff)
@@ -121,6 +123,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
                 "dt_bias": zeros(nh), "d_skip": torch.ones(nh, device=device),
                 "norm_scale": zeros(di)}
 
+    def attention():
+        p = {"wq": w((d, hq, dh), d), "wk": w((d, hkv, dh), d),
+             "wv": w((d, hkv, dh), d), "wo": w((hq, dh, d), hq * dh)}
+        if cfg.attn_bias:
+            p.update(bq=zeros((hq, dh), dtype), bk=zeros((hkv, dh), dtype),
+                     bv=zeros((hkv, dh), dtype), bo=zeros(d, dtype))
+        if cfg.use_qk_norm:
+            p["q_norm"], p["k_norm"] = zeros(dh), zeros(dh)
+        return p
+
     layers = []
     for kind in cfg.layer_kinds():
         if kind == BLOCK_SSD:
@@ -130,30 +142,35 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
             layers.append({"ln1": {"scale": zeros(d)}, "rglru": rglru(),
                            "ln2": {"scale": zeros(d)}, "mlp": mlp()})
             continue
-        attn_p = {"wq": w((d, hq, dh), d), "wk": w((d, hkv, dh), d),
-                  "wv": w((d, hkv, dh), d), "wo": w((hq, dh, d), hq * dh)}
-        if cfg.use_qk_norm:
-            attn_p["q_norm"], attn_p["k_norm"] = zeros(dh), zeros(dh)
-        lp = {"ln1": {"scale": zeros(d)}, "attn": attn_p, "ln2": {"scale": zeros(d)}}
+        lp = {"ln1": {"scale": zeros(d)}, "attn": attention(), "ln2": {"scale": zeros(d)}}
         if cfg.num_experts:
             lp["moe"] = {"router": w((d, cfg.num_experts), d, torch.float32),
                          **mlp((cfg.num_experts,))}
         if not cfg.num_experts or cfg.moe_dense_residual:
             lp["mlp"] = mlp()
+        if cfg.is_encoder_decoder:
+            lp["ln_cross"], lp["cross"] = {"scale": zeros(d)}, attention()
         layers.append(lp)
     params = {"embed": {"table": w((cfg.vocab_size, d), d)},
               "layers": layers, "final_norm": {"scale": zeros(d)}}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": w((d, cfg.vocab_size), d)}
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "layers": [{"ln1": {"scale": zeros(d)}, "attn": attention(),
+                        "ln2": {"scale": zeros(d)}, "mlp": mlp()}
+                       for _ in range(cfg.num_encoder_layers)],
+            "final_norm": {"scale": zeros(d)}}
     return params
 
 
 # =================================================================== cache
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               kv_dtype=torch.bfloat16, device=None) -> List[Dict[str, Any]]:
+               kv_dtype=torch.bfloat16, device=None, cross_len: int = 0) -> List[Dict[str, Any]]:
     """A zeroed cache, on the card unless ``device="cpu"``: K/V in
-    ``kv_dtype`` for attention layers, the recurrent state in f32."""
-    check_supported(cfg)
+    ``kv_dtype`` for attention layers (with the cross-attention's
+    ``cross_len`` slots, or ``max_len`` when 0, in an encoder-decoder), the
+    recurrent state in f32."""
     device = resolve_device(device)
 
     def f32(*shape):
@@ -173,9 +190,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             continue
         length = (min(cfg.local_window or max_len, max_len)
                   if kind == BLOCK_LOCAL_ATTN else max_len)
-        shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
-        cache.append({"k": torch.zeros(shape, dtype=kv_dtype, device=device),
-                      "v": torch.zeros(shape, dtype=kv_dtype, device=device)})
+        def kv(slots):
+            return torch.zeros((batch, slots, cfg.num_kv_heads, cfg.head_dim), dtype=kv_dtype,
+                               device=device)
+
+        entry = {"k": kv(length), "v": kv(length)}
+        if cfg.is_encoder_decoder:
+            entry["ck"], entry["cv"] = kv(cross_len or max_len), kv(cross_len or max_len)
+        cache.append(entry)
     return cache
 
 
@@ -193,13 +215,44 @@ def _ffn(cfg, lp, x):
     return x + f
 
 
-def _residual(cfg, lp, x, h, out):
-    """Attention's output into the residual, then the FFN. A parallel block
-    (command-r) feeds the MLP ``ln1``'s output ``h`` and sums both into x;
-    its ``ln2`` stays in the parameters, unused, as in the reference."""
+def _residual(cfg, lp, x, h, out, cross=None):
+    """Attention's output into the residual, then the cross-attention's
+    ``cross(x)`` (a decoder layer of an encoder-decoder), then the FFN. A
+    parallel block (command-r) feeds the MLP ``ln1``'s output ``h`` and
+    sums both into x; its ``ln2`` stays in the parameters, unused, as in
+    the reference."""
     if cfg.parallel_block:
         return x + out + L.mlp_apply(lp["mlp"], h, cfg.mlp_activation)
-    return _ffn(cfg, lp, x + out)
+    x = x + out
+    if cross is not None:
+        x = x + cross(x)
+    return _ffn(cfg, lp, x)
+
+
+def _mask_kind(cfg, kind, prefix_len):
+    if kind == BLOCK_LOCAL_ATTN:
+        return "local"
+    return "prefix" if cfg.prefix_lm and prefix_len else "causal"
+
+
+def _cross_prefill(cfg, lp, x, entry, enc_out):
+    """Cross-attention of the prompt over the encoder output (``ln_cross``,
+    K/V with biases and no RoPE, the full mask); stores that K/V as the
+    layer's ``ck``/``cv``."""
+    h = L.rmsnorm(lp["ln_cross"], x, cfg.norm_eps)
+    q, k, v = attn.project_qkv(cfg, lp["cross"], h, kv_x=enc_out, use_rope=False)
+    o = attn.attention_core(cfg, q, k, v, mask_kind="full")
+    entry["ck"].copy_(k)
+    entry["cv"].copy_(v)
+    return attn.output_proj(cfg, lp["cross"], o)
+
+
+def _cross_decode(cfg, lp, x_t, entry):
+    """A step's cross-attention against the stored ``ck``/``cv``."""
+    h = L.rmsnorm(lp["ln_cross"], x_t, cfg.norm_eps)
+    q = attn.cross_query(cfg, lp["cross"], h)
+    o = attn.decode_attend(cfg, q, entry["ck"], entry["cv"], None, ring=False, cross=True)
+    return attn.output_proj(cfg, lp["cross"], o)
 
 
 def _keep_state(entry, state):
@@ -208,9 +261,10 @@ def _keep_state(entry, state):
     entry["conv"].copy_(state[1])
 
 
-def _block_prefill(cfg, kind, lp, x, entry, positions):
+def _block_prefill(cfg, kind, lp, x, entry, positions, prefix_len=0, enc_out=None):
     """One block over the prompt, filling its cache entry. RG-LRU has its
-    FFN after it; SSD only its residual."""
+    FFN after it; SSD only its residual; an encoder-decoder's attention
+    block its cross-attention over ``enc_out`` before the FFN."""
     h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     if kind == BLOCK_RGLRU:
         out, state = rglru_mod.rglru_forward(cfg, lp["rglru"], h, return_state=True)
@@ -221,14 +275,16 @@ def _block_prefill(cfg, kind, lp, x, entry, positions):
         _keep_state(entry, state)
         return x + out
     q, k, v = attn.project_qkv(cfg, lp["attn"], h, positions=positions)
-    mask = "local" if kind == BLOCK_LOCAL_ATTN else "causal"
-    o = attn.attention_core(cfg, q, k, v, mask_kind=mask)
-    out = attn.output_proj(lp["attn"], o)
+    o = attn.attention_core(cfg, q, k, v, mask_kind=_mask_kind(cfg, kind, prefix_len),
+                            prefix_len=prefix_len)
+    out = attn.output_proj(cfg, lp["attn"], o)
     if kind == BLOCK_LOCAL_ATTN and entry["k"].shape[1] < k.shape[1]:
         attn.write_ring_cache(entry["k"], entry["v"], k, v)
     else:
         attn.write_full_cache(entry["k"], entry["v"], k, v)
-    return _residual(cfg, lp, x, h, out)
+    cross = None if enc_out is None else (
+        lambda y: _cross_prefill(cfg, lp, y, entry, enc_out))
+    return _residual(cfg, lp, x, h, out, cross)
 
 
 def _block_decode(cfg, kind, lp, x_t, entry, pos):
@@ -245,7 +301,8 @@ def _block_decode(cfg, kind, lp, x_t, entry, pos):
     ring = kind == BLOCK_LOCAL_ATTN
     attn.decode_write(entry["k"], entry["v"], k, v, pos, ring)
     o = attn.decode_attend(cfg, q, entry["k"], entry["v"], pos, ring=ring)
-    return _residual(cfg, lp, x_t, h, attn.output_proj(lp["attn"], o))
+    cross = (lambda y: _cross_decode(cfg, lp, y, entry)) if "ck" in entry else None
+    return _residual(cfg, lp, x_t, h, attn.output_proj(cfg, lp["attn"], o), cross)
 
 
 def _logits(cfg, params, x):
@@ -253,23 +310,64 @@ def _logits(cfg, params, x):
                      cap=cfg.final_logit_softcap)
 
 
+# ============================================================== embeddings
+def prompt_len(batch) -> int:
+    """The decoder's prompt length: the text tokens after the patch
+    embeddings, when there are any."""
+    patches = batch.get("patch_embeds")
+    return batch["tokens"].shape[1] + (0 if patches is None else patches.shape[1])
+
+
+def _embed_inputs(cfg, params, batch):
+    """Token embeddings, after the patch embeddings (cast to the activation
+    dtype, not scaled) for a vision frontend. Returns (x, positions over
+    prefix and text, prefix_len: the patch count, else 0)."""
+    x = L.embed_lookup(params["embed"], batch["tokens"], cfg.embed_scale)
+    prefix_len = 0
+    if cfg.frontend == "vision":
+        patches = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([patches, x], dim=1)
+        prefix_len = patches.shape[1]
+    return x, torch.arange(x.shape[1], device=x.device), prefix_len
+
+
+def _encode(cfg, params, src):
+    """The encoder over frame embeddings (B, S_src, d), cast to the
+    parameter dtype: per layer RoPE self-attention at arange(S_src) with the
+    full mask, then the MLP, each behind its norm and into the residual;
+    then the final norm."""
+    enc = params["encoder"]
+    x = src.to(params["embed"]["table"].dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp in enc["layers"]:
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        q, k, v = attn.project_qkv(cfg, lp["attn"], h, positions=positions)
+        o = attn.attention_core(cfg, q, k, v, mask_kind="full")
+        x = x + attn.output_proj(cfg, lp["attn"], o)
+        x = x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps),
+                            cfg.mlp_activation)
+    return L.rmsnorm(enc["final_norm"], x, cfg.norm_eps)
+
+
 # ========================================================= prefill/decode
 def prefill(cfg: ModelConfig, params, batch, max_len: int = 0,
             kv_dtype=torch.bfloat16):
-    """Run the prompt ``batch["tokens"]`` (B, S), fill a new cache, return
-    (last_logits (B, V), cache, pos) with pos = S-1 for every row. The next
-    token's position is pos+1, and decode step i (from 0) passes pos+1+i."""
-    check_supported(cfg)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = L.embed_lookup(params["embed"], tokens, cfg.embed_scale)
-    positions = torch.arange(s, device=tokens.device)
-    cache = init_cache(cfg, b, max(max_len or s, s), kv_dtype, tokens.device)
+    """Run the prompt (``batch["tokens"]`` (B, S), after ``patch_embeds``
+    (B, P, d) for a vision frontend; an encoder-decoder first encodes
+    ``src_embeds`` (B, S_src, d)), fill a new cache of max(max_len, P+S)
+    slots, return (last_logits (B, V), cache, pos) with pos = P+S-1 for
+    every row. The next token's position is pos+1, and decode step i (from
+    0) passes pos+1+i."""
+    enc_out = _encode(cfg, params, batch["src_embeds"]) if cfg.is_encoder_decoder else None
+    x, positions, prefix_len = _embed_inputs(cfg, params, batch)
+    b, s = x.shape[:2]
+    cache = init_cache(cfg, b, max(max_len or s, s), kv_dtype, x.device,
+                       cross_len=0 if enc_out is None else enc_out.shape[1])
     for kind, lp, entry in zip(cfg.layer_kinds(), params["layers"], cache):
-        x = _block_prefill(cfg, kind, lp, x, entry, positions)
+        x = _block_prefill(cfg, kind, lp, x, entry, positions, prefix_len, enc_out)
     x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = _logits(cfg, params, x)[:, 0]
-    pos = torch.full((b,), s - 1, dtype=torch.int32, device=tokens.device)
+    pos = torch.full((b,), s - 1, dtype=torch.int32, device=x.device)
     return logits, cache, pos
 
 

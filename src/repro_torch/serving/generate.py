@@ -11,21 +11,26 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 
 
-def generate(cfg, params, prompts, max_new_tokens: int, *, device=None,
+def generate(cfg, params, prompts, max_new_tokens: int, *, frontend=None, device=None,
              kv_dtype=torch.bfloat16):
     """Greedy decode of ``max_new_tokens`` steps after the prompts (B, S).
 
-    tokens[:, 0] is the greedy pick from the prompt; decode step i feeds
-    tokens[:, i] at position S+i and returns logits[:, i], whose argmax is
-    tokens[:, i+1]. Returns (tokens (B, n) int64, logits (B, n, V)) on the
-    device, n = max_new_tokens. Runs on the card unless ``device="cpu"``;
-    ``params`` must already live on that device.
+    ``frontend``: the frontend's inputs, passed to ``prefill`` beside the
+    tokens: ``{"src_embeds": (B, S_src, d)}`` for an encoder-decoder,
+    ``{"patch_embeds": (B, P, d)}`` for a vision frontend (the cache then
+    holds the P prefix positions too). tokens[:, 0] is the greedy pick from
+    the prompt; decode step i feeds tokens[:, i] at position P+S+i and
+    returns logits[:, i], whose argmax is tokens[:, i+1]. Returns (tokens
+    (B, n) int64, logits (B, n, V)) on the device, n = max_new_tokens. Runs
+    on the card unless ``device="cpu"``; ``params`` must already live on
+    that device.
     """
     dev = resolve_device(device)
-    prompts = torch.as_tensor(prompts, device=dev)
-    s = prompts.shape[1]
-    logits, cache, pos = M.prefill(cfg, params, {"tokens": prompts},
-                                   max_len=s + max_new_tokens, kv_dtype=kv_dtype)
+    batch = {name: torch.as_tensor(t, device=dev) for name, t in (frontend or {}).items()}
+    batch["tokens"] = torch.as_tensor(prompts, device=dev)
+    logits, cache, pos = M.prefill(cfg, params, batch,
+                                   max_len=M.prompt_len(batch) + max_new_tokens,
+                                   kv_dtype=kv_dtype)
     tok = logits.argmax(dim=-1)[:, None]
     tokens, step_logits = [], []
     for i in range(max_new_tokens):

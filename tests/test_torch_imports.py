@@ -101,17 +101,26 @@ def test_zoo_param_count_counts_init_params(name):
 @pytest.mark.parametrize("name", ZOO)
 def test_zoo_param_count_at_full_width_is_the_references_moe_and_head(name):
     """At full width the port's count differs from the reference's only by
-    the reference's extra d a dense attention block (its ``mlp + d`` term)
-    and, in the recurrent blocks, by what the reference's count leaves out
-    (``tests/test_torch_ssm.py`` spells out those terms)."""
+    the reference's extra d a dense attention block (its ``mlp + d`` term);
+    in the recurrent blocks, by what the reference's count leaves out
+    (``tests/test_torch_ssm.py`` spells out those terms); and in an
+    encoder-decoder by the biases, which the reference does not count (a
+    decoder layer's self- and cross-attention's, an encoder layer's), an
+    encoder layer's extra d (its ``3 * d`` term) and the encoder's final
+    norm, which it leaves out."""
     cfg, ref = C.get_config(name), ref_get_config(name)
-    dense_blocks = 0 if cfg.num_experts else sum(
-        k in ("local", "global") for k in cfg.layer_kinds())
+    attn_blocks = sum(k in ("local", "global") for k in cfg.layer_kinds())
+    dense_blocks = 0 if cfg.num_experts else attn_blocks
     rw, di, n, nh = (cfg.rglru_width or cfg.d_model, cfg.d_inner, cfg.ssm_state_dim,
                      cfg.ssm_num_heads)
     recurrent = sum({"rglru": 3 * rw, "ssd": di + 2 * n + nh - cfg.d_model}.get(k, 0)
                     for k in cfg.layer_kinds())
-    assert ref.param_count() - cfg.param_count() == dense_blocks * cfg.d_model - recurrent
+    bias = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim + cfg.d_model if cfg.attn_bias else 0
+    attentions = 2 if cfg.is_encoder_decoder else 1
+    encoder = (cfg.num_encoder_layers * (cfg.d_model - bias) - cfg.d_model
+               if cfg.is_encoder_decoder else 0)
+    assert ref.param_count() - cfg.param_count() == (
+        dense_blocks * cfg.d_model - recurrent - attentions * attn_blocks * bias + encoder)
 
 
 def test_resolve_device_raises_without_a_card(monkeypatch):

@@ -124,7 +124,7 @@ def test_ops_send_cuda_tensors_to_the_kernels_only(monkeypatch):
     assert FO.flash_attention(q, q, q, window=8, softcap=5.0) == "flash-out"
     assert DO.decode_attention(q, q, q, q) == "decode-out"
     assert calls[0] == ("flash", {"scale": 0.125, "causal": True, "window": 8,
-                                  "softcap": 5.0})
+                                  "prefix_len": 0, "softcap": 5.0})
     assert calls[1] == ("decode", {"scale": 0.125, "softcap": 0.0})
     # one CUDA argument among CPU ones goes to the kernel too (which refuses it)
     cpu = torch.zeros((1, 4, 2, 64))

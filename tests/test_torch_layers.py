@@ -196,8 +196,50 @@ def test_project_qkv_and_output_proj(env, attn_params):
     out = A.project_qkv(CFG, port_p, xt, positions=torch.from_numpy(pos))
     for o, r in zip(out, ref):
         _close(o, r, 1e-5)
-    _close(A.output_proj(port_p, out[0]),
+    _close(A.output_proj(CFG, port_p, out[0]),
            RA.output_proj(env, REF_CFG, ref_p, ref[0]), 1e-5)
+
+
+SEAMLESS = reduced_config("seamless-m4t-medium")       # q/k/v/o biases, 2 MHA heads of 32
+REF_SEAMLESS = ref_reduced_config("seamless-m4t-medium")
+
+
+@pytest.fixture(scope="module")
+def bias_params():
+    """The reference's attention init for reduced seamless with random
+    biases (its init makes them zeros, which would hide a missing or
+    misplaced one), both ways."""
+    import jax
+    ref = RA.attn_init(REF_SEAMLESS, jax.random.PRNGKey(9), jnp.float32)[0]
+    rng = _rng(17)
+    for name in ("bq", "bk", "bv", "bo"):
+        ref[name] = jnp.asarray(rng.standard_normal(ref[name].shape).astype(np.float32))
+    return ref, {k: to_torch(np.asarray(v)) for k, v in ref.items()}
+
+
+def test_project_qkv_and_output_proj_with_biases(env, bias_params):
+    """Self-attention (RoPE at the positions) and cross-attention (K/V from
+    another sequence, no RoPE) with the q/k/v biases; the output
+    projection with ``bo``."""
+    ref_p, port_p = bias_params
+    rng = _rng(18)
+    xj, xt = _both(rng.standard_normal((2, 12, 128), np.float32))
+    ej, et = _both(rng.standard_normal((2, 20, 128), np.float32))
+    pos = np.arange(12)
+    ref = RA.project_qkv(env, REF_SEAMLESS, ref_p, xj, positions=jnp.asarray(pos))
+    out = A.project_qkv(SEAMLESS, port_p, xt, positions=torch.from_numpy(pos))
+    for o, r in zip(out, ref):
+        _close(o, r, 1e-5)
+    ref = RA.project_qkv(env, REF_SEAMLESS, ref_p, xj, kv_x=ej, use_rope=False)
+    out = A.project_qkv(SEAMLESS, port_p, xt, kv_x=et, use_rope=False)
+    assert out[1].shape == (2, 20, 2, 32)
+    for o, r in zip(out, ref):
+        _close(o, r, 1e-5)
+    _close(A.output_proj(SEAMLESS, port_p, out[0]),
+           RA.output_proj(env, REF_SEAMLESS, ref_p, ref[0]), 1e-5)
+    # the reference's decode step projects the cross query with wq and bq alone
+    _close(A.cross_query(SEAMLESS, port_p, xt[:, :1]),
+           jnp.einsum("bsd,dhk->bshk", xj[:, :1], ref_p["wq"]) + ref_p["bq"], 1e-5)
 
 
 def test_project_qkv_with_qk_norm(env):
@@ -245,10 +287,55 @@ def test_attention_core_local_differs_from_causal():
 
 
 @pytest.mark.parametrize("mask", ["prefix", "full"])
-def test_attention_core_encoder_and_prefix_masks_are_not_ported(mask):
-    q = torch.zeros((1, 4, 4, 32))
-    with pytest.raises(NotImplementedError):
-        A.attention_core(CFG, q, q[:, :, :2], q[:, :, :2], mask_kind=mask)
+def test_formerly_unported_masks_run(env, mask):
+    """The encoder's and cross-attention's "full" mask (Sq 37 against Skv
+    53: cross-attention's shape) and paligemma's "prefix" mask (prefix 11
+    of 53), which used to raise, against the reference's, f32 within 2e-5;
+    the reduced gemma2-2b's softcap 50 on."""
+    rng = _rng(19)
+    sq = 37 if mask == "full" else 53
+    qj, qt = _both(rng.standard_normal((2, sq, 4, 32), np.float32))
+    kj, kt = _both(rng.standard_normal((2, 53, 2, 32), np.float32))
+    vj, vt = _both(rng.standard_normal((2, 53, 2, 32), np.float32))
+    prefix = 11 if mask == "prefix" else 0
+    ref = RA.attention_core(env, REF_CFG, qj, kj, vj, mask_kind=mask,
+                            prefix_len=prefix if prefix else None)
+    out = A.attention_core(CFG, qt, kt, vt, mask_kind=mask, prefix_len=prefix)
+    _close(out, ref, 2e-5)
+
+
+@pytest.mark.parametrize("sq", [37, 64, 130])
+@pytest.mark.parametrize("prefix", [1, 5, "sq"])
+def test_flash_attention_plain_prefix_matches_the_reference(env, prefix, sq):
+    """K3's plain version with ``prefix_len`` against the reference's
+    ``attention_core(mask_kind="prefix")``, which computes paligemma's
+    prefix-LM mask in jnp: f32 within 2e-5, at ragged Sq, with a prefix of
+    one key, of five and of the whole sequence (full attention)."""
+    from repro_torch.kernels.flash_attn.ops import flash_attention_plain
+    p = sq if prefix == "sq" else prefix
+    rng = _rng(20)
+    qj, qt = _both(rng.standard_normal((2, sq, 8, 32), np.float32))
+    kj, kt = _both(rng.standard_normal((2, sq, 1, 32), np.float32))
+    vj, vt = _both(rng.standard_normal((2, sq, 1, 32), np.float32))
+    cfg = ref_reduced_config("paligemma-3b")
+    ref = RA.attention_core(env, cfg, qj, kj, vj, mask_kind="prefix", prefix_len=p)
+    out = flash_attention_plain(qt, kt, vt, prefix_len=p, scale=32 ** -0.5)
+    _close(out, ref, 2e-5)
+    # from row p-1 on a row sees the keys the causal mask gives it; the
+    # rows before see the whole prefix
+    causal = flash_attention_plain(qt, kt, vt, scale=32 ** -0.5)
+    assert torch.equal(out[:, p - 1:], causal[:, p - 1:])
+    if p > 1:
+        assert (out[:, :p - 1] - causal[:, :p - 1]).abs().max() > 1e-3
+
+
+def test_a_window_and_a_prefix_do_not_combine():
+    from repro_torch.kernels.flash_attn.ops import flash_attention_plain
+    q = torch.zeros((1, 8, 2, 32))
+    with pytest.raises(ValueError, match="do not combine"):
+        flash_attention_plain(q, q, q, window=4, prefix_len=2)
+    # without causality neither applies
+    flash_attention_plain(q, q, q, causal=False, window=4, prefix_len=2)
 
 
 @pytest.mark.parametrize("s", [24, 10])
@@ -319,6 +406,23 @@ def test_decode_lengths_are_the_filled_prefix(ring, slots, want):
     pos = torch.tensor([0, 15, 16, 30])
     lens = A.decode_lengths(pos, slots, ring=ring)
     assert lens.dtype == torch.int32 and lens.tolist() == want
+
+
+@pytest.mark.parametrize("cache_dtype,atol", [("float32", 2e-5), ("bfloat16", 3e-2)])
+def test_decode_attend_cross(env, cache_dtype, atol):
+    """A step's cross-attention against an encoder's cache of 20 slots:
+    every slot valid for every row, whatever the step's position."""
+    rng = _rng(21)
+    qj, qt = _both(rng.standard_normal((3, 1, 2, 32), np.float32))
+    kj, kt = _both(rng.standard_normal((3, 20, 2, 32), np.float32), cache_dtype)
+    vj, vt = _both(rng.standard_normal((3, 20, 2, 32), np.float32), cache_dtype)
+    pos = np.array([0, 7, 45], np.int32)
+    ref = RA.decode_attend(env, REF_SEAMLESS, qj, kj, vj, jnp.asarray(pos), ring=False,
+                           cross=True)
+    out = A.decode_attend(SEAMLESS, qt, kt, vt, torch.from_numpy(pos), ring=False, cross=True)
+    _close(out, ref, atol)
+    self_attn = A.decode_attend(SEAMLESS, qt, kt, vt, torch.from_numpy(pos), ring=False)
+    assert (out[0] - self_attn[0]).abs().max() > 1e-3      # row 0 sees all 20, not 1
 
 
 def test_reduced_config_matches_reference_here():

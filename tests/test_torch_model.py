@@ -167,30 +167,77 @@ def test_init_cache_layout():
     assert cache[0]["v"].shape == (2, 16, 2, 32) and cache[0]["v"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("change", [{"is_encoder_decoder": True}, {"frontend": "vision"}])
-def test_unported_blocks_raise(change):
-    cfg = dataclasses.replace(CFG, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+def _frontend(cfg, batch, src_len, seed):
+    """numpy frontend inputs from a seed: an encoder-decoder's frame
+    embeddings, a vision frontend's patch embeddings, else none."""
+    rng = np.random.default_rng(seed)
+    if cfg.is_encoder_decoder:
+        return {"src_embeds": rng.standard_normal((batch, src_len, cfg.d_model), np.float32)}
+    if cfg.frontend == "vision":
+        return {"patch_embeds": rng.standard_normal((batch, cfg.frontend_len, cfg.d_model),
+                                                    np.float32)}
+    return {}
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "paligemma-3b"])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        C.get_config(arch)
+@pytest.mark.parametrize("change", [
+    {"is_encoder_decoder": True, "num_encoder_layers": 2, "attn_bias": True},
+    {"frontend": "vision", "frontend_len": 8, "prefix_lm": True},
+], ids=["encoder_decoder", "vision_prefix_lm"])
+def test_formerly_unported_frontends_run(env, change):
+    """The encoder-decoder (with biases) and the vision prefix-LM, which
+    used to raise here, on reduced gemma2-2b (its softcaps and local
+    layers: the prefix mask on the global layers only, the window on the
+    local ones, as the reference picks one mask a layer): prefill over a
+    20-frame source or 8 patches and 3 greedy steps at f32 against the
+    reference with the same change and random biases and norm scales,
+    logits within 1e-4."""
+    cfg, ref_cfg = (dataclasses.replace(c, **change) for c in (CFG, REF_CFG))
+    ref = RM.init_params(ref_cfg, jax.random.PRNGKey(4), RUN)
+    rng = np.random.default_rng(5)
+
+    def rand(path, x):
+        x = np.asarray(x)
+        if path[-1].key in ("bq", "bk", "bv", "bo", "scale"):
+            return (0.5 * rng.standard_normal(x.shape)).astype(x.dtype)
+        return x
+
+    np_ref = jax.tree_util.tree_map_with_path(rand, ref)
+    ref = jax.tree.map(jnp.asarray, np_ref)
+    port = params_from_jax(np_ref, cfg)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 20)).astype(np.int32),
+             **_frontend(cfg, 2, 20, 6)}
+    max_len = M.prompt_len(batch) + 3
+    ref_logits, ref_cache, pos = RM.prefill(env, ref_cfg, ref,
+                                            {k: jnp.asarray(v) for k, v in batch.items()}, RUN,
+                                            max_len=max_len, kv_dtype=jnp.float32)
+    logits, cache, port_pos = M.prefill(cfg, port, {k: torch.from_numpy(v) for k, v in batch.items()},
+                                        max_len=max_len, kv_dtype=torch.float32)
+    assert port_pos.tolist() == np.asarray(pos).tolist()
+    np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), atol=1e-4)
+    for i in range(3):
+        tok = np.asarray(ref_logits).argmax(-1)[:, None]
+        ref_logits, ref_cache = RM.decode_step(env, ref_cfg, ref, jnp.asarray(tok), pos + 1 + i,
+                                               ref_cache, RUN)
+        logits, cache = M.decode_step(cfg, port, torch.from_numpy(tok), port_pos + 1 + i, cache)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), atol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b", "seamless-m4t-medium",
+                                  "paligemma-3b"])
 def test_formerly_unported_archs_run(arch):
-    """The two archs that used to raise are registered and serve: the
+    """The archs that used to raise are registered and serve: the
     reduced config through ``generate`` on the CPU with the port's own
-    init, finite logits that the greedy tokens follow. (Their agreement
-    with the reference is in test_torch_zoo.py and test_torch_ssm.py.)"""
+    init (and frontend inputs: a 16-frame source, 8 patches), finite logits
+    that the greedy tokens follow. (Their agreement with the reference is
+    in test_torch_zoo.py and test_torch_ssm.py.)"""
     cfg = C.reduced_config(arch)
-    assert C.get_config(arch).num_layers == {"mamba2-2.7b": 64, "recurrentgemma-9b": 38}[arch]
+    assert C.get_config(arch).num_layers == {"mamba2-2.7b": 64, "recurrentgemma-9b": 38,
+                                             "seamless-m4t-medium": 12,
+                                             "paligemma-3b": 18}[arch]
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
     prompts = torch.randint(0, cfg.vocab_size, (2, 12), generator=torch.Generator().manual_seed(1))
-    tokens, logits = generate(cfg, params, prompts, 4, device="cpu")
+    frontend = {k: torch.from_numpy(v) for k, v in _frontend(cfg, 2, 16, 2).items()}
+    tokens, logits = generate(cfg, params, prompts, 4, frontend=frontend, device="cpu")
     assert tokens.shape == (2, 4) and logits.shape == (2, 4, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
     assert torch.equal(logits[:, :-1].argmax(-1), tokens[:, 1:])

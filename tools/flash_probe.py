@@ -38,9 +38,10 @@ import chip_smoke as C  # noqa: E402
 from probe_util import OUT, build_all, edited  # noqa: E402
 
 NO_SOFTMAX = ('''  if (mask)
-    softmax_tile<CAP, true>(s, mul, cap2, kt, c0, ra, Skv, causal, window, m, corr, psum);
+    softmax_tile<CAP, true>(s, mul, cap2, kt, c0, ra, Skv, causal, window, prefix, m, corr, psum);
   else
-    softmax_tile<CAP, false>(s, mul, cap2, kt, c0, ra, Skv, causal, window, m, corr, psum);''',
+    softmax_tile<CAP, false>(s, mul, cap2, kt, c0, ra, Skv, causal, window, prefix, m, corr,
+                             psum);''',
               "  corr[0] = corr[1] = 1.f; psum[0] = psum[1] = 1.f;")
 # (name, right function?, edits)
 VARIANTS = [
@@ -97,10 +98,12 @@ def build_libs(sources):
     for name, so in build_all(sources).items():
         lib = ctypes.CDLL(str(so))
         fn = lib.flash_attn_launch
+        # an older revision of the source has no prefix argument
+        prefix = "int prefix, int dtype" in Path(sources[name]).read_text()
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * (4 if prefix else 3) + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        libs[name] = (lib, fn)
+        libs[name] = (lib, fn if prefix else (lambda f: lambda *a: f(*a[:14], *a[15:]))(fn))
     return libs
 
 

@@ -475,7 +475,7 @@ def time_split_blocks(values, card):
     from repro_torch.kernels.decode_attn import kernel as DK, ops as DO
     gen = torch.Generator(device="cuda").manual_seed(2)
     keep = DK.SPLIT_BLOCKS_PER_SM
-    for name, b, sq, steps, hq, hkv, d, scale in C.zoo_paths():
+    for name, b, sq, steps, hq, hkv, d, scale, _ in C.zoo_paths():
         if name not in C.ZOO_DECODE:
             continue
         s = sq + steps
