@@ -84,10 +84,29 @@ Phases, each of which exits non-zero on failure:
     under the profiler (device idle share), and the batch width from which
     torch wins, if any (``tools/stepper_probe.py`` times other widths and
     repeats).
+ 8. training, which launches none of the kernels (the reference trains
+    through jnp, not through its Pallas kernels): 8a, the reduced configs of
+    all ten archs at f32 (TF32 off), the loss, the gradients and one
+    ``make_train_step`` step (AdamW; arctic's Adafactor) on the card against
+    the same step on the CPU from the same seeded parameters on the same
+    ``SyntheticLM`` batch, no K1, K2 or K3 launch during it, a save ->
+    restore -> step on the card whose loss equals the unbroken run's, a
+    bf16 step (remat "dots", a chunked loss) near the CPU's, and for gemma2
+    also ``grad_accum`` 2 against 1 and remat "dots" and "full" against
+    "none"; 8b, full-width gemma2-2b in bf16, 2 x 4096 tokens a step
+    (TRAIN_4K's sequence; its global batch of 256 cut to 2 for one card),
+    AdamW, remat "full", loss and attention chunks of 1024, warmup 2, 8
+    steps: finite losses and grad norms, parameters that move, the mean of
+    the last three losses below the first; step ms (median of steps 2-8),
+    tokens/s, the share of 989 TFLOP/s that 6 N tokens a step gives, one
+    step's device idle share and kernels under the profiler, the forward +
+    backward alone, one layer's chunked attention, and the peak memory
+    beside the reckoned one.
 
 Phase 2 also shows that the attention kernels refuse CUDA inputs that
-require grad (they have no backward). Before the card line comes one JSON
-object {"stepper": ...} of phase 7's numbers; the line before the last is
+require grad (they have no backward). Before the card line come one JSON
+object {"stepper": ...} of phase 7's numbers and one {"train": ...} of
+phase 8's; the line before the last is
 one JSON object of per-kernel numbers; the last line is
 {"ok": true, "device": {...}}. Without a card, or outside a checkout
 of the repository, it prints no result and exits non-zero.
@@ -1710,6 +1729,360 @@ def simulator_path(card):
     return out
 
 
+# ------------------------------------------------------------------ phase 8
+# Training. 8a: every arch's reduced config at f32 (TF32 off), one train step
+# on the card against the same step on the CPU. 8b: full-width gemma2-2b in
+# bf16 at TRAIN_4K's sequence length, its global batch of 256 (a pod's) cut
+# to TRAIN_BATCH for one card.
+TRAIN_ARCHS = ("gemma2-2b", GRANITE) + ZOO_ARCHS + RECURRENT_ARCHS + FRONTEND_ARCHS
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_CHUNK, TRAIN_LR = 4096, 2, 8, 1024, 3e-3
+# CPU and card from the same f32 state compute the same f32 arithmetic in
+# another order. A gradient leaf within GRAD_RTOL of its max |g| (GRAD_ATOL
+# where the gradient is zero in exact arithmetic, as a key bias's: softmax
+# ignores it); loss, grad norm and lr within METRIC_RTOL; a parameter after
+# the step within PARAM_ATOL where the CPU's gradient is resolved: at least
+# RESOLVED_GRAD (100x AdamW's eps) and RESOLVED_SHARE of its leaf's max |g|
+# (f32 rounding of a leaf's sums is ~1e-6 of its max). Below that, Adam's
+# normalisation turns rounding into up to a whole step, so there within the
+# step's reach. A bf16 step's loss within BF16_RTOL of the CPU's bf16 loss.
+GRAD_RTOL, GRAD_ATOL, METRIC_RTOL, PARAM_ATOL = 1e-4, 1e-7, 1e-5, 1e-6
+RESOLVED_GRAD, RESOLVED_SHARE = 1e-6, 1e-3
+BF16_RTOL = 2e-2
+
+
+def rel_err(a, b) -> float:
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def copy_tree(tree, device):
+    """A copy of every tensor of ``tree`` on ``device`` (a new tensor even
+    where it is already there)."""
+    from repro_torch.train.tree import tree_map
+    return tree_map(lambda t: t.detach().to(device, copy=True), tree)
+
+
+def kernel_counts(reset=False):
+    """The three kernels' launch counters (set to 0 first when ``reset``)."""
+    from repro_torch.kernels.ciao_gather.kernel import ciao_gather_cuda
+    from repro_torch.kernels.decode_attn.kernel import decode_attention_cuda
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    wrappers = {"flash_attn": flash_attention_cuda, "decode_attn": decode_attention_cuda,
+                "ciao_gather": ciao_gather_cuda}
+    if reset:
+        for w in wrappers.values():
+            w.launches = 0
+    return {name: w.launches for name, w in wrappers.items()}
+
+
+def grads_err(mine, ref):
+    """(largest |mine - ref| over a leaf as a share of its tolerance, that leaf)."""
+    from repro_torch.train.tree import flatten_with_paths
+    ref_flat = flatten_with_paths(ref)
+    worst = (0.0, "")
+    for key, t in flatten_with_paths(mine).items():
+        r = ref_flat[key].to(t.device).float()
+        worst = max(worst, (max_err(t, r) / max(GRAD_RTOL * r.abs().max().item(), GRAD_ATOL),
+                            key))
+    return worst
+
+
+def params_err(before, after, after_ref, grads_ref, wd):
+    """(largest disagreement of a parameter after one step as a share of its
+    tolerance: PARAM_ATOL where the reference's gradient is resolved
+    (RESOLVED_GRAD, RESOLVED_SHARE), else the step's reach 2 lr (1 + wd |p|);
+    that leaf)."""
+    import torch
+    from repro_torch.train.tree import flatten_with_paths
+    b, a, r, g = (flatten_with_paths(t) for t in (before, after, after_ref, grads_ref))
+    worst = (0.0, "")
+    for key, p in b.items():
+        p = p.cpu().float()
+        diff = (a[key].cpu().float() - r[key].cpu().float()).abs()
+        reach = 2 * TRAIN_LR * (1 + wd * p.abs()) + PARAM_ATOL
+        grad = g[key].cpu().float().abs()
+        resolved = grad >= max(RESOLVED_GRAD, RESOLVED_SHARE * grad.max().item())
+        tol = torch.where(resolved, PARAM_ATOL, reach)
+        worst = max(worst, ((diff / tol).max().item(), key))
+    return worst
+
+
+def fresh_state(cfg, params, device):
+    """A train state around a copy of ``params`` on ``device``, at step 1
+    (the lr schedule gives 0 at step 0)."""
+    import torch
+    from repro_torch.train import optim as O, train_step as TS
+    params = copy_tree(params, device)
+    return {"params": params,
+            "opt": O.make_optimizer(cfg.optimizer)[0](params, TS.optimizer_groups(cfg, params)),
+            "step": torch.ones((), dtype=torch.int32, device=device)}
+
+
+def train_reduced_arch(name, ckpt_dir):
+    """Phase 8a for one arch; returns (its numbers, what disagrees)."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.train import checkpoint as CK, train_step as TS
+    from repro_torch.train.data import SyntheticLM, as_tensors
+    from repro_torch.train.tree import flatten_with_paths
+    cfg = reduced_config(name)
+    run = RunConfig(remat_policy="none", param_dtype="float32", learning_rate=TRAIN_LR,
+                    warmup_steps=1)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
+    data = SyntheticLM(cfg).numpy_batches(ShapeConfig("train_reduced", 32, 2, "train"))
+    np_batch = next(data)
+    devices = ("cpu", "cuda")
+    batch = {dev: as_tensors(np_batch, dev) for dev in devices}
+    state = {dev: fresh_state(cfg, params, dev) for dev in devices}
+    step = TS.make_train_step(cfg, run)
+    kernel_counts(reset=True)
+    lg = {dev: TS.loss_and_grads(cfg, run, state[dev]["params"], batch[dev]) for dev in devices}
+    m = {dev: step(state[dev], batch[dev])[1] for dev in devices}
+    counts = kernel_counts()
+    g_err = grads_err(lg["cuda"][1], lg["cpu"][1])
+    p_err = params_err(params, state["cuda"]["params"], state["cpu"]["params"], lg["cpu"][1],
+                       run.weight_decay)
+    rel = {k: rel_err(m["cuda"][k], m["cpu"][k]) for k in ("loss", "grad_norm", "lr")}
+    rel["loss_and_grads"] = rel_err(lg["cuda"][0], lg["cpu"][0])
+    # save -> restore -> the next step, against the unbroken run's next step
+    card = state["cuda"]
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    CK.save(card, ckpt_dir, 2, fingerprint=cfg.fingerprint())
+    restored, at = CK.restore(TS.train_state_struct(cfg, run), ckpt_dir, device="cuda",
+                              fingerprint=cfg.fingerprint())
+    bit_equal = all(torch.equal(a, b) for a, b in zip(flatten_with_paths(restored).values(),
+                                                      flatten_with_paths(card).values()))
+    batch2 = as_tensors(next(data), "cuda")
+    resumed_equal = step(restored, batch2)[1]["loss"].item() == \
+        step(card, batch2)[1]["loss"].item()
+    # a bf16 step on the card from the CPU's bf16 parameters
+    run16 = RunConfig(remat_policy="dots", loss_chunk=8, learning_rate=TRAIN_LR, warmup_steps=1)
+    params16 = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.bfloat16)
+    loss16_cpu = TS.loss_and_grads(cfg, run16, params16, batch["cpu"])[0]
+    m16 = TS.make_train_step(cfg, run16)(fresh_state(cfg, params16, "cuda"), batch["cuda"])[1]
+    counts16 = kernel_counts()
+    r = {"optimizer": cfg.optimizer, "loss_cpu": m["cpu"]["loss"].item(),
+         "loss_card": m["cuda"]["loss"].item(), "rel": rel, "grad_err_share": g_err[0],
+         "grad_worst_leaf": g_err[1], "param_err_share": p_err[0], "param_worst_leaf": p_err[1],
+         "launches": counts, "restored_bit_equal": bit_equal, "restored_step": at,
+         "resumed_loss_equal": resumed_equal, "bf16_loss": m16["loss"].item(),
+         "bf16_loss_rel_to_cpu": rel_err(m16["loss"], loss16_cpu),
+         "bf16_grad_norm": m16["grad_norm"].item(), "launches_with_bf16": counts16}
+    log(f"[8a] reduced {name} f32 ({cfg.optimizer}), CUDA against CPU: loss {r['loss_card']:.7f} "
+        f"/ {r['loss_cpu']:.7f}, rel {json.dumps(rel)}; gradients {g_err[0]:.3g} of their "
+        f"tolerance (worst {g_err[1]}), parameters after the step {p_err[0]:.3g} of theirs "
+        f"(worst {p_err[1]}); kernel launches {counts}; restore bit-equal {bit_equal}, the "
+        f"resumed step's loss equal to the unbroken run's {resumed_equal}; bf16 step loss "
+        f"{r['bf16_loss']:.5f} (rel {r['bf16_loss_rel_to_cpu']:.2g} to the CPU's), grad norm "
+        f"{r['bf16_grad_norm']:.4g}, launches {counts16}")
+    none = {k: 0 for k in counts}
+    bad = [what for what, ok in (
+        ("loss, grad norm or lr", max(rel.values()) <= METRIC_RTOL),
+        ("gradients", g_err[0] <= 1.0), ("parameters after the step", p_err[0] <= 1.0),
+        ("kernel launches", counts == counts16 == none),
+        ("save -> restore -> step", bit_equal and at == 2 and resumed_equal),
+        ("bf16 step", r["bf16_loss_rel_to_cpu"] <= BF16_RTOL
+         and math.isfinite(r["bf16_grad_norm"]))) if not ok]
+    if name == "gemma2-2b":
+        # grad_accum 2 against 1, remat "dots" and "full" against "none", on the card
+        on_card = copy_tree(params, "cuda")
+        for policy in ("dots", "full"):
+            loss, grads = TS.loss_and_grads(cfg, dataclasses.replace(run, remat_policy=policy),
+                                            on_card, batch["cuda"])
+            err = grads_err(grads, lg["cuda"][1])
+            r[f"remat_{policy}"] = {"loss_rel": rel_err(loss, lg["cuda"][0]),
+                                    "grad_err_share": err[0]}
+            log(f"  remat {policy} against none on the card: {json.dumps(r[f'remat_{policy}'])}")
+            if r[f"remat_{policy}"]["loss_rel"] > 1e-6 or err[0] > 1.0:
+                bad.append(f"remat {policy}")
+        accum = {n: fresh_state(cfg, params, "cuda") for n in (1, 2)}
+        ma = {n: TS.make_train_step(cfg, dataclasses.replace(run, grad_accum=n))(
+            s, batch["cuda"])[1] for n, s in accum.items()}
+        a_err = params_err(params, accum[2]["params"], accum[1]["params"], lg["cuda"][1],
+                           run.weight_decay)
+        r["grad_accum_2"] = {"loss_rel": rel_err(ma[2]["loss"], ma[1]["loss"]),
+                             "grad_norm_rel": rel_err(ma[2]["grad_norm"], ma[1]["grad_norm"]),
+                             "param_err_share": a_err[0]}
+        log(f"  grad_accum 2 against 1 on the card: {json.dumps(r['grad_accum_2'])} "
+            f"(worst {a_err[1]})")
+        if max(r["grad_accum_2"]["loss_rel"], r["grad_accum_2"]["grad_norm_rel"]) > METRIC_RTOL \
+                or a_err[0] > 1.0:
+            bad.append("grad_accum 2")
+    return r, bad
+
+
+def check_train_reduced():
+    """Phase 8a: each arch's reduced config at f32, the loss and gradients
+    and one ``make_train_step`` step (AdamW, arctic's Adafactor) on the card
+    against the CPU from the same parameters (the port's ``init_params``,
+    seeded) on the same ``SyntheticLM`` batch; no kernel launch on the card;
+    save -> restore -> step on the card gives the unbroken run's loss; a
+    bf16 step on the card (remat "dots", a chunked loss) near the CPU's;
+    for gemma2 also ``grad_accum`` 2 against 1 and remat "dots" and "full"
+    against "none"."""
+    import shutil
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    out = {}
+    for name in TRAIN_ARCHS:
+        out[name], bad = train_reduced_arch(name, ckpt_dir)
+        if bad:
+            fail(f"phase 8a: reduced {name}: {', '.join(bad)} disagree")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return out
+
+
+def attention_layer_ms(cfg, batch, seq, chunk):
+    """``attention_chunked`` at one layer of a training step (bf16 q, k, v of
+    ``batch`` x ``seq``, ``chunk`` keys a chunk), by CUDA events: the
+    forward, and forward + backward, for each of the config's mask kinds."""
+    import torch
+    from repro_torch.models.attention import attention_chunked
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rnd(heads):
+        return torch.randn(batch, seq, heads, cfg.head_dim, generator=gen,
+                           device="cuda").to(torch.bfloat16).requires_grad_(True)
+
+    q, k, v = rnd(cfg.num_heads), rnd(cfg.num_kv_heads), rnd(cfg.num_kv_heads)
+    go = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    out = {}
+    for kind, mask in (("local", "local"), ("global", "causal")):
+        def fwd():
+            return attention_chunked(cfg, q, k, v, mask_kind=mask, chunk=chunk)
+        out[kind] = {"fwd_ms": cuda_ms(fwd, 3),
+                     "fwd_bwd_ms": cuda_ms(lambda: fwd().backward(go), 3)}
+    return out
+
+
+def train_full_width(card):
+    """Phase 8b: gemma2-2b at full width in bf16, TRAIN_BATCH x TRAIN_SEQ
+    tokens a step, AdamW, remat "full", loss and attention chunks of
+    TRAIN_CHUNK, warmup 2, TRAIN_STEPS steps of ``SyntheticLM``: finite
+    losses and grad norms, parameters that move, the mean of the last three
+    losses below the first, no kernel launch; step ms (median of steps
+    2..), tokens/s, the share of the card's dense bf16 peak that 6 N tokens
+    a step gives, one step's device idle share and kernels under the
+    profiler, the forward + backward alone, one layer's chunked attention,
+    and the peak memory beside the reckoned one."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.data import SyntheticLM
+    cfg = get_config("gemma2-2b")
+    run = RunConfig(remat_policy="full", loss_chunk=TRAIN_CHUNK, attn_chunk=TRAIN_CHUNK,
+                    warmup_steps=2)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n = cfg.param_count()
+    v_d = cfg.vocab_size * cfg.d_model
+    # bf16 params and gradients, AdamW's f32 m and v, clip's f32 gradients,
+    # the bf16 updates, and three f32 temporaries of the largest leaf (the
+    # embedding) inside the optimizer
+    reckoned = (2 * n + 2 * n + 8 * n + 4 * n + 3 * 4 * v_d) / 1e9
+    log(f"[8b] gemma2-2b bf16 training at full width ({cfg.num_layers} layers, d "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {n / 1e9:.3f} B params): {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens a step (TRAIN_4K's sequence; its batch of 256 cut to "
+        f"{TRAIN_BATCH}), AdamW, remat {run.remat_policy}, loss_chunk {run.loss_chunk}, "
+        f"attn_chunk {run.attn_chunk}, {TRAIN_STEPS} steps; peak reckoned {reckoned:.1f} GB")
+    t0 = time.perf_counter()
+    data = SyntheticLM(cfg).batches(ShapeConfig("train_4k_batch_2", TRAIN_SEQ, TRAIN_BATCH,
+                                                "train"), "cuda")
+    batches = [next(data) for _ in range(TRAIN_STEPS)]
+    data_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = TS.init_train_state(cfg, run, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    sync()
+    init_s = time.perf_counter() - t0
+    watched = {"layers/0/attn/wq": state["params"]["layers"][0]["attn"]["wq"],
+               "embed/table": state["params"]["embed"]["table"],
+               "final_norm/scale": state["params"]["final_norm"]["scale"]}
+    before = {k: t.clone() for k, t in watched.items()}
+    step = TS.make_train_step(cfg, run)
+    kernel_counts(reset=True)
+    losses, norms, lrs, step_ms = [], [], [], []
+    for b in batches:
+        sync()
+        t0 = time.perf_counter()
+        _, m = step(state, b)
+        losses.append(m["loss"].item())              # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(m["grad_norm"].item())
+        lrs.append(m["lr"].item())
+    counts = kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = {k: not torch.equal(before[k], t) for k, t in watched.items()}
+    steady = sorted(step_ms[1:])
+    med = steady[len(steady) // 2] if len(steady) % 2 else sum(
+        steady[len(steady) // 2 - 1:len(steady) // 2 + 1]) / 2
+    result = {
+        "layers": cfg.num_layers, "params_b": n / 1e9, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms, "lrs": lrs,
+        "step_ms": step_ms, "step_ms_median_2_on": med, "tokens_per_s": tokens * 1e3 / med,
+        "flop_share_6nt": 6 * n * tokens / (med / 1e3) / PEAK_BF16_OPS,
+        "peak_mem_gb": peak_gb, "reckoned_peak_gb": reckoned, "launches": counts,
+        "params_moved": moved, "data_s": data_s, "init_s": init_s, "card": card}
+    log(f"  losses {[round(x, 4) for x in losses]}, grad norms {[round(x, 4) for x in norms]}, "
+        f"lr {lrs}; step ms {[round(x, 1) for x in step_ms]}; launches {counts}")
+    log(f"  step {med:.1f} ms (median of steps 2-{TRAIN_STEPS}), {result['tokens_per_s']:.0f} "
+        f"tokens/s, 6 N tokens a step = {result['flop_share_6nt']:.4f} of {PEAK_BF16_OPS / 1e12:.0f} "
+        f"TFLOP/s; peak memory {peak_gb:.2f} GB against {reckoned:.2f} GB reckoned; on {card}")
+    finite = all(math.isfinite(x) for x in losses + norms)
+    falling = sum(losses[-3:]) / 3 < losses[0]
+    if not (finite and all(moved.values()) and falling
+            and counts == {k: 0 for k in counts}):
+        fail(f"phase 8b: finite {finite}, parameters moved {moved}, the last three losses' "
+             f"mean below the first {falling}, launches {counts}")
+    # where a step's time goes: one step under the profiler (device idle
+    # share against the untraced median), the forward + backward alone (the
+    # rest of a step is clip, the optimizer and the update), and one layer's
+    # chunked attention, forward twice (remat) and backward once
+    prof = device_profile(lambda: step(state, batches[-1])[1]["loss"].item(), top=400)
+    busy = prof["device_busy_ms"]
+    gemm = sum(ms for name, ms, _ in prof["top"] if any(w in name for w in GEMM_NAMES))
+    sync()
+    t0 = time.perf_counter()
+    loss, grads = TS.loss_and_grads(cfg, run, state["params"], batches[0])
+    loss.item()
+    fwd_bwd = (time.perf_counter() - t0) * 1e3
+    del grads
+    torch.cuda.empty_cache()
+    attn = attention_layer_ms(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CHUNK)
+    kinds = cfg.layer_kinds()
+    attn_step = sum(kinds.count(kind) * (a["fwd_ms"] + a["fwd_bwd_ms"])
+                    for kind, a in attn.items())
+    result["breakdown"] = {
+        "device_busy_ms": busy, "idle_share": None if busy is None else 1 - busy / med,
+        "profiled_wall_ms": prof["wall_ms"], "gemm_kernels_ms": gemm,
+        "other_kernels_ms": None if busy is None else busy - gemm,
+        "fwd_bwd_ms": fwd_bwd, "clip_optimizer_update_ms": med - fwd_bwd,
+        "attention_layer": attn, "attention_step_ms": attn_step, "top": prof["top"][:15]}
+    log(f"  one step under the profiler: device busy {busy} ms (idle share "
+        f"{result['breakdown']['idle_share']}), GEMM kernels {gemm:.1f} ms; forward + backward "
+        f"alone {fwd_bwd:.1f} ms, so clip + optimizer + update ~{med - fwd_bwd:.1f} ms; chunked "
+        f"attention a layer {json.dumps(attn)}, a step (forward twice, backward once) "
+        f"~{attn_step:.1f} ms; top kernels:")
+    for name, ms, calls in prof["top"][:15]:
+        log(f"    {ms:9.3f} ms {calls:5d}x  {name}")
+    del state, batches
+    torch.cuda.empty_cache()
+    return result
+
+
+def train_phase(card):
+    """Phase 8: 8a and 8b; returns (their numbers, the kernels' launches
+    over both: none)."""
+    kernel_counts(reset=True)
+    reduced = check_train_reduced()
+    launches = kernel_counts()
+    full = train_full_width(card)
+    launches = {k: launches[k] + full["launches"][k] for k in launches}
+    return {"reduced": reduced, "full_width": full}, launches
+
+
 def main() -> None:
     import torch
     t_script = time.perf_counter()
@@ -1761,9 +2134,14 @@ def main() -> None:
     took("6")
     stepper = simulator_path(card)
     took("7")
+    train, train_launches = train_phase(card)
+    took("8")
+    for k in kernels:
+        k["train_launches"] = train_launches[k["name"]]
     log(f"the script took {time.perf_counter() - t_script:.1f} s, kernels' build included; "
         f"by phase: {json.dumps(phase_s)}")
     log(json.dumps({"stepper": stepper}))
+    log(json.dumps({"train": train}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

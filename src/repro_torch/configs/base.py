@@ -1,15 +1,18 @@
 """Configuration dataclasses of the port.
 
-The port's own copy of ``repro``'s ``ModelConfig``: the same fields with the
-same defaults, so a configuration compares equal field by field with the
-reference's. The reference's ``RunConfig`` (training and sharding knobs) is
-left out until a slice of the port reads it. Hardware constants do not
-belong here; the card's peak rates live with the script that measures
-against them (``chip_smoke.py``).
+The port's own copies of ``repro``'s ``ModelConfig``, ``ShapeConfig`` and
+``RunConfig``: the same fields with the same defaults, so a configuration
+compares equal field by field with the reference's, and
+``ModelConfig.fingerprint`` (which a checkpoint's manifest records) gives
+the reference's string. Hardware constants do not belong here; the card's
+peak rates live with the script that measures against them
+(``chip_smoke.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 from typing import Any, Tuple
 
 BLOCK_GLOBAL_ATTN = "global"  # full (causal/prefix) attention
@@ -181,3 +184,46 @@ class ModelConfig:
         return (self.vocab_size * self.d_model + head + self.d_model
                 + sum(self.block_param_count(k) for k in self.layer_kinds())
                 + self.encoder_param_count())
+
+    def fingerprint(self) -> str:
+        """The reference's: the first 12 hex digits of the SHA-1 of the
+        fields as sorted JSON."""
+        blob = json.dumps(dataclasses.asdict(self), sort_keys=True, default=str)
+        return hashlib.sha1(blob.encode()).hexdigest()[:12]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape. ``mode`` selects the step that runs it."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                        # "train" | "prefill" | "decode"
+
+    def __post_init__(self):
+        if self.mode not in ("train", "prefill", "decode"):
+            raise ValueError(self.mode)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Runtime knobs for training and serving, with the reference's
+    defaults. ``gradient_compression`` and ``decode_kv_seq_shard`` belong
+    to sharding, which the port does not have yet: ``make_train_step``
+    refuses ``"int8"``."""
+
+    remat_policy: str = "full"       # full | dots | none
+    grad_accum: int = 1
+    loss_chunk: int = 0              # 0 = unchunked CE; >0 = seq-chunked remat CE
+    attn_chunk: int = 0              # 0 = auto; kv-chunk for online-softmax attn
+    gradient_compression: str = ""   # "" | "int8" (cross-pod, error feedback)
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    max_grad_norm: float = 1.0
+    seed: int = 0
+    param_dtype: str = "bfloat16"
+    decode_kv_seq_shard: bool = True  # shard KV cache seq dim over model axis

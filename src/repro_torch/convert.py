@@ -54,3 +54,20 @@ def params_from_jax(np_tree, cfg: ModelConfig) -> Dict[str, Any]:
                                      for r in range(cfg.num_encoder_layers)],
                           "final_norm": _tree(enc["final_norm"])}
     return out
+
+
+def reference_leaf(cfg: ModelConfig, path: str) -> str:
+    """The leaf of the reference's parameter tree that holds the port's
+    leaf at ``path`` ("layers/5/attn/wq"): "stack/b{i}/..." for a layer of
+    the scanned stack (the reference stacks every repeat of pattern
+    position i into one leaf), "rem/{i}/..." for a remainder layer,
+    "encoder/stack/..." for an encoder layer; other paths are the same in
+    both."""
+    parts = path.split("/")
+    if parts[0] == "layers":
+        j, stacked = int(parts[1]), cfg.scan_repeats * len(cfg.pattern)
+        head = [f"stack/b{j % len(cfg.pattern)}"] if j < stacked else [f"rem/{j - stacked}"]
+        return "/".join(head + parts[2:])
+    if parts[:2] == ["encoder", "layers"]:
+        return "/".join(["encoder", "stack"] + parts[3:])
+    return path

@@ -9,6 +9,14 @@ computes what its decode kernel computes and goes through
 ``kernels/decode_attn``. On CUDA tensors both launch the port's kernels, on
 CPU tensors their plain torch versions.
 
+``attention_chunked`` is the training path's attention: the reference's
+jnp ``attention_core``, an online softmax over KV chunks that autograd
+differentiates. The kernels have no backward, as the reference's have none.
+
+The projections are 2-D products against the weights reshaped to
+(d, H·Dh) and (H·Dh, d), so each lowers to one ``aten::mm``: remat's
+"dots" policy tells them from attention's batched products by that.
+
 The cache writers update the cache tensors in place (the reference returns
 new arrays) and return them, so a step allocates no second cache.
 """
@@ -20,11 +28,19 @@ import torch
 
 from repro_torch.kernels.decode_attn.ops import decode_attention
 from repro_torch.kernels.flash_attn.ops import flash_attention
-from repro_torch.models.layers import rms_headnorm, rope
+from repro_torch.models.layers import rms_headnorm, rope, softcap
+
+
+NEG_INF = -1e30
 
 
 def _scale(cfg) -> float:
     return cfg.query_scale or 1.0 / math.sqrt(cfg.head_dim)
+
+
+def _heads(x, w):
+    """x (B, S, d) times w (d, H, Dh) -> (B, S, H, Dh), as one 2-D product."""
+    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
 def project_qkv(cfg, params, x, kv_x=None, *, positions=None, kv_positions=None,
@@ -35,9 +51,7 @@ def project_qkv(cfg, params, x, kv_x=None, *, positions=None, kv_positions=None,
     absolute positions (k at ``kv_positions`` when given), so cached K never
     needs re-rotation; cross-attention passes ``use_rope=False``."""
     kv_x = x if kv_x is None else kv_x
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", kv_x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", kv_x, params["wv"])
+    q, k, v = _heads(x, params["wq"]), _heads(kv_x, params["wk"]), _heads(kv_x, params["wv"])
     if cfg.attn_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     if cfg.use_qk_norm:
@@ -52,12 +66,14 @@ def project_qkv(cfg, params, x, kv_x=None, *, positions=None, kv_positions=None,
 def cross_query(cfg, params, x_t):
     """A decode step's cross-attention query: ``wq`` and the bias only (no
     qk-norm, no RoPE), as the reference's decode step projects it."""
-    q = torch.einsum("bsd,dhk->bshk", x_t, params["wq"])
+    q = _heads(x_t, params["wq"])
     return q + params["bq"] if cfg.attn_bias else q
 
 
 def output_proj(cfg, params, o):
-    out = torch.einsum("bshk,hkd->bsd", o, params["wo"])
+    """o (B, S, Hq, Dh) times wo (Hq, Dh, d) -> (B, S, d), one 2-D product."""
+    wo = params["wo"]
+    out = o.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
     return out + params["bo"] if cfg.attn_bias else out
 
 
@@ -75,6 +91,78 @@ def attention_core(cfg, q, k, v, *, mask_kind: str, prefix_len: int = 0):
     return flash_attention(q, k, v, causal=mask_kind != "full", window=window,
                            prefix_len=prefix_len if mask_kind == "prefix" else 0,
                            softcap=cfg.attn_logit_softcap, scale=_scale(cfg))
+
+
+def _mask_block(mask_kind: str, qpos, kpos, window: int, prefix_len):
+    """(Sq, C) validity of a KV chunk, positions absolute: every pair for
+    "full"; else causal, within ``window`` for "local" (when it is set),
+    and every key before ``prefix_len`` for "prefix"."""
+    if mask_kind == "full":
+        return torch.ones(qpos.shape[0], kpos.shape[0], dtype=torch.bool, device=qpos.device)
+    q, k = qpos[:, None], kpos[None, :]
+    valid = k <= q
+    if mask_kind == "local" and window:
+        valid &= (q - k) < window
+    if mask_kind == "prefix" and prefix_len:
+        valid |= k < prefix_len
+    return valid
+
+
+def pick_chunk(s: int, want: int) -> int:
+    """The reference's KV chunk: ``want`` (1024 when 0), at most S, lowered
+    until it divides S."""
+    want = min(want if want > 0 else 1024, s)
+    while s % want:
+        want -= 1
+    return max(want, 1)
+
+
+def attention_chunked(cfg, q, k, v, *, mask_kind: str, q_offset: int = 0,
+                      prefix_len=None, chunk: int = 0):
+    """The training path's attention: the reference's ``attention_core``
+    (``models/attention.py``), an online softmax over KV chunks in plain
+    torch, differentiated by autograd. It is not a fallback for the
+    prefill kernel: the reference's training step runs this jnp code, not
+    a Pallas kernel, and the port's kernels have no backward, so the
+    training forward calls this explicitly, on either device.
+
+    q: (B, Sq, Hq, Dh); k, v: (B, Skv, Hkv, Dh); queries at absolute
+    positions ``q_offset + i``. Masks as ``attention_core``'s (``prefix_len``
+    for "prefix"). KV chunks of ``chunk`` keys (``pick_chunk``; 0: all of
+    Skv up to 2048, else 1024). m, l and the accumulator are f32; the
+    scores are q·k in f32 times the scale, softcapped, masked with -1e30;
+    p is rounded to v's dtype before the PV product, as the reference's
+    ``p.astype(vc.dtype)``. No (Sq, Skv) score tensor exists at once: a
+    chunk's is (B, Hkv, G, Sq, C). Returns (B, Sq, Hq, Dh) in q's dtype.
+    """
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    c = pick_chunk(skv, chunk or (skv if skv <= 2048 else 1024))
+    # (B, Hkv, G·Sq, Dh): the group's queries as rows of one product a kv head
+    qf = q.reshape(b, sq, hkv, g, dh).permute(0, 2, 3, 1, 4).reshape(b, hkv, g * sq, dh).float()
+    kt = k.permute(0, 2, 3, 1)                                   # (B, Hkv, Dh, Skv)
+    vt = v.transpose(1, 2)                                       # (B, Hkv, Skv, Dh)
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g * sq, dh), dtype=torch.float32, device=q.device)
+    for c0 in range(0, skv, c):
+        s = (qf @ kt[..., c0:c0 + c].float()).view(b, hkv, g, sq, c) * _scale(cfg)
+        s = softcap(s, cfg.attn_logit_softcap)
+        valid = _mask_block(mask_kind, qpos, torch.arange(c0, c0 + c, device=q.device),
+                            cfg.local_window, prefix_len)
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        pv = p.to(v.dtype).float().view(b, hkv, g * sq, c) @ vt[:, :, c0:c0 + c].float()
+        acc = acc * corr.view(b, hkv, g * sq, 1) + pv
+        m = m_new
+    out = acc / torch.clamp_min(l.view(b, hkv, g * sq, 1), 1e-30)
+    out = out.view(b, hkv, g, sq, dh).permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh)
+    return out.to(q.dtype)
 
 
 def write_full_cache(cache_k, cache_v, k, v):

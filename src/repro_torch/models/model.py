@@ -55,6 +55,11 @@ f32 whatever ``kv_dtype`` is: RG-LRU's h (B, W) and SSD's h (B, nh, P, N),
 and the conv window (B, width-1, C) of past inputs (C = W, or d_inner + 2N
 for SSD).
 
+``forward_train`` and ``loss_fn`` are the training path (the reference's
+``forward_train``/``loss_fn``): the same blocks, attention through the
+differentiable ``attention.attention_chunked`` (never the kernels), each
+layer under a remat policy.
+
 A prefill's ``batch`` holds ``tokens`` (B, S) and the frontend's input:
 ``src_embeds`` (B, S_src, d), the encoder's frame embeddings, for an
 encoder-decoder; ``patch_embeds`` (B, P, d), the image's projected patch
@@ -62,9 +67,12 @@ embeddings, for a vision frontend.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import BLOCK_LOCAL_ATTN, BLOCK_RGLRU, BLOCK_SSD, ModelConfig
 from repro_torch.device import resolve_device
@@ -331,21 +339,27 @@ def _embed_inputs(cfg, params, batch):
     return x, torch.arange(x.shape[1], device=x.device), prefix_len
 
 
-def _encode(cfg, params, src):
+def _encoder_layer(cfg, lp, x, positions, attend):
+    """One encoder layer: RoPE self-attention at ``positions`` with the full
+    mask through ``attend``, then the MLP, each behind its norm and into
+    the residual."""
+    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    q, k, v = attn.project_qkv(cfg, lp["attn"], h, positions=positions)
+    x = x + attn.output_proj(cfg, lp["attn"], attend(cfg, q, k, v, mask_kind="full"))
+    return x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg.mlp_activation)
+
+
+def _encode(cfg, params, src, attend=attn.attention_core, wrap=lambda fn: fn):
     """The encoder over frame embeddings (B, S_src, d), cast to the
-    parameter dtype: per layer RoPE self-attention at arange(S_src) with the
-    full mask, then the MLP, each behind its norm and into the residual;
-    then the final norm."""
+    parameter dtype: its layers at arange(S_src), then the final norm.
+    Serving attends through K3 (``attention_core``); training passes
+    ``attention_chunked`` and its remat ``wrap``."""
     enc = params["encoder"]
     x = src.to(params["embed"]["table"].dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in enc["layers"]:
-        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        q, k, v = attn.project_qkv(cfg, lp["attn"], h, positions=positions)
-        o = attn.attention_core(cfg, q, k, v, mask_kind="full")
-        x = x + attn.output_proj(cfg, lp["attn"], o)
-        x = x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps),
-                            cfg.mlp_activation)
+        x = wrap(functools.partial(_encoder_layer, cfg, lp, positions=positions,
+                                   attend=attend))(x)
     return L.rmsnorm(enc["final_norm"], x, cfg.norm_eps)
 
 
@@ -379,3 +393,110 @@ def decode_step(cfg: ModelConfig, params, token, pos, cache):
         x = _block_decode(cfg, kind, lp, x, entry, pos)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _logits(cfg, params, x)[:, 0], cache
+
+
+# ================================================================ training
+def _block_train(cfg, kind, lp, x, positions, prefix_len, chunk, enc_out=None):
+    """One block of the training forward: ``_block_prefill`` without the
+    cache, attending through ``attention_chunked`` (the reference's
+    ``apply_block_train``)."""
+    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    if kind == BLOCK_RGLRU:
+        return _ffn(cfg, lp, x + rglru_mod.rglru_forward(cfg, lp["rglru"], h))
+    if kind == BLOCK_SSD:
+        return x + ssd_mod.ssd_forward(cfg, lp["ssd"], h)
+    q, k, v = attn.project_qkv(cfg, lp["attn"], h, positions=positions)
+    o = attn.attention_chunked(cfg, q, k, v, mask_kind=_mask_kind(cfg, kind, prefix_len),
+                               prefix_len=prefix_len, chunk=chunk)
+    out = attn.output_proj(cfg, lp["attn"], o)
+
+    def cross(y):
+        hc = L.rmsnorm(lp["ln_cross"], y, cfg.norm_eps)
+        cq, ck, cv = attn.project_qkv(cfg, lp["cross"], hc, kv_x=enc_out, use_rope=False)
+        co = attn.attention_chunked(cfg, cq, ck, cv, mask_kind="full", chunk=chunk)
+        return attn.output_proj(cfg, lp["cross"], co)
+
+    return _residual(cfg, lp, x, h, out, None if enc_out is None else cross)
+
+
+# The products against weights: every projection, MLP and head is one 2-D
+# product (``aten::mm``); attention's, the MoE's expert products and the
+# SSD's are batched (``aten::bmm``).
+def _save_weight_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the reference's remat policy: "none" keeps every
+    activation; "full" keeps the inputs and recomputes the rest in the
+    backward (``torch.utils.checkpoint``); "dots" also keeps the products
+    against weights and recomputes everything else, attention's batched
+    products included, the counterpart of JAX's
+    ``checkpoint_dots_with_no_batch_dims``. The reference checkpoints one
+    scan step (a repeat of the block pattern); the port one layer, which
+    keeps the same values."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_weight_products))
+    raise ValueError(f"unknown remat_policy {policy!r}")
+
+
+def forward_train(cfg: ModelConfig, params, batch, run) -> torch.Tensor:
+    """The training forward (the reference's ``forward_train``): ``batch``
+    as ``prefill``'s, with an encoder-decoder's encoder run through the
+    same training blocks; every layer under ``run.remat_policy``, attention
+    through ``attention_chunked`` with ``run.attn_chunk``. Returns the
+    final-normed hidden states (B, P+S, d)."""
+    wrap = functools.partial(_remat, policy=run.remat_policy)
+    chunk = run.attn_chunk
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = _encode(cfg, params, batch["src_embeds"],
+                          functools.partial(attn.attention_chunked, chunk=chunk), wrap)
+    x, positions, prefix_len = _embed_inputs(cfg, params, batch)
+    for kind, lp in zip(cfg.layer_kinds(), params["layers"]):
+        x = wrap(functools.partial(_block_train, cfg, kind, lp, positions=positions,
+                                   prefix_len=prefix_len, chunk=chunk, enc_out=enc_out))(x)
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def _ce(logits, targets, weights):
+    """Summed cross-entropy of ``targets`` (clamped at 0) weighted by
+    ``weights``, and the summed weights; in f32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.clamp_min(0).long()[..., None])[..., 0]
+    return ((lse - gold) * weights).sum(), weights.sum()
+
+
+def loss_fn(cfg: ModelConfig, params, batch, run) -> torch.Tensor:
+    """Mean next-token cross-entropy over ``batch["targets"]`` (B, S)
+    entries >= 0 (for a vision frontend only the text suffix is scored).
+    With ``run.loss_chunk`` > 0 dividing S (and less than S) the logits are
+    made and scored one sequence chunk at a time, each chunk checkpointed,
+    so the (B, S, V) logits never exist at once."""
+    x = forward_train(cfg, params, batch, run)
+    targets = batch["targets"]
+    if cfg.frontend == "vision":
+        x = x[:, -targets.shape[1]:]
+    weights = (targets >= 0).float()
+    s, lc = x.shape[1], run.loss_chunk
+    if lc and s % lc == 0 and s > lc:
+        def chunk_ce(xc, tc, wc):
+            return _ce(_logits(cfg, params, xc), tc, wc)
+
+        num = den = 0.0
+        for c0 in range(0, s, lc):
+            n, d = checkpoint(chunk_ce, x[:, c0:c0 + lc], targets[:, c0:c0 + lc],
+                              weights[:, c0:c0 + lc], use_reentrant=False)
+            num, den = num + n, den + d
+    else:
+        num, den = _ce(_logits(cfg, params, x), targets, weights)
+    return num / torch.clamp_min(den, 1.0)

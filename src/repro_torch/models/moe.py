@@ -70,16 +70,37 @@ def dispatch_plan(ids, num_experts: int, cap: int):
     return order, dest, valid
 
 
+class _BmmF32(torch.autograd.Function):
+    """bf16 (or other) operands, the product accumulated and returned in
+    f32; the backward takes the f32 cotangent against the operands widened
+    to f32 and rounds each gradient to its operand's dtype, as JAX
+    transposes a dot with ``preferred_element_type``. torch's ``bmm`` with
+    ``out_dtype`` has no derivative, hence this function."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = (g @ b.float().transpose(1, 2)).to(a.dtype) if ctx.needs_input_grad[0] else None
+        gb = (a.float().transpose(1, 2) @ g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
 def bmm_f32(a, b):
     """``a @ b`` batched, accumulated and returned in f32 (the reference's
     ``preferred_element_type=float32``). On the card cuBLAS writes the f32
     result of bf16 operands directly; the CPU build has no such overload, so
-    there the operands are widened first (exact for bf16 values)."""
+    there the operands are widened first (exact for bf16 values).
+    Differentiable on both (``_BmmF32``)."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.float(), b.float())
+    return _BmmF32.apply(a, b)
 
 
 def moe_apply(cfg, params, x, *, capacity_factor: float = 2.0):
