@@ -114,6 +114,7 @@ of the repository, it prints no result and exits non-zero.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import subprocess
@@ -1957,6 +1958,19 @@ def attention_layer_ms(cfg, batch, seq, chunk):
     return out
 
 
+def full_width_train_config():
+    """Phase 8b's (and 9a's) gemma2-2b and RunConfig."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    return get_config("gemma2-2b"), RunConfig(remat_policy="full", loss_chunk=TRAIN_CHUNK,
+                                              attn_chunk=TRAIN_CHUNK, warmup_steps=2)
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if len(xs) % 2 else sum(xs[len(xs) // 2 - 1:len(xs) // 2 + 1]) / 2
+
+
 def train_full_width(card):
     """Phase 8b: gemma2-2b at full width in bf16, TRAIN_BATCH x TRAIN_SEQ
     tokens a step, AdamW, remat "full", loss and attention chunks of
@@ -1968,13 +1982,10 @@ def train_full_width(card):
     profiler, the forward + backward alone, one layer's chunked attention,
     and the peak memory beside the reckoned one."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.train import train_step as TS
     from repro_torch.train.data import SyntheticLM
-    cfg = get_config("gemma2-2b")
-    run = RunConfig(remat_policy="full", loss_chunk=TRAIN_CHUNK, attn_chunk=TRAIN_CHUNK,
-                    warmup_steps=2)
+    cfg, run = full_width_train_config()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     n = cfg.param_count()
     v_d = cfg.vocab_size * cfg.d_model
@@ -2015,9 +2026,7 @@ def train_full_width(card):
     counts = kernel_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     moved = {k: not torch.equal(before[k], t) for k, t in watched.items()}
-    steady = sorted(step_ms[1:])
-    med = steady[len(steady) // 2] if len(steady) % 2 else sum(
-        steady[len(steady) // 2 - 1:len(steady) // 2 + 1]) / 2
+    med = median(step_ms[1:])
     result = {
         "layers": cfg.num_layers, "params_b": n / 1e9, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
         "steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms, "lrs": lrs,
@@ -2083,6 +2092,98 @@ def train_phase(card):
     return {"reduced": reduced, "full_width": full}, launches
 
 
+# ------------------------------------------------------------------ phase 9
+# Sharding. 9a: phase 8b's workload through the DTensor path: a one-rank
+# NCCL group (a FileStore under build/), a (1, 1, 1) ("pod", "data",
+# "model") mesh, the state placed by ``tree_shardings`` of
+# ``state_logical_specs`` and the batches by ``batch_logical_specs``. On
+# one rank the local shards are the whole tensors, so a step computes what
+# 8b's does; the gap between the two is DTensor's host cost (dispatch, and
+# on the first step the sharding propagation of every op).
+SHARD_NAMES = ("pod", "data", "model")
+
+
+def scalar(t) -> float:
+    """A 0-d tensor or DTensor as a float (waits for it)."""
+    return float(t.full_tensor() if hasattr(t, "full_tensor") else t)
+
+
+def sharded_full_width(card, plain):
+    """Phase 9a: 8b's gemma2-2b, run and batches on a (1, 1, 1) mesh of a
+    one-rank NCCL group; each step's loss within 8a's bf16 tolerance of
+    8b's (``plain``), no kernel launch; step ms (median of steps 2..),
+    tokens/s, one step's idle share and the peak memory beside 8b's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.parallel.sharding import distribute_tree, make_env, tree_shardings
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.data import SyntheticLM
+    cfg, run = full_width_train_config()
+    # DTensor warns of each sequential all-reduce over a (1, 1, 1) mesh's dims
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    store = ROOT / "build" / "chip_smoke_store"
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1)
+    try:
+        env = make_env(make_device_mesh((1, 1, 1), SHARD_NAMES))
+        log(f"[9a] gemma2-2b bf16 training through DTensor on {env.mesh}: 8b's workload")
+        data = SyntheticLM(cfg).batches(ShapeConfig("train_4k_batch_2", TRAIN_SEQ, TRAIN_BATCH,
+                                                    "train"), "cuda")
+        batch_sh = None
+        batches = []
+        for _ in range(TRAIN_STEPS):
+            b = next(data)
+            batch_sh = batch_sh or tree_shardings(env, TS.batch_logical_specs(cfg, "train"), b)
+            batches.append(distribute_tree(b, batch_sh))
+        torch.cuda.reset_peak_memory_stats()
+        state = TS.init_train_state(cfg, run, torch.Generator(device="cuda").manual_seed(0),
+                                    "cuda")
+        state = distribute_tree(state, tree_shardings(env, TS.state_logical_specs(cfg, run), state))
+        step = TS.make_train_step(cfg, run, env)
+        kernel_counts(reset=True)
+        losses, step_ms = [], []
+        for b in batches:
+            sync()
+            t0 = time.perf_counter()
+            _, m = step(state, b)
+            losses.append(scalar(m["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = kernel_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        med = median(step_ms[1:])
+        prof = device_profile(lambda: scalar(step(state, batches[-1])[1]["loss"]), top=5)
+        busy = prof["device_busy_ms"]
+        rel = [rel_err(a, b) for a, b in zip(losses, plain["losses"])]
+        plain_idle = plain["breakdown"]["idle_share"]
+        result = {
+            "mesh": [1, 1, 1], "losses": losses, "loss_rel_to_8b": rel, "step_ms": step_ms,
+            "step_ms_median_2_on": med, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3 / med,
+            "idle_share": None if busy is None else 1 - busy / med, "device_busy_ms": busy,
+            "peak_mem_gb": peak_gb, "launches": counts, "card": card,
+            "plain_8b": {"step_ms_median_2_on": plain["step_ms_median_2_on"],
+                         "tokens_per_s": plain["tokens_per_s"], "idle_share": plain_idle,
+                         "peak_mem_gb": plain["peak_mem_gb"]},
+            "host_cost_ms": med - plain["step_ms_median_2_on"]}
+        log(f"  losses {[round(x, 4) for x in losses]} (8b: "
+            f"{[round(x, 4) for x in plain['losses']]}; rel at most {max(rel):.3g}); step ms "
+            f"{[round(x, 1) for x in step_ms]}; launches {counts}")
+        log(f"  step {med:.1f} ms (8b {plain['step_ms_median_2_on']:.1f}), "
+            f"{result['tokens_per_s']:.0f} tokens/s (8b {plain['tokens_per_s']:.0f}), idle share "
+            f"{result['idle_share']} (8b {plain_idle}), peak {peak_gb:.2f} GB (8b "
+            f"{plain['peak_mem_gb']:.2f}); the first step {step_ms[0]:.0f} ms; on {card}")
+        if not (max(rel) <= BF16_RTOL and counts == {k: 0 for k in counts}):
+            fail(f"phase 9a: losses {rel} of 8b's (tolerance {BF16_RTOL}), launches {counts}")
+        del state, batches
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> None:
     import torch
     t_script = time.perf_counter()
@@ -2136,6 +2237,8 @@ def main() -> None:
     took("7")
     train, train_launches = train_phase(card)
     took("8")
+    train["sharded"] = {"full_width": sharded_full_width(card, train["full_width"])}
+    took("9")
     for k in kernels:
         k["train_launches"] = train_launches[k["name"]]
     log(f"the script took {time.perf_counter() - t_script:.1f} s, kernels' build included; "

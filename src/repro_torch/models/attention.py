@@ -22,13 +22,17 @@ new arrays) and return them, so a step allocates no second cache.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.decode_attn.ops import decode_attention
 from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.models.layers import rms_headnorm, rope, softcap
+from repro_torch.parallel.sharding import constrain
 
 
 NEG_INF = -1e30
@@ -44,7 +48,7 @@ def _heads(x, w):
 
 
 def project_qkv(cfg, params, x, kv_x=None, *, positions=None, kv_positions=None,
-                use_rope: bool = True):
+                use_rope: bool = True, env=None):
     """x (B, S, d) -> q (B, S, Hq, Dh); k, v (B, Skv, Hkv, Dh) from ``kv_x``
     (x itself unless given: cross-attention projects another sequence).
     The biases (when the config has them), qk-norm on q and k, then RoPE at
@@ -60,6 +64,9 @@ def project_qkv(cfg, params, x, kv_x=None, *, positions=None, kv_positions=None,
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions if kv_positions is None else kv_positions, cfg.rope_theta)
+    q = constrain(env, q, "act_batch", "act_seq", "act_heads", None)
+    k = constrain(env, k, "act_batch", "act_kv_seq", "act_kv_heads", None)
+    v = constrain(env, v, "act_batch", "act_kv_seq", "act_kv_heads", None)
     return q, k, v
 
 
@@ -70,11 +77,12 @@ def cross_query(cfg, params, x_t):
     return q + params["bq"] if cfg.attn_bias else q
 
 
-def output_proj(cfg, params, o):
+def output_proj(cfg, params, o, env=None):
     """o (B, S, Hq, Dh) times wo (Hq, Dh, d) -> (B, S, d), one 2-D product."""
     wo = params["wo"]
     out = o.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
-    return out + params["bo"] if cfg.attn_bias else out
+    out = out + params["bo"] if cfg.attn_bias else out
+    return constrain(env, out, "act_batch", "act_seq", "act_embed")
 
 
 def attention_core(cfg, q, k, v, *, mask_kind: str, prefix_len: int = 0):
@@ -135,6 +143,10 @@ def attention_chunked(cfg, q, k, v, *, mask_kind: str, q_offset: int = 0,
     ``p.astype(vc.dtype)``. No (Sq, Skv) score tensor exists at once: a
     chunk's is (B, Hkv, G, Sq, C). Returns (B, Sq, Hq, Dh) in q's dtype.
     """
+    if isinstance(q, DTensor):
+        return _attend_shards(functools.partial(
+            attention_chunked, cfg, mask_kind=mask_kind, q_offset=q_offset,
+            prefix_len=prefix_len, chunk=chunk), q, k, v)
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -163,6 +175,44 @@ def attention_chunked(cfg, q, k, v, *, mask_kind: str, q_offset: int = 0,
     out = acc / torch.clamp_min(l.view(b, hkv, g * sq, 1), 1e-30)
     out = out.view(b, hkv, g, sq, dh).permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh)
     return out.to(q.dtype)
+
+
+def check_serving_env(env) -> None:
+    """Serving runs on a mesh of one device only: with the KV sequence
+    sharded over ``model`` the kernels need a ``local_map`` wrapper and a
+    merge of the splits across ranks (ROADMAP item 12)."""
+    if env is not None and env.size > 1:
+        raise NotImplementedError(
+            "serving on a mesh of more than one device (K2 and K3 under local_map with the KV "
+            "sequence over model) is ROADMAP item 12")
+
+
+def _attend_shards(attend, q, k, v):
+    """``attend`` (over plain tensors) on each rank's shards of the DTensors
+    q, k, v under ``local_map``: the batch and the heads split as the
+    constraints left them, so each rank attends its own rows and heads, as
+    the reference's attention under GSPMD does. k and v take q's head
+    split; with a single kv head (MQA) they stay whole on every rank, and
+    their gradients sum over the ranks that split q's heads."""
+    mesh = q.device_mesh
+    for t in (q, k, v):
+        if any(not isinstance(p, (Shard, Replicate)) or (isinstance(p, Shard) and p.dim not in (0, 2))
+               for p in t.placements):
+            raise NotImplementedError(f"attention over {t.placements}: the sequence split "
+                                      "(sequence parallelism) is not ported")
+    head_ways = 1
+    for p, n in zip(q.placements, mesh.shape):
+        head_ways *= n if p == Shard(2) else 1
+    if k.shape[2] % head_ways and k.shape[2] > 1:
+        q = q.redistribute(mesh, [Replicate() if p == Shard(2) else p for p in q.placements])
+    mqa = k.shape[2] % head_ways > 0
+    kv_pl = [Replicate() if mqa and p == Shard(2) else p for p in q.placements]
+    kv_grad = [Partial() if mqa and p == Shard(2) else p for p in q.placements]
+    k, v = k.redistribute(mesh, kv_pl), v.redistribute(mesh, kv_pl)
+    return local_map(attend, out_placements=list(q.placements),
+                     in_placements=(q.placements, kv_pl, kv_pl),
+                     in_grad_placements=(q.placements, kv_grad, kv_grad),
+                     device_mesh=mesh)(q, k, v)
 
 
 def write_full_cache(cache_k, cache_v, k, v):
@@ -209,11 +259,15 @@ def decode_lengths(pos, slots: int, *, ring: bool):
     return (pos + 1).to(torch.int32)
 
 
-def decode_attend(cfg, q_t, cache_k, cache_v, pos, *, ring: bool, cross: bool = False):
+def decode_attend(cfg, q_t, cache_k, cache_v, pos, *, ring: bool, cross: bool = False,
+                  env=None):
     """One-token attention against a cache. q_t: (B, 1, Hq, Dh); cache:
     (B, S, Hkv, Dh); pos: (B,) position of the new token, already written.
     ``cross``: the cache holds an encoder's K/V, every slot valid for every
-    row (``pos`` is not read)."""
+    row (``pos`` is not read). The reference constrains its scores here
+    (the KV sequence over ``model`` under ``DECODE_RULES``); K2 keeps them
+    inside the kernel, so a mesh of more than one device raises."""
+    check_serving_env(env)
     b, s = cache_k.shape[:2]
     lengths = (torch.full((b,), s, dtype=torch.int32, device=cache_k.device) if cross
                else decode_lengths(pos, s, ring=ring))

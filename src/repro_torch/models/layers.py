@@ -12,6 +12,10 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.parallel.sharding import constrain
 
 
 # The largest f32 temporary nd_init makes: 2.5 GiB, just above gemma2-2b's
@@ -100,28 +104,58 @@ def mlp_activate(activation: str, h, g=None):
     raise ValueError(activation)
 
 
-def mlp_apply(params, x, activation: str):
+def mlp_apply(params, x, activation: str, env=None):
     """Input projection (and the gate's, for the gated kinds), the
-    activation, then the output projection."""
+    activation, then the output projection; the hidden and the output
+    constrained as the reference's (``env``: ``parallel.sharding``)."""
     h = x @ params["w_in"]
     g = x @ params["w_gate"] if activation in GATED else None
-    return mlp_activate(activation, h, g) @ params["w_out"]
+    h = constrain(env, h, "act_batch", "act_seq", "act_mlp")
+    out = mlp_activate(activation, h, g) @ params["w_out"]
+    return constrain(env, out, "act_batch", "act_seq", "act_embed")
 
 
-def embed_lookup(params, tokens, scale: bool):
+def embed_lookup(params, tokens, scale: bool, env=None):
     """Row gather, times sqrt(d) rounded to the activation dtype."""
     table = params["table"]
-    x = table[tokens]
+    x = _sharded_rows(table, tokens) if isinstance(table, DTensor) else table[tokens]
     if scale:
         x = x * torch.tensor(math.sqrt(table.shape[1]), dtype=x.dtype).item()
-    return x
+    return constrain(env, x, "act_batch", "act_seq", "act_embed")
 
 
-def unembed(params_embed, x, tie: bool = True, head=None, cap: float = 0.0):
+def _sharded_rows(table, tokens):
+    """``table[tokens]`` of a DTensor table (V, d) split over the vocab on
+    one mesh dimension and over d (FSDP) on others: d gathered first (the
+    reference's constraint on the table), then under ``local_map`` each
+    rank gathers the rows of its vocab slice (zeros for tokens outside it)
+    from its own tokens, and the rows sum over the vocab's mesh dimension.
+    The table's gradient sums over the ranks that split the batch."""
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    if len(vocab) > 1:
+        raise NotImplementedError("the vocab split over more than one mesh dimension")
+    table = table.redistribute(mesh, [Shard(0) if i in vocab else Replicate()
+                                      for i in range(mesh.ndim)])
+    out = [Partial() if i in vocab else p for i, p in enumerate(tokens.placements)]
+    grad = [Shard(0) if i in vocab else (Partial() if p.is_shard() else Replicate())
+            for i, p in enumerate(tokens.placements)]
+
+    def rows(tab, tok):
+        v = tab.shape[0]
+        v0 = mesh.get_local_rank(vocab[0]) * v if vocab else 0
+        mine = (tok >= v0) & (tok < v0 + v)
+        return torch.where(mine[..., None], tab[(tok - v0).clamp(0, v - 1)], 0)
+
+    return local_map(rows, out_placements=out, in_placements=(table.placements, tokens.placements),
+                     in_grad_placements=(grad, tokens.placements), device_mesh=mesh)(table, tokens)
+
+
+def unembed(params_embed, x, tie: bool = True, head=None, cap: float = 0.0, env=None):
     """Logits through the tied embedding table, or through the untied head
     ``head["w"]`` of shape (d, V), then the final softcap."""
     logits = x @ params_embed["table"].T if tie else x @ head["w"]
-    return softcap(logits, cap)
+    return constrain(env, softcap(logits, cap), "act_batch", "act_seq", "act_vocab")
 
 
 def conv1d_apply(params, x):

@@ -60,6 +60,13 @@ for SSD).
 differentiable ``attention.attention_chunked`` (never the kernels), each
 layer under a remat policy.
 
+Sharding: ``param_specs``, ``cache_specs`` and ``input_specs`` give the
+logical axes of every leaf (``parallel.sharding`` resolves them), and the
+model functions take ``env``, the reference's ``ShardEnv``, whose
+constraints redistribute DTensor activations at the reference's points
+(``env=None``: the single-device path, unchanged). Serving takes an env of
+one device only.
+
 A prefill's ``batch`` holds ``tokens`` (B, S) and the frontend's input:
 ``src_embeds`` (B, S_src, d), the encoder's frame embeddings, for an
 encoder-decoder; ``patch_embeds`` (B, P, d), the image's projected patch
@@ -71,6 +78,8 @@ import functools
 from typing import Any, Dict, List
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -209,32 +218,156 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+# =================================================================== specs
+# The logical axes of every parameter and cache leaf (``parallel.sharding``
+# resolves them): the reference's specs, without the leading "layers" of
+# its stacked leaves, as ``convert.reference_leaf`` maps a port leaf there.
+_NORM = {"scale": ("p_none",)}
+_CONV = {"w": ("p_none", "p_inner"), "b": ("p_inner",)}
+
+
+def _attn_specs(cfg):
+    qkv = ("p_embed", "p_heads", "p_none")
+    s = {"wq": qkv, "wk": qkv, "wv": qkv, "wo": ("p_heads", "p_none", "p_embed")}
+    if cfg.attn_bias:
+        s.update(bq=("p_heads", "p_none"), bk=("p_heads", "p_none"), bv=("p_heads", "p_none"),
+                 bo=("p_embed",))
+    if cfg.use_qk_norm:
+        s.update(q_norm=("p_none",), k_norm=("p_none",))
+    return s
+
+
+def _mlp_specs(cfg):
+    s = {"w_in": ("p_ff_in", "p_mlp"), "w_out": ("p_mlp", "p_embed")}
+    if cfg.mlp_activation in L.GATED:
+        s["w_gate"] = s["w_in"]
+    return s
+
+
+def _moe_specs(cfg):
+    """EP (experts over ``model``) or TP (each expert's ff over ``model``)."""
+    if cfg.moe_parallelism == "ep":
+        s = {"w_in": ("p_experts", "p_embed", "p_none"),
+             "w_out": ("p_experts", "p_ff_in", "p_none")}
+    else:
+        s = {"w_in": ("p_none", "p_embed", "p_expert_ff"),
+             "w_out": ("p_none", "p_expert_ff", "p_embed")}
+    if cfg.mlp_activation in L.GATED:
+        s["w_gate"] = s["w_in"]
+    return {"router": ("p_embed", "p_none"), **s}
+
+
+def _layer_specs(cfg, kind):
+    if kind == BLOCK_SSD:
+        return {"ln1": _NORM, "ssd": {
+            "w_in": ("p_embed", "p_inner"), "w_out": ("p_inner", "p_embed"), "conv": _CONV,
+            "a_log": ("p_none",), "dt_bias": ("p_none",), "d_skip": ("p_none",),
+            "norm_scale": ("p_inner",)}}
+    if kind == BLOCK_RGLRU:
+        gate = ("p_inner",)
+        return {"ln1": _NORM, "rglru": {
+            "w_a": ("p_embed", "p_inner"), "w_b": ("p_embed", "p_inner"),
+            "w_out": ("p_inner", "p_embed"), "conv": _CONV, "w_r": gate, "b_r": gate,
+            "w_i": gate, "b_i": gate, "lam": gate}, "ln2": _NORM, "mlp": _mlp_specs(cfg)}
+    s = {"ln1": _NORM, "attn": _attn_specs(cfg), "ln2": _NORM}
+    if cfg.num_experts:
+        s["moe"] = _moe_specs(cfg)
+    if not cfg.num_experts or cfg.moe_dense_residual:
+        s["mlp"] = _mlp_specs(cfg)
+    if cfg.is_encoder_decoder:
+        s["ln_cross"], s["cross"] = _NORM, _attn_specs(cfg)
+    return s
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical-axis tuples in the parameters' tree."""
+    specs = {"embed": {"table": ("p_vocab", "p_embed")},
+             "layers": [_layer_specs(cfg, kind) for kind in cfg.layer_kinds()],
+             "final_norm": _NORM}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = {"w": ("p_embed", "p_vocab")}
+    if cfg.is_encoder_decoder:
+        enc = {"ln1": _NORM, "attn": _attn_specs(cfg), "ln2": _NORM, "mlp": _mlp_specs(cfg)}
+        specs["encoder"] = {"layers": [enc] * cfg.num_encoder_layers, "final_norm": _NORM}
+    return specs
+
+
+def param_shapes(cfg: ModelConfig, run=None) -> Dict[str, Any]:
+    """The parameters on the meta device: shapes and dtypes, no storage."""
+    dtype = getattr(torch, run.param_dtype if run is not None else "bfloat16")
+    return init_params(cfg, torch.Generator(), "meta", dtype)
+
+
+def cache_specs(cfg: ModelConfig) -> List[Dict[str, Any]]:
+    """Logical-axis tuples in the cache's tree."""
+    out = []
+    for kind in cfg.layer_kinds():
+        if kind == BLOCK_RGLRU:
+            out.append({"h": ("act_batch", "act_inner"), "conv": ("act_batch", None, "act_inner")})
+        elif kind == BLOCK_SSD:
+            out.append({"h": ("act_batch", "act_inner", None, None),
+                        "conv": ("act_batch", None, "act_inner")})
+        else:
+            kv = ("act_batch", "act_kv_seq", None, None)
+            out.append(dict.fromkeys(("k", "v", "ck", "cv") if cfg.is_encoder_decoder
+                                     else ("k", "v"), kv))
+    return out
+
+
+def input_specs(cfg: ModelConfig, shape) -> Dict[str, Any]:
+    """Meta-device stand-ins for every model input of a cell (the
+    reference's ShapeDtypeStructs). train: tokens/targets (with the
+    frontend's embeddings); prefill: tokens (with them); decode: token
+    (B, 1), pos (B,) and a cache of ``seq_len``."""
+    b, s, d = shape.global_batch, shape.seq_len, cfg.d_model
+
+    def f(dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.mode == "decode":
+        return {"token": f((b, 1)), "pos": f((b,)),
+                "cache": init_cache(cfg, b, s, device="meta",
+                                    cross_len=s if cfg.is_encoder_decoder else 0)}
+    train = shape.mode == "train"
+    if cfg.is_encoder_decoder:
+        text, out = (max(s // 4, 8) if train else 8), {"src_embeds": f((b, s, d), torch.bfloat16)}
+    elif cfg.frontend == "vision":
+        text = s - cfg.frontend_len
+        out = {"patch_embeds": f((b, cfg.frontend_len, d), torch.bfloat16)}
+    else:
+        text, out = s, {}
+    out["tokens"] = f((b, text))
+    if train:
+        out["targets"] = f((b, text))
+    return out
+
+
 # ================================================================== blocks
-def _ffn(cfg, lp, x):
+def _ffn(cfg, lp, x, env=None):
     """The reference's ``_ffn_part``: the MoE (plus the dense residual MLP
     where the config has one) or the dense MLP, on ``ln2`` of x."""
     h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
     if cfg.num_experts:
-        f = moe_mod.moe_apply(cfg, lp["moe"], h)
+        f = moe_mod.moe_apply(cfg, lp["moe"], h, env=env)
         if cfg.moe_dense_residual:
-            f = f + L.mlp_apply(lp["mlp"], h, cfg.mlp_activation)
+            f = f + L.mlp_apply(lp["mlp"], h, cfg.mlp_activation, env)
     else:
-        f = L.mlp_apply(lp["mlp"], h, cfg.mlp_activation)
+        f = L.mlp_apply(lp["mlp"], h, cfg.mlp_activation, env)
     return x + f
 
 
-def _residual(cfg, lp, x, h, out, cross=None):
+def _residual(cfg, lp, x, h, out, cross=None, env=None):
     """Attention's output into the residual, then the cross-attention's
     ``cross(x)`` (a decoder layer of an encoder-decoder), then the FFN. A
     parallel block (command-r) feeds the MLP ``ln1``'s output ``h`` and
     sums both into x; its ``ln2`` stays in the parameters, unused, as in
     the reference."""
     if cfg.parallel_block:
-        return x + out + L.mlp_apply(lp["mlp"], h, cfg.mlp_activation)
+        return x + out + L.mlp_apply(lp["mlp"], h, cfg.mlp_activation, env)
     x = x + out
     if cross is not None:
         x = x + cross(x)
-    return _ffn(cfg, lp, x)
+    return _ffn(cfg, lp, x, env)
 
 
 def _mask_kind(cfg, kind, prefix_len):
@@ -313,9 +446,9 @@ def _block_decode(cfg, kind, lp, x_t, entry, pos):
     return _residual(cfg, lp, x_t, h, attn.output_proj(cfg, lp["attn"], o), cross)
 
 
-def _logits(cfg, params, x):
+def _logits(cfg, params, x, env=None):
     return L.unembed(params["embed"], x, cfg.tie_embeddings, head=params.get("lm_head"),
-                     cap=cfg.final_logit_softcap)
+                     cap=cfg.final_logit_softcap, env=env)
 
 
 # ============================================================== embeddings
@@ -326,11 +459,11 @@ def prompt_len(batch) -> int:
     return batch["tokens"].shape[1] + (0 if patches is None else patches.shape[1])
 
 
-def _embed_inputs(cfg, params, batch):
+def _embed_inputs(cfg, params, batch, env=None):
     """Token embeddings, after the patch embeddings (cast to the activation
     dtype, not scaled) for a vision frontend. Returns (x, positions over
     prefix and text, prefix_len: the patch count, else 0)."""
-    x = L.embed_lookup(params["embed"], batch["tokens"], cfg.embed_scale)
+    x = L.embed_lookup(params["embed"], batch["tokens"], cfg.embed_scale, env)
     prefix_len = 0
     if cfg.frontend == "vision":
         patches = batch["patch_embeds"].to(x.dtype)
@@ -339,17 +472,18 @@ def _embed_inputs(cfg, params, batch):
     return x, torch.arange(x.shape[1], device=x.device), prefix_len
 
 
-def _encoder_layer(cfg, lp, x, positions, attend):
+def _encoder_layer(cfg, lp, x, positions, attend, env=None):
     """One encoder layer: RoPE self-attention at ``positions`` with the full
     mask through ``attend``, then the MLP, each behind its norm and into
     the residual."""
     h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    q, k, v = attn.project_qkv(cfg, lp["attn"], h, positions=positions)
-    x = x + attn.output_proj(cfg, lp["attn"], attend(cfg, q, k, v, mask_kind="full"))
-    return x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg.mlp_activation)
+    q, k, v = attn.project_qkv(cfg, lp["attn"], h, positions=positions, env=env)
+    x = x + attn.output_proj(cfg, lp["attn"], attend(cfg, q, k, v, mask_kind="full"), env)
+    return x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg.mlp_activation,
+                           env)
 
 
-def _encode(cfg, params, src, attend=attn.attention_core, wrap=lambda fn: fn):
+def _encode(cfg, params, src, attend=attn.attention_core, wrap=lambda fn: fn, env=None):
     """The encoder over frame embeddings (B, S_src, d), cast to the
     parameter dtype: its layers at arange(S_src), then the final norm.
     Serving attends through K3 (``attention_core``); training passes
@@ -359,19 +493,21 @@ def _encode(cfg, params, src, attend=attn.attention_core, wrap=lambda fn: fn):
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in enc["layers"]:
         x = wrap(functools.partial(_encoder_layer, cfg, lp, positions=positions,
-                                   attend=attend))(x)
+                                   attend=attend, env=env))(x)
     return L.rmsnorm(enc["final_norm"], x, cfg.norm_eps)
 
 
 # ========================================================= prefill/decode
 def prefill(cfg: ModelConfig, params, batch, max_len: int = 0,
-            kv_dtype=torch.bfloat16):
+            kv_dtype=torch.bfloat16, env=None):
     """Run the prompt (``batch["tokens"]`` (B, S), after ``patch_embeds``
     (B, P, d) for a vision frontend; an encoder-decoder first encodes
     ``src_embeds`` (B, S_src, d)), fill a new cache of max(max_len, P+S)
     slots, return (last_logits (B, V), cache, pos) with pos = P+S-1 for
     every row. The next token's position is pos+1, and decode step i (from
-    0) passes pos+1+i."""
+    0) passes pos+1+i. ``env``: a mesh of one device only (ROADMAP item
+    12 lowers serving over more)."""
+    attn.check_serving_env(env)
     enc_out = _encode(cfg, params, batch["src_embeds"]) if cfg.is_encoder_decoder else None
     x, positions, prefix_len = _embed_inputs(cfg, params, batch)
     b, s = x.shape[:2]
@@ -385,9 +521,11 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int = 0,
     return logits, cache, pos
 
 
-def decode_step(cfg: ModelConfig, params, token, pos, cache):
+def decode_step(cfg: ModelConfig, params, token, pos, cache, env=None):
     """One decode step. token: (B, 1) int; pos: (B,) absolute position of
-    the new token. Updates ``cache`` in place; returns (logits (B, V), cache)."""
+    the new token. Updates ``cache`` in place; returns (logits (B, V),
+    cache). ``env`` as ``prefill``'s."""
+    attn.check_serving_env(env)
     x = L.embed_lookup(params["embed"], token, cfg.embed_scale)
     for kind, lp, entry in zip(cfg.layer_kinds(), params["layers"], cache):
         x = _block_decode(cfg, kind, lp, x, entry, pos)
@@ -396,27 +534,27 @@ def decode_step(cfg: ModelConfig, params, token, pos, cache):
 
 
 # ================================================================ training
-def _block_train(cfg, kind, lp, x, positions, prefix_len, chunk, enc_out=None):
+def _block_train(cfg, kind, lp, x, positions, prefix_len, chunk, enc_out=None, env=None):
     """One block of the training forward: ``_block_prefill`` without the
     cache, attending through ``attention_chunked`` (the reference's
     ``apply_block_train``)."""
     h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     if kind == BLOCK_RGLRU:
-        return _ffn(cfg, lp, x + rglru_mod.rglru_forward(cfg, lp["rglru"], h))
+        return _ffn(cfg, lp, x + rglru_mod.rglru_forward(cfg, lp["rglru"], h, env=env), env)
     if kind == BLOCK_SSD:
-        return x + ssd_mod.ssd_forward(cfg, lp["ssd"], h)
-    q, k, v = attn.project_qkv(cfg, lp["attn"], h, positions=positions)
+        return x + ssd_mod.ssd_forward(cfg, lp["ssd"], h, env=env)
+    q, k, v = attn.project_qkv(cfg, lp["attn"], h, positions=positions, env=env)
     o = attn.attention_chunked(cfg, q, k, v, mask_kind=_mask_kind(cfg, kind, prefix_len),
                                prefix_len=prefix_len, chunk=chunk)
-    out = attn.output_proj(cfg, lp["attn"], o)
+    out = attn.output_proj(cfg, lp["attn"], o, env)
 
     def cross(y):
         hc = L.rmsnorm(lp["ln_cross"], y, cfg.norm_eps)
-        cq, ck, cv = attn.project_qkv(cfg, lp["cross"], hc, kv_x=enc_out, use_rope=False)
+        cq, ck, cv = attn.project_qkv(cfg, lp["cross"], hc, kv_x=enc_out, use_rope=False, env=env)
         co = attn.attention_chunked(cfg, cq, ck, cv, mask_kind="full", chunk=chunk)
-        return attn.output_proj(cfg, lp["cross"], co)
+        return attn.output_proj(cfg, lp["cross"], co, env)
 
-    return _residual(cfg, lp, x, h, out, None if enc_out is None else cross)
+    return _residual(cfg, lp, x, h, out, None if enc_out is None else cross, env)
 
 
 # The products against weights: every projection, MLP and head is one 2-D
@@ -448,23 +586,51 @@ def _remat(fn, policy: str):
     raise ValueError(f"unknown remat_policy {policy!r}")
 
 
-def forward_train(cfg: ModelConfig, params, batch, run) -> torch.Tensor:
+def forward_train(cfg: ModelConfig, params, batch, run, env=None) -> torch.Tensor:
     """The training forward (the reference's ``forward_train``): ``batch``
     as ``prefill``'s, with an encoder-decoder's encoder run through the
     same training blocks; every layer under ``run.remat_policy``, attention
     through ``attention_chunked`` with ``run.attn_chunk``. Returns the
-    final-normed hidden states (B, P+S, d)."""
+    final-normed hidden states (B, P+S, d). ``env`` (``parallel.sharding``)
+    constrains the activations at the reference's points; with DTensor
+    parameters and batch the forward runs sharded."""
     wrap = functools.partial(_remat, policy=run.remat_policy)
     chunk = run.attn_chunk
     enc_out = None
     if cfg.is_encoder_decoder:
         enc_out = _encode(cfg, params, batch["src_embeds"],
-                          functools.partial(attn.attention_chunked, chunk=chunk), wrap)
-    x, positions, prefix_len = _embed_inputs(cfg, params, batch)
+                          functools.partial(attn.attention_chunked, chunk=chunk), wrap, env)
+    x, positions, prefix_len = _embed_inputs(cfg, params, batch, env)
     for kind, lp in zip(cfg.layer_kinds(), params["layers"]):
         x = wrap(functools.partial(_block_train, cfg, kind, lp, positions=positions,
-                                   prefix_len=prefix_len, chunk=chunk, enc_out=enc_out))(x)
+                                   prefix_len=prefix_len, chunk=chunk, enc_out=enc_out,
+                                   env=env))(x)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def _gold(logits, targets):
+    """The logit of each target (clamped at 0). With the vocab of a
+    DTensor split over a mesh dimension, each rank picks from its slice
+    (zero for a target outside it) and the picks sum over that dimension:
+    the reference's ``take_along_axis`` on sharded logits."""
+    idx = targets.clamp_min(0).long()[..., None]
+    if not isinstance(logits, DTensor):
+        return logits.gather(-1, idx)[..., 0]
+    vocab_dim = logits.dim() - 1
+    split = [i for i, p in enumerate(logits.placements) if p == Shard(vocab_dim)]
+    if len(split) > 1:
+        raise NotImplementedError("the vocab split over more than one mesh dimension")
+    out_placements = [Partial() if i in split else p for i, p in enumerate(idx.placements)]
+
+    def pick(lg, ix):
+        v = lg.shape[-1]
+        v0 = logits.device_mesh.get_local_rank(split[0]) * v if split else 0
+        mine = (ix >= v0) & (ix < v0 + v)
+        return torch.where(mine, lg.gather(-1, (ix - v0).clamp(0, v - 1)), 0.0)[..., 0]
+
+    return local_map(pick, out_placements=out_placements,
+                     in_placements=(logits.placements, idx.placements),
+                     device_mesh=logits.device_mesh)(logits, idx)
 
 
 def _ce(logits, targets, weights):
@@ -472,17 +638,16 @@ def _ce(logits, targets, weights):
     ``weights``, and the summed weights; in f32."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets.clamp_min(0).long()[..., None])[..., 0]
-    return ((lse - gold) * weights).sum(), weights.sum()
+    return ((lse - _gold(logits, targets)) * weights).sum(), weights.sum()
 
 
-def loss_fn(cfg: ModelConfig, params, batch, run) -> torch.Tensor:
+def loss_fn(cfg: ModelConfig, params, batch, run, env=None) -> torch.Tensor:
     """Mean next-token cross-entropy over ``batch["targets"]`` (B, S)
     entries >= 0 (for a vision frontend only the text suffix is scored).
     With ``run.loss_chunk`` > 0 dividing S (and less than S) the logits are
     made and scored one sequence chunk at a time, each chunk checkpointed,
     so the (B, S, V) logits never exist at once."""
-    x = forward_train(cfg, params, batch, run)
+    x = forward_train(cfg, params, batch, run, env)
     targets = batch["targets"]
     if cfg.frontend == "vision":
         x = x[:, -targets.shape[1]:]
@@ -490,7 +655,7 @@ def loss_fn(cfg: ModelConfig, params, batch, run) -> torch.Tensor:
     s, lc = x.shape[1], run.loss_chunk
     if lc and s % lc == 0 and s > lc:
         def chunk_ce(xc, tc, wc):
-            return _ce(_logits(cfg, params, xc), tc, wc)
+            return _ce(_logits(cfg, params, xc, env), tc, wc)
 
         num = den = 0.0
         for c0 in range(0, s, lc):
@@ -498,5 +663,5 @@ def loss_fn(cfg: ModelConfig, params, batch, run) -> torch.Tensor:
                               weights[:, c0:c0 + lc], use_reentrant=False)
             num, den = num + n, den + d
     else:
-        num, den = _ce(_logits(cfg, params, x), targets, weights)
+        num, den = _ce(_logits(cfg, params, x, env), targets, weights)
     return num / torch.clamp_min(den, 1.0)

@@ -1,17 +1,36 @@
-"""Mixture-of-Experts on one device: token-choice top-k routing with
-capacity-bounded, sort-based dispatch.
+"""Mixture-of-Experts: token-choice top-k routing with capacity-bounded,
+sort-based dispatch (the reference's ``models/moe.py``).
 
-The counterpart of the reference's ``models/moe.py`` with one shard: its
-per-device body ``_dispatch_compute`` with every expert local (``e0 = 0``,
-``e_local = E``), no FSDP gather and no ``psum``.
+The per-device body is the reference's ``_dispatch_compute``: on one device
+with every expert local (``e0 = 0``, ``e_local = E``); on a mesh, under
+``local_map`` in place of ``shard_map``:
+
+* **EP mode** (arctic: experts divide over ``model``): each model rank owns
+  ``E / tp`` experts from ``e0 = model_rank * E_local``, gathers its own
+  experts' tokens from its local batch (no all-to-all), and a sum over
+  ``model`` (a DTensor ``Partial`` made ``Replicate``: the reference's
+  ``psum``) combines the experts' contributions. The expert weights are
+  FSDP-gathered over ``data`` before the body (the backward reduce-scatters
+  their gradients).
+* **TP mode** (granite: 40 experts): experts replicated, each expert's ff
+  split over ``model``; the same body with ``E_local = E`` gives ff-shard
+  partials, summed over ``model``.
+
+Routing runs before the body (its own ``local_map``, so the router's
+gradient sums over the batch shards while each model rank's copy of the
+routing is the same).
 
 * Routing: router logits in f32, top-k, softmax over the k picks.
-* Capacity: ``max(8, int(cf * T * k / E))`` slots an expert, at most T * k.
-* Dispatch: a stable sort of the T * k assignments by expert id; an
-  assignment's rank in its expert's group comes from a running max of the
-  group starts, and assignments ranked at or past the capacity are dropped
-  (GShard). A stable sort keeps the reference's order, so the kept and
-  dropped assignments are the reference's.
+* Capacity: ``max(8, int(cf * T * k / E))`` slots an expert, at most T * k,
+  with T the **local** token count ``B * S / dp`` (on one device, B * S).
+  A sharded step thus drops per data shard: what a single device drops
+  differs once the capacity binds.
+* Dispatch: a stable sort of the T * k assignments by expert id (other
+  ranks' experts last); an assignment's rank in its expert's group comes
+  from a running max of the group starts, and assignments ranked at or
+  past the capacity are dropped (GShard). A stable sort keeps the
+  reference's order, so the kept and dropped assignments are the
+  reference's.
 * The grouped expert products are batched matmuls (the reference's einsums).
 * Combine: each kept assignment's output times its gate weight, rounded to
   the activation dtype as the reference rounds it, put back in (token, k)
@@ -33,6 +52,8 @@ the output (``tests/test_torch_moe.py`` states the bound).
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.layers import GATED, mlp_activate
 
@@ -50,22 +71,28 @@ def capacity(cfg, tokens: int, capacity_factor: float) -> int:
     return min(max(8, int(capacity_factor * tokens * k / e)), tokens * k)
 
 
-def dispatch_plan(ids, num_experts: int, cap: int):
-    """ids: (N,) expert id of each assignment, in (token, k) order.
+def dispatch_plan(ids, num_experts: int, cap: int, e0=None):
+    """ids: (N,) expert id of each assignment, in (token, k) order; this
+    device's experts are ``e0 .. e0 + num_experts - 1``, or all of them
+    when ``e0`` is None.
 
     Returns (order, dest, valid), all (N,): ``order`` sorts the assignments
-    by expert, stably; the sorted assignment j goes to slot ``dest[j]`` =
-    expert * cap + rank in its expert's group, or to the spare slot
-    E * cap when ``valid[j]`` is False (its rank is cap or more)."""
+    by local expert, stably, other devices' experts last; the sorted
+    assignment j goes to slot ``dest[j]`` = local expert * cap + rank in
+    its expert's group, or to the spare slot num_experts * cap when
+    ``valid[j]`` is False (another device's expert, or its rank is cap or
+    more)."""
     n = ids.numel()
-    order = torch.argsort(ids, stable=True)
-    sk = ids[order]
+    key = ids if e0 is None else torch.where((ids >= e0) & (ids < e0 + num_experts), ids - e0,
+                                             num_experts)
+    order = torch.argsort(key, stable=True)
+    sk = key[order]
     pos = torch.arange(n, device=ids.device)
     change = torch.ones(n, dtype=torch.bool, device=ids.device)
     change[1:] = sk[1:] != sk[:-1]
     first = torch.cummax(torch.where(change, pos, 0), dim=0).values
     rank = pos - first
-    valid = rank < cap
+    valid = rank < cap if e0 is None else (sk < num_experts) & (rank < cap)
     dest = torch.where(valid, sk * cap + rank, num_experts * cap)
     return order, dest, valid
 
@@ -103,31 +130,102 @@ def bmm_f32(a, b):
     return _BmmF32.apply(a, b)
 
 
-def moe_apply(cfg, params, x, *, capacity_factor: float = 2.0):
-    """x: (B, S, d) -> (B, S, d)."""
+def dispatch_compute(x, ids, gate_w, w_in, w_gate, w_out, *, activation: str, cap: int,
+                     e0=None):
+    """The per-device body: x (B, S, d), ids and gate_w (B, S, k), this
+    device's experts' weights (E_local, ...) from expert ``e0`` (every
+    expert when None). Returns the kept assignments' gated outputs summed
+    a token, (B, S, d)."""
     b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    k = ids.shape[-1]
     t = b * s
-    gate_w, ids = route(cfg, params, x)
-    cap = capacity(cfg, t, capacity_factor)
-    order, dest, valid = dispatch_plan(ids.reshape(t * k), e, cap)
+    e_local = w_in.shape[0]
+    order, dest, valid = dispatch_plan(ids.reshape(t * k), e_local, cap, e0)
 
     x_f = x.reshape(t, d)
     tok = torch.div(order, k, rounding_mode="floor")     # token of each sorted assignment
-    gathered = x.new_zeros((e * cap + 1, d))
+    gathered = x.new_zeros((e_local * cap + 1, d))
     gathered[dest] = torch.where(valid[:, None], x_f[tok], 0)
-    gx = gathered[:-1].view(e, cap, d)
+    gx = gathered[:-1].view(e_local, cap, d)
 
-    h = bmm_f32(gx, params["w_in"])
-    g = bmm_f32(gx, params["w_gate"]) if cfg.mlp_activation in GATED else None
-    h = mlp_activate(cfg.mlp_activation, h, g)
-    y = torch.bmm(h.to(x.dtype), params["w_out"]).view(e * cap, d)
+    h = bmm_f32(gx, w_in)
+    g = bmm_f32(gx, w_gate) if activation in GATED else None
+    h = mlp_activate(activation, h, g)
+    y = torch.bmm(h.to(x.dtype), w_out).view(e_local * cap, d)
 
     y_assign = torch.where(valid[:, None], y[torch.where(valid, dest, 0)], 0)
     contrib = y_assign * gate_w.reshape(t * k)[order].to(x.dtype)[:, None]
     per_tk = torch.empty_like(contrib)
     per_tk[order] = contrib                           # back to (token, k) order
     return per_tk.view(t, k, d).float().sum(dim=1).to(x.dtype).view(b, s, d)
+
+
+def moe_apply(cfg, params, x, *, capacity_factor: float = 2.0, env=None):
+    """x: (B, S, d) -> (B, S, d); sharded as the env's rules say when x is
+    a DTensor (``_moe_sharded``)."""
+    if isinstance(x, DTensor):
+        return _moe_sharded(cfg, params, x, capacity_factor, env)
+    b, s, _ = x.shape
+    gate_w, ids = route(cfg, params, x)
+    return dispatch_compute(x, ids, gate_w, params["w_in"], params.get("w_gate"),
+                            params["w_out"], activation=cfg.mlp_activation,
+                            cap=capacity(cfg, b * s, capacity_factor))
+
+
+def _moe_sharded(cfg, params, x, capacity_factor, env):
+    """``moe_apply`` of a DTensor x on its mesh: the body on each rank's
+    batch shard and experts (EP) or ff shard (TP) under ``local_map``."""
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names)
+    b, s, _ = x.shape
+    ep = cfg.moe_parallelism == "ep"
+    tp = env.tp
+    if ep and cfg.num_experts % tp:
+        raise ValueError(f"{cfg.num_experts} experts do not divide over model = {tp}")
+    cap = capacity(cfg, b * s // env.dp, capacity_factor)
+    x = env.constrain(x, "act_batch", None, None)
+    x_pl = list(x.placements)
+    if any(p.is_shard() and p.dim != 0 for p in x_pl):
+        raise NotImplementedError(f"the MoE over activations placed {x_pl}")
+    # the sum over ``model``, on the output and on the gradients of the
+    # inputs the model ranks share
+    model_partial = [Partial() if n == "model" else p for n, p in zip(names, x_pl)]
+
+    def route_local(xl, router):
+        return route(cfg, {"router": router}, xl)
+
+    router = params["router"].redistribute(mesh, [Replicate()] * len(names))
+    batch_partial = [Partial() if p.is_shard() else Replicate() for p in x_pl]
+    gate_w, ids = local_map(route_local, out_placements=(x_pl, x_pl),
+                            in_placements=(x_pl, router.placements),
+                            in_grad_placements=(x_pl, batch_partial),
+                            device_mesh=mesh)(x, router)
+
+    # each weight whole over pod and data (the FSDP gather), split over
+    # model on its expert (EP) or ff (TP) dimension
+    def gathered(w, split_dim):
+        pl = [Shard(split_dim) if n == "model" and tp > 1 else Replicate() for n in names]
+        grad = [q if n == "model" else (Partial() if xp.is_shard() else Replicate())
+                for n, q, xp in zip(names, pl, x_pl)]
+        return w.redistribute(mesh, pl), pl, grad
+
+    gated = cfg.mlp_activation in GATED
+    w_in, in_pl, in_gr = gathered(params["w_in"], 0 if ep else 2)
+    w_out, out_pl, out_gr = gathered(params["w_out"], 0 if ep else 1)
+    w_gate = gathered(params["w_gate"], 0 if ep else 2)[0] if gated else None
+    model_rank = mesh.get_local_rank("model") if "model" in names else 0
+
+    def body(xl, idl, gwl, wi, wg, wo):
+        return dispatch_compute(xl, idl, gwl, wi, wg, wo, activation=cfg.mlp_activation,
+                                cap=cap, e0=model_rank * wi.shape[0] if ep else None)
+
+    args = (x, ids, gate_w, w_in, w_gate, w_out)
+    out = local_map(body, out_placements=model_partial,
+                    in_placements=(x_pl, x_pl, x_pl, in_pl, in_pl if gated else None, out_pl),
+                    in_grad_placements=(model_partial, x_pl, model_partial, in_gr,
+                                        in_gr if gated else None, out_gr),
+                    device_mesh=mesh)(*args)
+    return out.redistribute(mesh, x_pl)
 
 
 def moe_ref(cfg, params, x):

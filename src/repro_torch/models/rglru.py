@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import conv1d_apply, conv1d_step, conv1d_tail
+from repro_torch.parallel.sharding import constrain
 
 RGLRU_C = 8.0
 
@@ -69,13 +70,13 @@ def _linear_scan(a, b, h0, chunk: int):
 
 
 def rglru_forward(cfg, params, x, *, chunk: int = 256, h0=None, conv_state=None,
-                  return_state: bool = False):
+                  return_state: bool = False, env=None):
     """x: (B, S, d). Returns out (B, S, d), and with ``return_state`` also
     (h (B, W) f32, conv state (B, width-1, W) f32)."""
     bsz = x.shape[0]
     rw = params["w_out"].shape[0]
     ga = F.gelu(x @ params["w_a"], approximate="tanh")
-    u = x @ params["w_b"]
+    u = constrain(env, x @ params["w_b"], "act_batch", "act_seq", "act_mlp")
     if conv_state is not None:
         hist = torch.cat([conv_state.to(u.dtype), u], dim=1)
         u_conv = conv1d_apply(params["conv"], hist)[:, conv_state.shape[1]:]
@@ -88,6 +89,7 @@ def rglru_forward(cfg, params, x, *, chunk: int = 256, h0=None, conv_state=None,
         h0 = torch.zeros(bsz, rw, dtype=torch.float32, device=x.device)
     h_seq, h_last = _linear_scan(a, b, h0, chunk)
     out = (ga.float() * h_seq).to(x.dtype) @ params["w_out"]
+    out = constrain(env, out, "act_batch", "act_seq", "act_embed")
     if return_state:
         return out, (h_last, new_conv.float())
     return out

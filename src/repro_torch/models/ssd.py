@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import conv1d_apply, conv1d_step, conv1d_tail
+from repro_torch.parallel.sharding import constrain
 
 
 def chunk_len(cfg, s: int) -> int:
@@ -45,7 +46,7 @@ def _gated_norm(params, y, z, eps):
 
 
 def ssd_forward(cfg, params, x, *, state=None, conv_state=None,
-                return_state: bool = False):
+                return_state: bool = False, env=None):
     """x: (B, S, d). Returns out (B, S, d), and with ``return_state`` also
     (h (B, nh, P, N) f32, conv state (B, width-1, d_inner+2N) f32)."""
     bsz, s, _ = x.shape
@@ -53,7 +54,7 @@ def ssd_forward(cfg, params, x, *, state=None, conv_state=None,
     q = chunk_len(cfg, s)
     nc = s // q
 
-    proj = x @ params["w_in"]
+    proj = constrain(env, x @ params["w_in"], "act_batch", "act_seq", "act_mlp")
     z, xbc, dt = _split_proj(cfg, proj)
     if conv_state is not None:
         hist = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
@@ -108,7 +109,7 @@ def ssd_forward(cfg, params, x, *, state=None, conv_state=None,
     y = y + params["d_skip"][:, None] * xs.float()
     y = y.reshape(bsz, s, di)
     y = _gated_norm(params, y, z, cfg.norm_eps).to(x.dtype)
-    out = y @ params["w_out"]
+    out = constrain(env, y @ params["w_out"], "act_batch", "act_seq", "act_embed")
     if return_state:
         return out, (h, new_conv.float())
     return out

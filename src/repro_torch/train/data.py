@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.parallel.sharding import distribute
 
 
 @dataclasses.dataclass
@@ -83,12 +84,19 @@ class SyntheticLM:
             step += 1
 
     def batches(self, shape: ShapeConfig, device=None, host_index: int = 0,
-                num_hosts: int = 1) -> Iterator[Dict[str, torch.Tensor]]:
+                num_hosts: int = 1, env=None) -> Iterator[Dict[str, torch.Tensor]]:
         """``numpy_batches`` on ``device`` (the card unless ``"cpu"``):
-        tokens and targets int32, the embeddings bf16."""
+        tokens and targets int32, the embeddings bf16; on an ``env`` whose
+        mesh has more than one device, DTensors split as ``("act_batch",
+        ...)`` (each rank draws the whole batch and keeps its rows)."""
         dev = resolve_device(device)
         for batch in self.numpy_batches(shape, host_index, num_hosts):
-            yield as_tensors(batch, dev)
+            batch = as_tensors(batch, dev)
+            if env is not None and env.size > 1:
+                batch = {k: distribute(x, env.sharding("act_batch", *(None,) * (x.dim() - 1),
+                                                       shape=tuple(x.shape)))
+                         for k, x in batch.items()}
+            yield batch
 
 
 def as_tensors(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

@@ -14,13 +14,22 @@ reference stacks the layers of a pattern position into one leaf: so
 Adafactor takes ``groups``, a key a parameter leaf, and updates each
 group's leaves stacked as the reference's one leaf (``train_step`` groups
 them as the reference stacks them, ``convert.reference_leaf``).
+
+In a sharded step (DTensors placed alike for a parameter, its gradient and
+its moments) clip, AdamW and the update run on each rank's shards, which
+are element-wise; the global norm sums the shards' squares over the mesh.
+Adafactor runs on the shards too; its factored moments' means and its
+RMS clip sum the shards over the mesh dimensions that split them.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
+from repro_torch.parallel.sharding import placed_like
 from repro_torch.train.tree import flatten_with_paths, tree_leaves, tree_map
 
 
@@ -34,16 +43,51 @@ def lr_schedule(step, *, base_lr: float, warmup: int, total: int = 100_000):
     return base_lr * warm * (0.1 + 0.9 * cos)
 
 
+def _local(x):
+    """A DTensor's shard on this rank (a plain tensor as it is): the
+    element-wise work of a step runs on the shards, whose placements the
+    parameter, its gradient and its moments share."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _like(local, p):
+    """``local`` as a shard of a DTensor placed as ``p`` (a plain ``p``:
+    ``local`` itself)."""
+    if not isinstance(p, DTensor):
+        return local
+    return DTensor.from_local(local, p.device_mesh, p.placements, shape=p.shape,
+                              stride=p.stride())
+
+
+def _square_sum(x):
+    """The sum of x's squares in f32; of a DTensor, its shard's, partial
+    over the mesh dimensions that split it."""
+    sq = _local(x).float().square().sum()
+    if not isinstance(x, DTensor):
+        return sq
+    return DTensor.from_local(sq, x.device_mesh, [Partial() if p.is_shard() else Replicate()
+                                                  for p in x.placements])
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of their squares, in f32."""
-    return torch.sqrt(sum(x.float().square().sum() for x in tree_leaves(tree)))
+    return torch.sqrt(sum(_square_sum(x) for x in tree_leaves(tree)))
 
 
 def clip_by_global_norm(tree, max_norm: float):
     """(the leaves in f32 times min(1, max_norm / norm), the norm)."""
     norm = global_norm(tree)
-    scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
-    return tree_map(lambda x: x.float() * scale, tree), norm
+    if isinstance(norm, DTensor):
+        norm = norm.redistribute(norm.device_mesh, [Replicate()] * norm.device_mesh.ndim)
+    scale = _local(torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0))
+    return tree_map(lambda x: _like(_local(x).float() * scale, x), tree), norm
+
+
+def apply_updates(params, updates) -> None:
+    """Each parameter plus its update, added in f32 and rounded to the
+    parameter's dtype, in place."""
+    tree_map(lambda p, u: _local(p).copy_(_local(p).float() + _local(placed_like(u, p)).float()),
+             params, updates)
 
 
 def _count_up(state):
@@ -64,16 +108,16 @@ def adamw_update(grads, state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8, weight_
                  groups=None):
     """Updates m and v in place; returns the updates, each in its
     parameter's dtype. ``groups`` is unused: AdamW couples no elements."""
-    c = _count_up(state)
-    bc1, bc2 = 1.0 - b1 ** c, 1.0 - b2 ** c
+    c = _local(_count_up(state))
+    bc1, bc2, lr = 1.0 - b1 ** c, 1.0 - b2 ** c, _local(lr)
 
     def upd(g, m, v, p):
-        g = g.float()
+        g, m, v, p_l = _local(g).float(), _local(m), _local(v), _local(p)
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)
         u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-        u = u + weight_decay * p.float()
-        return (-lr * u).to(p.dtype)
+        u = u + weight_decay * p_l.float()
+        return _like((-lr * u).to(p.dtype), p)
 
     return tree_map(upd, grads, state["m"], state["v"], params)
 
@@ -117,35 +161,103 @@ def adafactor_init(params, groups=None):
     return {"v": state, "count": torch.zeros((), dtype=torch.int32, device=leaves[0].device)}
 
 
+def _split_dims(p, lead: int):
+    """{dimension of ``p`` stacked behind ``lead`` new dimensions: the mesh
+    dimensions (of more than one device) that split it}; empty for a plain
+    tensor."""
+    if not isinstance(p, DTensor):
+        return {}
+    out: dict = {}
+    for i, (pl, n) in enumerate(zip(p.placements, p.device_mesh.shape)):
+        if pl.is_shard() and n > 1:
+            out.setdefault(pl.dim + lead, []).append(i)
+    return out
+
+
+def _sum_over(x, mesh, mesh_dims):
+    """``x`` (a shard's partial sum) summed over ``mesh_dims``, in place."""
+    for i in mesh_dims:
+        dist.all_reduce(x, group=mesh.get_group(i))
+    return x
+
+
+def _mean(x, dim, split, mesh, keepdim=False):
+    """``x.mean(dim)`` of a stacked group's shard: where ``dim`` is split
+    over mesh dimensions, the shards' sums summed over them, over the whole
+    dimension's length."""
+    d = dim % x.dim()
+    if d not in split:
+        return x.mean(dim=dim, keepdim=keepdim)
+    ways = math.prod(mesh.shape[i] for i in split[d])
+    return _sum_over(x.sum(dim=d, keepdim=keepdim), mesh, split[d]) / (x.shape[d] * ways)
+
+
 def adafactor_update(grads, state, params, *, lr, eps=1e-30, weight_decay=0.0,
                      clip_threshold=1.0, groups=None, **_):
     """Updates the second-moment state in place; returns the updates, each
     in its parameter's dtype. ``groups`` as ``adafactor_init`` had them:
     each group's gradients are stacked and updated as one leaf (the
-    factored moments and the update's RMS clip span the stack)."""
-    beta2 = 1.0 - _count_up(state) ** -0.8
+    factored moments and the update's RMS clip span the stack). On
+    DTensors (placed alike within a group) it runs on the shards, the
+    means over split dimensions summed across the mesh."""
+    beta2, lr = 1.0 - _local(_count_up(state)) ** -0.8, _local(lr)
     g_leaves, p_leaves = tree_leaves(grads), tree_leaves(params)
     updates = [None] * len(p_leaves)
     for key, idx in _groups(params, groups).items():
-        v = state["v"][key]
-        g = _stack([g_leaves[i].float() for i in idx])
+        v = {k: _local(t) for k, t in state["v"][key].items()}
+        p0 = p_leaves[idx[0]]
+        split = _split_dims(p0, 1 if len(idx) > 1 else 0)
+        mesh = p0.device_mesh if split else None
+        g = _stack([_local(placed_like(g_leaves[i], p_leaves[i])).float() for i in idx])
         g2 = g * g + eps
         if "r" in v:
-            r = v["r"].copy_(beta2 * v["r"] + (1 - beta2) * g2.mean(dim=-1))
-            c = v["c"].copy_(beta2 * v["c"] + (1 - beta2) * g2.mean(dim=-2))
-            denom = torch.clamp_min(r.mean(dim=-1, keepdim=True), eps)
+            r = v["r"].copy_(beta2 * v["r"] + (1 - beta2) * _mean(g2, -1, split, mesh))
+            c = v["c"].copy_(beta2 * v["c"] + (1 - beta2) * _mean(g2, -2, split, mesh))
+            r_split = {d: m for d, m in split.items() if d < g.dim() - 1}
+            denom = torch.clamp_min(_mean(r, -1, r_split, mesh, keepdim=True), eps)
             vhat = (r / denom)[..., None] * c[..., None, :]
         else:
             vhat = v["v"].copy_(beta2 * v["v"] + (1 - beta2) * g2)
         del g2
         u = g * torch.rsqrt(vhat + eps)
-        rms_u = torch.sqrt(u.square().mean() + 1e-12)
+        if split:
+            sq = _sum_over(u.square().sum(), mesh, sorted({i for m in split.values() for i in m}))
+            rms_u = torch.sqrt(sq / math.prod(_global_shape(p0, len(idx))) + 1e-12)
+        else:
+            rms_u = torch.sqrt(u.square().mean() + 1e-12)
         u = u / torch.clamp_min(rms_u / clip_threshold, 1.0)
         for i, u_i in zip(idx, [u] if len(idx) == 1 else u.unbind(0)):
             p = p_leaves[i]
-            updates[i] = (-lr * (u_i + weight_decay * p.float())).to(p.dtype)
+            updates[i] = _like((-lr * (u_i + weight_decay * _local(p).float())).to(p.dtype), p)
     it = iter(updates)
     return tree_map(lambda _: next(it), params)
+
+
+def _global_shape(p, members: int):
+    return ((members,) if members > 1 else ()) + tuple(p.shape)
+
+
+def opt_specs(name: str, p_specs, params=None, groups=None):
+    """The optimizer state's logical specs from the parameters' (the
+    reference's ``opt_specs``). AdamW's moments take their parameter's spec.
+    Adafactor's state is keyed by group as ``adafactor_init`` builds it from
+    ``params`` (meta tensors will do) and ``groups``: a stacked group's spec
+    gains the reference's leading "layers", its factors drop the last
+    dimension (``r``) or the one before (``c``)."""
+    from repro_torch.parallel.sharding import spec_map
+    if name == "adamw":
+        return {"m": p_specs, "v": p_specs, "count": ()}
+    if name != "adafactor":
+        raise ValueError(name)
+    leaves, flat = tree_leaves(params), []
+    spec_map(flat.append, p_specs)
+    out = {}
+    for key, idx in _groups(params, groups).items():
+        spec = (("layers",) if len(idx) > 1 else ()) + flat[idx[0]]
+        shape = ((len(idx),) if len(idx) > 1 else ()) + tuple(leaves[idx[0]].shape)
+        out[key] = ({"r": spec[:-1], "c": spec[:-2] + spec[-1:]} if _factored(shape)
+                    else {"v": spec})
+    return {"v": out, "count": ()}
 
 
 def make_optimizer(name: str):

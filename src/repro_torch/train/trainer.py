@@ -1,5 +1,5 @@
 """Training loop with checkpoint/restart and straggler monitoring (the
-reference's ``train/trainer.py`` on one device).
+reference's ``train/trainer.py``).
 
 * checkpoint/restart: periodic (async) checkpoints with atomic publish;
   ``Trainer.run_loop`` resumes from the latest step, so a crashed process
@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.parallel.sharding import distribute_tree, tree_shardings
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import train_step as TS
 from repro_torch.train.data import SyntheticLM
@@ -59,25 +60,34 @@ class TrainerConfig:
 
 
 class Trainer:
-    """Trains ``cfg`` on the card unless ``device="cpu"``."""
+    """Trains ``cfg`` on the card unless ``device="cpu"``. With ``env``
+    (``parallel.sharding``, over a DeviceMesh) the state is placed by
+    ``tree_shardings`` of ``state_logical_specs``, restored onto the mesh,
+    and the step runs sharded."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, shape: ShapeConfig,
-                 tcfg: TrainerConfig, fail_at_step: Optional[int] = None, device=None):
-        self.cfg, self.run, self.shape, self.tcfg = cfg, run, shape, tcfg
+                 tcfg: TrainerConfig, fail_at_step: Optional[int] = None, device=None,
+                 env=None):
+        self.cfg, self.run, self.shape, self.tcfg, self.env = cfg, run, shape, tcfg, env
         self.device = resolve_device(device)
         self.fail_at_step = fail_at_step     # fault injection for tests
         self.monitor = StragglerMonitor()
         self.metrics_log: List[Dict[str, float]] = []
-        self.step_fn = TS.make_train_step(cfg, run)
+        self.step_fn = TS.make_train_step(cfg, run, env)
+        self.npod = env.axis_size("pod") if env is not None else 1
+        self.state_struct = TS.train_state_struct(cfg, run, npod=self.npod)
+        self.state_sh = (tree_shardings(env, TS.state_logical_specs(cfg, run), self.state_struct)
+                         if env is not None else None)
         self.ckptr = (ckpt.AsyncCheckpointer(tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints)
                       if tcfg.checkpoint_dir and tcfg.async_checkpoint else None)
 
     def init_or_restore(self, generator: torch.Generator):
         d = self.tcfg.checkpoint_dir
         if d and ckpt.latest_step(d) is not None:
-            return ckpt.restore(TS.train_state_struct(self.cfg, self.run), d, device=self.device,
-                                fingerprint=self.cfg.fingerprint())
-        return TS.init_train_state(self.cfg, self.run, generator, self.device), 0
+            return ckpt.restore(self.state_struct, d, device=self.device,
+                                fingerprint=self.cfg.fingerprint(), shardings=self.state_sh)
+        state = TS.init_train_state(self.cfg, self.run, generator, self.device, npod=self.npod)
+        return (state if self.state_sh is None else distribute_tree(state, self.state_sh)), 0
 
     def _save(self, state, step: int) -> None:
         if self.ckptr is not None:
@@ -97,7 +107,7 @@ class Trainer:
             generator = torch.Generator(device=self.device).manual_seed(self.run.seed)
         state, start = self.init_or_restore(generator)
         data = batches if batches is not None else SyntheticLM(self.cfg).batches(
-            self.shape, self.device)
+            self.shape, self.device, env=self.env)
         losses = []
         for step in range(start, self.tcfg.total_steps):
             batch = next(data) if hasattr(data, "__next__") else data[step % len(data)]

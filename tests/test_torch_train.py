@@ -369,9 +369,12 @@ def test_bf16_train_step_keeps_dtypes_and_learns():
 
 
 def test_int8_gradient_compression_raises():
+    """int8 compression is ported (``tests/test_torch_parallel.py`` holds
+    it on a mesh): only an unknown compression raises."""
     cfg = C.reduced_config("gemma2-2b")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TS.make_train_step(cfg, RunConfig(gradient_compression="int8"))
+    TS.make_train_step(cfg, RunConfig(gradient_compression="int8"))
+    with pytest.raises(ValueError, match="gradient_compression"):
+        TS.make_train_step(cfg, RunConfig(gradient_compression="fp8"))
 
 
 def test_train_state_struct_is_shapes_only():
