@@ -101,12 +101,36 @@ Phases, each of which exits non-zero on failure:
     tokens/s, the share of 989 TFLOP/s that 6 N tokens a step gives, one
     step's device idle share and kernels under the profiler, the forward +
     backward alone, one layer's chunked attention, and the peak memory
-    beside the reckoned one.
+    beside the reckoned one;
+ 9. sharded training: 9a, 8b's workload through the DTensor path (the
+    state placed by ``tree_shardings`` of ``state_logical_specs``, the
+    batches by ``batch_logical_specs``) on a (1, 1, 1) ("pod", "data",
+    "model") mesh of a one-rank NCCL group: each step's loss within 8a's
+    bf16 tolerance of 8b's, no kernel launch, step ms, tokens/s, idle share
+    and peak memory beside 8b's (the gap is DTensor's host cost);
+10. serving on a mesh and the dry run: 10a, K2 with ``return_lse`` at
+    gemma2's, granite's and recurrentgemma's last decode steps and at S
+    shorter than a tile, ragged lengths with a zero row: the lse within
+    2e-5 |lse| + 1e-5 of the plain version's, the f32 output within 2e-5,
+    and rounded to q's dtype bit-equal to the call without the lse; 10b,
+    each of those caches cut into 2 and 16 slices along S, K2 on each slice
+    at its local lengths and ``merge_stacked`` (the arithmetic the ranks
+    run) against K2 on the whole cache within TOL["bfloat16"], with empty
+    slices, and one slice's K2 and the merge timed beside the whole; 10c,
+    phase 4's weights and prompts through ``generate`` on a (1, 1, 1) mesh
+    of a one-rank NCCL group under the decode rules: tokens equal to phase
+    4's, logits within phase 3's bf16 tolerance, K3 26 and K2 832
+    launches, prefill ms, decode ms a step and the idle share beside phase
+    4's; 10d, the dry run's gemma2-2b decode_32k and train_4k cells
+    (``launch/dryrun.run_cell``: a fake group of 256 ranks, the meta
+    device) on this machine's torch: per-rank FLOPs, bytes, collective
+    bytes by kind, the peak and the seconds.
 
 Phase 2 also shows that the attention kernels refuse CUDA inputs that
 require grad (they have no backward). Before the card line come one JSON
-object {"stepper": ...} of phase 7's numbers and one {"train": ...} of
-phase 8's; the line before the last is
+object {"stepper": ...} of phase 7's numbers, one {"train": ...} of phase
+8's and 9's and one {"sharded_serving": ...} of phase 10's; the line
+before the last is
 one JSON object of per-kernel numbers; the last line is
 {"ok": true, "device": {...}}. Without a card, or outside a checkout
 of the repository, it prints no result and exits non-zero.
@@ -801,7 +825,7 @@ def device_profile(fn, top: int = 8):
             "top": [[e.key[:90], e.device_time_total / 1e3, e.count] for e in kernels[:top]]}
 
 
-def serve(card, cfg, batch, seq, steps, label, profile=True, src_len=0):
+def serve(card, cfg, batch, seq, steps, label, profile=True, src_len=0, keep=None):
     """Serve ``cfg`` (bf16, random weights from a seeded generator) through
     ``generate``: ``batch`` prompts of ``seq`` tokens (after the patch
     embeddings of a vision frontend; an encoder-decoder's with sources of
@@ -811,7 +835,8 @@ def serve(card, cfg, batch, seq, steps, label, profile=True, src_len=0):
     greedy
     tokens follow them and a second run of prefill and decode gives the
     same tokens. Returns (the run's numbers, with prefill and a decode step
-    under the profiler when ``profile``; the parameters)."""
+    under the profiler when ``profile``; the parameters). ``keep`` (a dict)
+    receives the run's greedy tokens and logits, on the host."""
     import torch
     from repro_torch.configs.base import ATTN_BLOCKS
     from repro_torch.kernels.decode_attn.kernel import decode_attention_cuda
@@ -857,6 +882,8 @@ def serve(card, cfg, batch, seq, steps, label, profile=True, src_len=0):
         fail(f"{label}: token out of range")
     if not torch.equal(logits[:, :-1].argmax(-1), tokens[:, 1:]):
         fail(f"{label}: greedy tokens do not follow the logits")
+    if keep is not None:
+        keep.update(tokens=tokens.cpu(), logits=logits.cpu())
 
     # the two phases apart: prefill alone, then the decode steps
     inputs = {"tokens": prompts, **frontend}
@@ -915,15 +942,19 @@ def serve(card, cfg, batch, seq, steps, label, profile=True, src_len=0):
     return result, params
 
 
-def serve_full_width(card: str):
-    """Phase 4: gemma2-2b at full width, BATCH x SEQ prompts, STEPS steps."""
+def serve_full_width(card: str, keep=None):
+    """Phase 4: gemma2-2b at full width, BATCH x SEQ prompts, STEPS steps;
+    ``keep`` receives its tokens, logits and numbers (phase 10c's
+    yardstick)."""
     import torch
     from repro_torch.configs import get_config
     cfg = get_config("gemma2-2b")
     log(f"[4] gemma2-2b bf16 at full width ({cfg.num_layers} layers, d {cfg.d_model}, "
         f"vocab {cfg.vocab_size}, {cfg.param_count() / 1e9:.2f} B params): "
         f"{BATCH} x {SEQ}-token prompts, {STEPS} greedy steps")
-    result = serve(card, cfg, BATCH, SEQ, STEPS, "gemma2-2b")[0]
+    result = serve(card, cfg, BATCH, SEQ, STEPS, "gemma2-2b", keep=keep)[0]
+    if keep is not None:
+        keep["result"] = result
     log(json.dumps({"main_path": result}))
     torch.cuda.empty_cache()
     return result["launches"]
@@ -2184,6 +2215,245 @@ def sharded_full_width(card, plain):
     return result
 
 
+# ----------------------------------------------------------------- phase 10
+# Serving on a mesh and the dry run. 10a: K2's log-sum-exp against the plain
+# version's; 10b: K2 over slices of one cache merged by ``merge_stacked``
+# (the arithmetic the ranks run, ``attention.merge_shards``) against K2 on
+# the whole cache; 10c: phase 4 through the DTensor path on a (1, 1, 1)
+# mesh; 10d: the dry run's gemma2 cells on the meta device.
+LSE_RTOL, LSE_ATOL = 2e-5, 1e-5
+MERGE_WAYS = (2, 16)
+
+
+def lse_shapes():
+    """(label, B, S, Hq, Hkv, D, softcap, dtypes) of 10a and 10b: gemma2's
+    global cache at its last step (the ring kernel in bf16, the split kernel
+    with f32 queries), granite's (the split kernel, G 3, D 64) and
+    recurrentgemma's wrapped ring (the ring kernel at G 16, bf16 only)."""
+    import torch
+    from repro_torch.configs import get_config
+    out = []
+    for name, s in (("gemma2-2b", SEQ + STEPS), (GRANITE, SEQ + STEPS),
+                    (RECURRENTGEMMA, 2048)):
+        cfg = get_config(name)
+        dtypes = ((torch.bfloat16,) if cfg.num_heads // cfg.num_kv_heads == 16
+                  else (torch.float32, torch.bfloat16))
+        out.append((name, BATCH, s, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                    cfg.attn_logit_softcap, dtypes))
+    return out
+
+
+def check_lse():
+    """10a: K2 with ``return_lse`` at ``lse_shapes`` and at S shorter than a
+    tile, ragged lengths with a row of length 0: the lse within
+    LSE_RTOL |lse| + LSE_ATOL of the plain version's, the f32 output within
+    TOL["float32"] of the plain version's unrounded one, and that output
+    rounded to q's dtype bit-equal to the call without the lse."""
+    import torch
+    from repro_torch.kernels.decode_attn import kernel as DK, ops as DO
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    bad = []
+    log("[10a] K2's log-sum-exp against the plain version's")
+    for name, b, s_main, hq, hkv, d, cap, dtypes in lse_shapes():
+        for s in (s_main, 20):
+            lens = torch.tensor([s, s // 3 + 1, 0, 1], dtype=torch.int32, device="cuda")
+            for dtype in dtypes:
+                q = torch.randn(b, 1, hq, d, generator=gen, device="cuda").to(dtype)
+                ck, cv = (torch.randn(b, s, hkv, d, generator=gen, device="cuda")
+                          .to(torch.bfloat16) for _ in range(2))
+                args = dict(scale=d ** -0.5, softcap=cap)
+                out, lse = DK.decode_attention_cuda(q, ck, cv, lens, return_lse=True, **args)
+                plain_out, plain_lse = DO.decode_attention_plain(q, ck, cv, lens,
+                                                                 return_lse=True, **args)
+                lse_ratio = ((lse - plain_lse).abs()
+                             / (LSE_RTOL * plain_lse.abs() + LSE_ATOL)).max().item()
+                out_err = (out - plain_out).abs().max().item()
+                same = torch.equal(out.to(dtype),
+                                   DK.decode_attention_cuda(q, ck, cv, lens, **args))
+                log(f"  {name} {(b, s, hq, hkv, d)} q {dtype}: lse |err|/limit {lse_ratio:.3g}, "
+                    f"f32 out max|err| {out_err:.3g}, rounded out bit-equal {same}")
+                if not (lse_ratio <= 1.0 and out_err <= TOL["float32"]["decode_attn"][0]
+                        and same and lse.dtype == out.dtype == torch.float32):
+                    bad.append(f"{name} {s} {dtype}")
+    if bad:
+        fail(f"phase 10a: K2's lse disagrees: {bad}")
+
+
+def check_merge(card):
+    """10b: each cache of ``lse_shapes`` (bf16) cut into m in MERGE_WAYS
+    slices along S; K2 with the lse on each slice at its local lengths
+    clamp(len - offset, 0, S/m), ``merge_stacked``, rounded to bf16, against
+    K2 on the whole cache within TOL["bfloat16"], at ragged lengths that
+    leave slices empty. Times, at gemma2's shape, one slice's K2 (a rank's
+    launch) and the merge's arithmetic beside the whole cache's K2 (events
+    around back-to-back calls)."""
+    import torch
+    from repro_torch.kernels.decode_attn import kernel as DK
+    from repro_torch.models.attention import merge_stacked
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    atol, rtol, _ = TOL["bfloat16"]["decode_attn"]
+    bad, timing = [], {}
+    log("[10b] K2 over slices of one cache, merged, against K2 on the whole cache")
+    for name, b, s, hq, hkv, d, cap, _ in lse_shapes():
+        q = torch.randn(b, 1, hq, d, generator=gen, device="cuda").to(torch.bfloat16)
+        ck, cv = (torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        lens = torch.tensor([s, s // 3 + 1, 5, s // 16 + 1], dtype=torch.int32, device="cuda")
+        args = dict(scale=d ** -0.5, softcap=cap)
+        whole = DK.decode_attention_cuda(q, ck, cv, lens, **args)
+        for m in MERGE_WAYS:
+            if s % m:
+                fail(f"phase 10b: {name}'s {s} slots do not split into {m}")
+            n = s // m
+            parts = [(ck[:, i * n:(i + 1) * n].contiguous(), cv[:, i * n:(i + 1) * n].contiguous(),
+                      torch.clamp(lens - i * n, 0, n).to(torch.int32)) for i in range(m)]
+            outs, lses = zip(*(DK.decode_attention_cuda(q, k, v, mine, return_lse=True, **args)
+                               for k, v, mine in parts))
+            has = torch.stack([(mine > 0) | (lens <= 0) for _, _, mine in parts])
+            merged = merge_stacked(torch.stack(outs), torch.stack(lses), has).to(torch.bfloat16)
+            ratio = ((merged.float() - whole.float()).abs()
+                     / (atol + rtol * whole.float().abs())).max().item()
+            empty = int((~has).sum())
+            log(f"  {name} {(b, s, hq, hkv, d)} in {m} slices ({empty} empty (row, slice) "
+                f"pairs): max |err|/limit {ratio:.3g}")
+            if not ratio <= 1.0:
+                bad.append(f"{name} m {m}")
+            if name == "gemma2-2b":
+                k0, v0, mine0 = parts[0]
+                stacked = (torch.stack(outs), torch.stack(lses), has)
+                timing[m] = {
+                    "slice_ms": cuda_ms(lambda: DK.decode_attention_cuda(
+                        q, k0, v0, mine0, return_lse=True, **args), 50),
+                    "merge_ms": cuda_ms(lambda: merge_stacked(*stacked), 50),
+                    "whole_ms": cuda_ms(lambda: DK.decode_attention_cuda(q, ck, cv, lens, **args),
+                                        50)}
+            del parts, outs, lses
+    log(f"  gemma2's last step, ms (events, back-to-back calls; on {card}): {json.dumps(timing)}")
+    if bad:
+        fail(f"phase 10b: the merged slices disagree with the whole cache: {bad}")
+    return timing
+
+
+def sharded_serve(card, phase4):
+    """10c: phase 4's weights and prompts (the same seeded draws) through
+    ``generate`` on a (1, 1, 1) mesh of a one-rank NCCL group, the decode
+    rules (the prefill under ``phase_env``): greedy tokens equal to phase
+    4's, logits within phase 3's bf16 tolerance of them, K3 26 and K2 832
+    launches; prefill ms, decode ms a step and the idle share beside phase
+    4's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn.kernel import decode_attention_cuda
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import (distribute_tree, make_env, phase_env,
+                                               tree_shardings)
+    from repro_torch.serving.generate import generate, greedy
+    cfg = get_config("gemma2-2b")
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    store = ROOT / "build" / "chip_smoke_store"
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1)
+    try:
+        env = make_env(make_device_mesh((1, 1, 1), SHARD_NAMES), "decode")
+        log(f"[10c] gemma2-2b bf16 served through DTensor on {env.mesh}: phase 4's workload")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = M.init_params(cfg, gen, "cuda", torch.bfloat16)
+        prompts = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=gen, device="cuda")
+        params = distribute_tree(params, tree_shardings(env, M.param_specs(cfg), params))
+        t0 = time.perf_counter()
+        generate(cfg, params, prompts[:, :256], 2, env=env)    # propagation, cuBLAS
+        sync()
+        warm_s = time.perf_counter() - t0
+        flash_attention_cuda.launches = decode_attention_cuda.launches = 0
+        tokens, logits = generate(cfg, params, prompts, STEPS, env=env)
+        sync()
+        launches = {"flash_attn": flash_attention_cuda.launches,
+                    "decode_attn": decode_attention_cuda.launches}
+        tokens, logits = tokens.full_tensor().cpu(), logits.full_tensor().cpu()
+        same = torch.equal(tokens, phase4["tokens"])
+        err = max_err(logits, phase4["logits"])
+        per_prefill, per_step = attention_calls(cfg)
+        want = {"flash_attn": per_prefill, "decode_attn": per_step * STEPS}
+        log(f"  tokens equal phase 4's: {same}; max|logit err| {err:.3g} (tol 3e-2); "
+            f"launches {launches} (want {want}); warm-up {warm_s:.1f} s")
+        if not (same and err <= 3e-2 and launches == want):
+            fail(f"phase 10c: tokens equal {same}, logit err {err}, launches {launches}")
+
+        batch = {"tokens": distribute_tree(prompts, tree_shardings(
+            env, ("act_batch", None), prompts))}
+        penv = phase_env(env, "prefill")
+
+        def run_prefill():
+            return M.prefill(cfg, params, batch, max_len=SEQ + STEPS, env=penv, cache_env=env)
+
+        sync()
+        t0 = time.perf_counter()
+        logits0, cache, pos = run_prefill()
+        sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        tok = greedy(logits0)
+        sync()
+        t0 = time.perf_counter()
+        for i in range(STEPS):
+            step_logits, cache = M.decode_step(cfg, params, tok, pos + 1 + i, cache, env=env)
+        sync()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+        prof = device_profile(lambda: M.decode_step(cfg, params, tok, pos + STEPS, cache,
+                                                    env=env), top=5)
+        idle = 1 - prof["device_busy_ms"] / decode_ms if prof["device_busy_ms"] else None
+        p4 = phase4["result"]
+        p4_idle = p4.get("decode_step_profile", {}).get("idle_share")
+        result = {"mesh": [1, 1, 1], "tokens_equal": same, "max_logit_err": err,
+                  "launches": launches, "warm_up_s": warm_s, "prefill_ms": prefill_ms,
+                  "decode_ms_per_step": decode_ms, "decode_idle_share": idle, "card": card,
+                  "phase4": {"prefill_ms": p4["prefill_ms"],
+                             "decode_ms_per_step": p4["decode_ms_per_step"],
+                             "decode_idle_share": p4_idle}}
+        log(f"  prefill {prefill_ms:.1f} ms (phase 4 {p4['prefill_ms']:.1f}), decode "
+            f"{decode_ms:.2f} ms a step (phase 4 {p4['decode_ms_per_step']:.2f}), idle share "
+            f"{idle} (phase 4 {p4_idle}); the difference is DTensor's host cost; on {card}")
+        del params, cache
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    return result
+
+
+def dry_run_cells():
+    """10d: the dry run's gemma2-2b decode_32k and train_4k cells on the
+    single-pod mesh (a fake group of 256 ranks, the meta device: the card
+    is not touched), on this machine's torch."""
+    from repro_torch.launch import dryrun
+    out = {}
+    for shape in ("decode_32k", "train_4k"):
+        log(f"[10d] dry run gemma2-2b x {shape} x single (arithmetic on shapes, no device)")
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell("gemma2-2b", shape, "single", save=False)
+        out[shape] = {"seconds": time.perf_counter() - t0,
+                      "flops_per_device": rec["flops_per_device"],
+                      "bytes_per_device": rec["bytes_per_device"],
+                      "collective_bytes_effective":
+                          rec["collectives"]["collective_bytes_effective"],
+                      "peak_bytes": rec["memory_analysis"]["peak_bytes"]}
+        log(f"  {json.dumps(out[shape])}")
+    return out
+
+
+def sharded_phase(card, phase4):
+    """Phase 10, in order."""
+    import torch
+    check_lse()
+    merge = check_merge(card)
+    torch.cuda.empty_cache()
+    serve_mesh = sharded_serve(card, phase4)
+    return {"merge_ms": merge, "serve": serve_mesh, "dry_run": dry_run_cells()}
+
+
 def main() -> None:
     import torch
     t_script = time.perf_counter()
@@ -2218,7 +2488,8 @@ def main() -> None:
     took("2")
     check_reduced()
     took("3")
-    paths = {"gemma2-2b": serve_full_width(card)}
+    phase4 = {}
+    paths = {"gemma2-2b": serve_full_width(card, phase4)}
     took("4")
     paths[GRANITE] = serve_granite(card)
     took("4b")
@@ -2239,12 +2510,16 @@ def main() -> None:
     took("8")
     train["sharded"] = {"full_width": sharded_full_width(card, train["full_width"])}
     took("9")
+    sharded = sharded_phase(card, phase4)
+    took("10")
     for k in kernels:
         k["train_launches"] = train_launches[k["name"]]
+        k["sharded_launches"] = sharded["serve"]["launches"].get(k["name"], 0)
     log(f"the script took {time.perf_counter() - t_script:.1f} s, kernels' build included; "
         f"by phase: {json.dumps(phase_s)}")
     log(json.dumps({"stepper": stepper}))
     log(json.dumps({"train": train}))
+    log(json.dumps({"sharded_serving": sharded}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -185,6 +185,16 @@ class ModelConfig:
                 + sum(self.block_param_count(k) for k in self.layer_kinds())
                 + self.encoder_param_count())
 
+    def active_param_count(self) -> int:
+        """Parameters a token touches (the reference's): an MoE layer's
+        top-k experts only."""
+        if not self.num_experts:
+            return self.param_count()
+        mats = 3 if self.mlp_activation in ("swiglu", "geglu") else 2
+        per_expert = self.d_model * (self.moe_d_ff or self.d_ff) * mats
+        moe_layers = sum(k in ATTN_BLOCKS for k in self.layer_kinds())
+        return self.param_count() - (self.num_experts - self.num_experts_per_tok) * per_expert * moe_layers
+
     def fingerprint(self) -> str:
         """The reference's: the first 12 hex digits of the SHA-1 of the
         fields as sorted JSON."""

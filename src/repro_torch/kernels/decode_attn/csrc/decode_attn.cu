@@ -50,6 +50,15 @@
 //    the G query rows' q and accumulators in registers (launch_d). Its
 //    grid aims at several resident blocks an SM (kernel.plan_for), since a
 //    block keeps only one step's loads in flight.
+//
+// Where the split merge ends, either kernel can also write each query row's
+// log-sum-exp, lse = m + log(l) in scaled-score units (natural log; -1e30
+// for an all-masked row), when the caller passes an lse buffer
+// (decode_attn_launch_lse); the output is then f32, the value the q dtype
+// would round. A sharded decode merges the per-rank outputs of its sequence
+// shards with both (models/attention.merge_shards), so the merged output
+// rounds once. Without the buffer nothing changes: the same launches write
+// the same output.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,6 +72,7 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.693147180559945f;
 constexpr int kWarps = 4;
 constexpr int kKeys = 4;  // keys a warp loads per step
 
@@ -254,7 +264,8 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 template <typename TO>
 __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
                                       const float* __restrict__ part_ml,
-                                      TO* __restrict__ out, int nsplit, int D) {
+                                      TO* __restrict__ out, float* __restrict__ lse,
+                                      int nsplit, int D) {
   const size_t row = blockIdx.x;
   const float* ml = part_ml + row * nsplit * 2;
   float M = kNegInf;
@@ -262,6 +273,7 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
   float L = 0.f;
   for (int s = 0; s < nsplit; ++s) L += ml[2 * s + 1] * expf(ml[2 * s] - M);
   const float inv = 1.f / fmaxf(L, 1e-30f);
+  if (lse != nullptr && threadIdx.x == 0) lse[row] = M + logf(L);
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     float A = 0.f;
     for (int s = 0; s < nsplit; ++s)
@@ -324,8 +336,9 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
                    const int* __restrict__ lengths,
-                   __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
-                   float* __restrict__ part_ml, int* __restrict__ tickets, int S, int Hkv,
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   float* __restrict__ part_acc, float* __restrict__ part_ml,
+                   int* __restrict__ tickets, int S, int Hkv,
                    float mul, float cap2) {
   constexpr int D = kRingD;
   extern __shared__ __align__(128) unsigned char ring_smem[];
@@ -506,7 +519,15 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
       A += s_acc[(w * R + r) * D + d] * c;
     }
     if (nsplit == 1) {
-      out[(qrow + g) * D + d] = __float2bfloat16_rn(A / fmaxf(L, 1e-30f));
+      const float o = A / fmaxf(L, 1e-30f);
+      if (lse == nullptr) {
+        out[(qrow + g) * D + d] = __float2bfloat16_rn(o);
+      } else {
+        reinterpret_cast<float*>(out)[(qrow + g) * D + d] = o;
+        // M is in base 2 (log2e times the score); an all-masked row's is
+        // the fill itself, which stays -1e30 as the f32 path's does
+        if (d == 0) lse[qrow + g] = all_masked ? kNegInf : (M + log2f(L)) * kLn2;
+      }
     } else {
       const size_t row = (qrow + g) * nsplit + split;
       part_acc[row * D + d] = A;
@@ -547,6 +568,7 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) L += __shfl_xor_sync(0xffffffffu, L, o);
     const float inv = 1.f / fmaxf(L, 1e-30f);
+    if (lse != nullptr && lane == 0) lse[qrow + g] = all_masked ? kNegInf : (M + log2f(L)) * kLn2;
     for (int s = lane; s < nsplit; s += 32) s_w[g * nsplit + s] *= inv;
   }
   __syncthreads();
@@ -562,6 +584,10 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
       A.y = fmaf(a.y, w[s], A.y);
       A.z = fmaf(a.z, w[s], A.z);
       A.w = fmaf(a.w, w[s], A.w);
+    }
+    if (lse != nullptr) {
+      reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + (qrow + g) * D)[c4] = A;
+      continue;
     }
     __nv_bfloat16* o = out + (qrow + g) * D + 4 * c4;
     o[0] = __float2bfloat16_rn(A.x);
@@ -623,7 +649,7 @@ cudaError_t cached_cache_map(CUtensorMap* map, const void* ptr, int B, int S, in
 
 template <int G, bool CAP>
 cudaError_t launch_ring_cap(const void* q, const void* k, const void* v, const int* lengths,
-                            void* out, float* pa, float* pm, int* tickets, int B, int S,
+                            void* out, float* lse, float* pa, float* pm, int* tickets, int B, int S,
                             int Hkv, int nsplit, float mul, float cap2, cudaStream_t st) {
   constexpr size_t smem = ring_smem_bytes<G>();
   static std::atomic<uint64_t> smem_set{0};
@@ -635,33 +661,37 @@ cudaError_t launch_ring_cap(const void* q, const void* k, const void* v, const i
     return err;
   decode_ring_kernel<G, CAP><<<dim3(nsplit, Hkv, B), kRingThreads, smem, st>>>(
       tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out), pa, pm,
+      static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out), lse, pa, pm,
       tickets, S, Hkv, mul, cap2);
   return cudaGetLastError();
 }
 
 template <int G>
 cudaError_t launch_ring(const void* q, const void* k, const void* v, const int* lengths,
-                        void* out, float* pa, float* pm, int* tickets, int B, int S, int Hkv,
+                        void* out, float* lse, float* pa, float* pm, int* tickets, int B, int S, int Hkv,
                         int nsplit, float scale, float softcap, cudaStream_t st) {
   if (softcap != 0.f)
-    return launch_ring_cap<G, true>(q, k, v, lengths, out, pa, pm, tickets, B, S, Hkv, nsplit,
+    return launch_ring_cap<G, true>(q, k, v, lengths, out, lse, pa, pm, tickets, B, S, Hkv, nsplit,
                                     2.f * kLog2e * scale / softcap, softcap * kLog2e, st);
-  return launch_ring_cap<G, false>(q, k, v, lengths, out, pa, pm, tickets, B, S, Hkv, nsplit,
+  return launch_ring_cap<G, false>(q, k, v, lengths, out, lse, pa, pm, tickets, B, S, Hkv, nsplit,
                                    scale * kLog2e, 0.f, st);
 }
 
 template <typename TQ, typename TKV, int D, int G>
 cudaError_t launch_typed(const void* q, const void* k, const void* v, const int* lengths,
-                         void* out, float* part_acc, float* part_ml, int B, int S, int Hkv,
+                         void* out, float* lse, float* part_acc, float* part_ml, int B, int S, int Hkv,
                          int nsplit, float scale, float softcap, cudaStream_t st) {
   const dim3 grid(nsplit, Hkv, B);
   const size_t smem = (size_t)kWarps * G * (D + 2) * sizeof(float);
   decode_split_kernel<TQ, TKV, D, G><<<grid, kWarps * 32, smem, st>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
       lengths, part_acc, part_ml, S, Hkv, scale, softcap);
-  decode_combine_kernel<TQ><<<B * Hkv * G, D < 32 ? 32 : D, 0, st>>>(
-      part_acc, part_ml, static_cast<TQ*>(out), nsplit, D);
+  if (lse != nullptr)
+    decode_combine_kernel<float><<<B * Hkv * G, D < 32 ? 32 : D, 0, st>>>(
+        part_acc, part_ml, static_cast<float*>(out), lse, nsplit, D);
+  else
+    decode_combine_kernel<TQ><<<B * Hkv * G, D < 32 ? 32 : D, 0, st>>>(
+        part_acc, part_ml, static_cast<TQ*>(out), nullptr, nsplit, D);
   return cudaGetLastError();
 }
 
@@ -674,21 +704,21 @@ constexpr bool kOddGroups = D == 64 || D == 128;
 
 template <typename TQ, typename TKV, int D>
 cudaError_t launch_d(int G, const void* q, const void* k, const void* v, const int* lengths,
-                     void* out, float* pa, float* pm, int B, int S, int Hkv, int nsplit,
+                     void* out, float* lse, float* pa, float* pm, int B, int S, int Hkv, int nsplit,
                      float scale, float softcap, cudaStream_t st) {
   switch (G) {
-    case 1: return launch_typed<TQ, TKV, D, 1>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
-    case 2: return launch_typed<TQ, TKV, D, 2>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
-    case 4: return launch_typed<TQ, TKV, D, 4>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
-    case 8: return launch_typed<TQ, TKV, D, 8>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    case 1: return launch_typed<TQ, TKV, D, 1>(q, k, v, lengths, out, lse, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    case 2: return launch_typed<TQ, TKV, D, 2>(q, k, v, lengths, out, lse, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    case 4: return launch_typed<TQ, TKV, D, 4>(q, k, v, lengths, out, lse, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    case 8: return launch_typed<TQ, TKV, D, 8>(q, k, v, lengths, out, lse, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
     case 3:
-      if constexpr (kOddGroups<D>) return launch_typed<TQ, TKV, D, 3>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+      if constexpr (kOddGroups<D>) return launch_typed<TQ, TKV, D, 3>(q, k, v, lengths, out, lse, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
       return cudaErrorInvalidValue;
     case 6:
-      if constexpr (kOddGroups<D>) return launch_typed<TQ, TKV, D, 6>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+      if constexpr (kOddGroups<D>) return launch_typed<TQ, TKV, D, 6>(q, k, v, lengths, out, lse, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
       return cudaErrorInvalidValue;
     case 7:
-      if constexpr (kOddGroups<D>) return launch_typed<TQ, TKV, D, 7>(q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+      if constexpr (kOddGroups<D>) return launch_typed<TQ, TKV, D, 7>(q, k, v, lengths, out, lse, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
@@ -696,16 +726,17 @@ cudaError_t launch_d(int G, const void* q, const void* k, const void* v, const i
 
 template <typename TQ, typename TKV>
 cudaError_t launch_t(int D, int G, const void* q, const void* k, const void* v,
-                     const int* lengths, void* out, float* pa, float* pm, int B, int S,
+                     const int* lengths, void* out, float* lse, float* pa, float* pm, int B,
+                     int S,
                      int Hkv, int nsplit, float scale, float softcap, cudaStream_t st) {
   switch (D) {
-    case 32: return launch_d<TQ, TKV, 32>(G, q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
-    case 64: return launch_d<TQ, TKV, 64>(G, q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
-    case 128: return launch_d<TQ, TKV, 128>(G, q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    case 32: return launch_d<TQ, TKV, 32>(G, q, k, v, lengths, out, lse, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    case 64: return launch_d<TQ, TKV, 64>(G, q, k, v, lengths, out, lse, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    case 128: return launch_d<TQ, TKV, 128>(G, q, k, v, lengths, out, lse, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
     case 256:
       // bf16 q and cache at D = 256 go to decode_ring_kernel
       if constexpr (!std::is_same_v<TQ, __nv_bfloat16>)
-        return launch_d<TQ, TKV, 256>(G, q, k, v, lengths, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+        return launch_d<TQ, TKV, 256>(G, q, k, v, lengths, out, lse, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
@@ -720,36 +751,48 @@ extern "C" {
 // bf16 for f32 parameters). Scratch from the caller: part_acc (B*Hq*nsplit*D
 // f32), part_ml (B*Hq*nsplit*2 f32) and, for the bf16 kernel, tickets
 // (B*Hkv int32, zero before the first launch; each launch leaves them zero).
+// lse: B*Hq f32 for each query row's log-sum-exp, or null for none; with
+// it, out is B*Hq*D f32 whatever q_dtype is.
 // Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
 // for a shape or type the kernel does not take.
-int decode_attn_launch(const void* q, const void* k, const void* v, const void* lengths,
-                       void* out, void* part_acc, void* part_ml, void* tickets, int B, int S,
-                       int Hq, int Hkv, int D, int nsplit, float scale, float softcap,
-                       int q_dtype, int kv_dtype, void* stream) {
+int decode_attn_launch_lse(const void* q, const void* k, const void* v, const void* lengths,
+                           void* out, void* lse, void* part_acc, void* part_ml, void* tickets,
+                           int B, int S, int Hq, int Hkv, int D, int nsplit, float scale,
+                           float softcap, int q_dtype, int kv_dtype, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || nsplit <= 0 || S <= 0) return cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   const int* len = static_cast<const int*>(lengths);
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
   int* tk = static_cast<int*>(tickets);
+  float* ls = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 1 && kv_dtype == 1 && D == kRingD) {
     switch (G) {
-      case 1: return launch_ring<1>(q, k, v, len, out, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
-      case 2: return launch_ring<2>(q, k, v, len, out, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
-      case 4: return launch_ring<4>(q, k, v, len, out, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
-      case 8: return launch_ring<8>(q, k, v, len, out, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
-      case 16: return launch_ring<16>(q, k, v, len, out, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+      case 1: return launch_ring<1>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+      case 2: return launch_ring<2>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+      case 4: return launch_ring<4>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+      case 8: return launch_ring<8>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+      case 16: return launch_ring<16>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
       default: return cudaErrorInvalidValue;
     }
   }
   if (q_dtype == 0 && kv_dtype == 0)
-    return launch_t<float, float>(D, G, q, k, v, len, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    return launch_t<float, float>(D, G, q, k, v, len, out, ls, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
   if (q_dtype == 1 && kv_dtype == 1)
-    return launch_t<__nv_bfloat16, __nv_bfloat16>(D, G, q, k, v, len, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    return launch_t<__nv_bfloat16, __nv_bfloat16>(D, G, q, k, v, len, out, ls, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
   if (q_dtype == 0 && kv_dtype == 1)
-    return launch_t<float, __nv_bfloat16>(D, G, q, k, v, len, out, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    return launch_t<float, __nv_bfloat16>(D, G, q, k, v, len, out, ls, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
   return cudaErrorInvalidValue;
+}
+
+// The same launches without the log-sum-exp.
+int decode_attn_launch(const void* q, const void* k, const void* v, const void* lengths,
+                       void* out, void* part_acc, void* part_ml, void* tickets, int B, int S,
+                       int Hq, int Hkv, int D, int nsplit, float scale, float softcap,
+                       int q_dtype, int kv_dtype, void* stream) {
+  return decode_attn_launch_lse(q, k, v, lengths, out, nullptr, part_acc, part_ml, tickets, B, S,
+                                Hq, Hkv, D, nsplit, scale, softcap, q_dtype, kv_dtype, stream);
 }
 
 const char* decode_attn_error_string(int code) {

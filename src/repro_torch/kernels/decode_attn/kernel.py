@@ -1,7 +1,9 @@
 """ctypes wrapper of the CUDA decode attention kernels (``csrc/decode_attn.cu``).
 
 ``decode_attention_cuda.launches`` counts the calls that launched a kernel;
-nothing else changes it.
+nothing else changes it. With ``return_lse`` a call also returns each query
+row's log-sum-exp through ``decode_attn_launch_lse``; without it, it calls
+``decode_attn_launch`` as before.
 """
 from __future__ import annotations
 
@@ -43,6 +45,18 @@ def _entry():
     lib = _build.load("decode_attn")
     fn = lib.decode_attn_launch
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+@functools.cache
+def _entry_lse():
+    """The launch that also writes the log-sum-exp: ``decode_attn_launch``'s
+    arguments with the lse buffer after the output."""
+    lib = _build.load("decode_attn")
+    fn = lib.decode_attn_launch_lse
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                    + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
@@ -115,9 +129,12 @@ def _scratch(device: torch.device, stream: int, n_tickets: int, n_partials: int)
 
 
 def decode_attention_cuda(q, cache_k, cache_v, lengths, *, scale: float,
-                          softcap: float = 0.0):
+                          softcap: float = 0.0, return_lse: bool = False):
     """q: (B, 1, Hq, D); cache_k/v: (B, S, Hkv, D); lengths: (B,) valid
-    slots per row. Returns (B, 1, Hq, D) in q's dtype."""
+    slots per row. Returns (B, 1, Hq, D) in q's dtype; with ``return_lse``,
+    the output in f32 (the value q's dtype would round) and the (B, Hq) f32
+    log-sum-exp of each row's scaled, softcapped, masked scores (-1e30 for
+    a row of length <= 0)."""
     if not all(t.is_cuda for t in (q, cache_k, cache_v, lengths)):
         raise ValueError("decode_attention_cuda takes CUDA tensors only")
     if q.dim() != 4 or q.shape[1] != 1 or cache_k.dim() != 4:
@@ -143,18 +160,23 @@ def decode_attention_cuda(q, cache_k, cache_v, lengths, *, scale: float,
 
     splits = plan_for(b, hkv, s, d, q.dtype, cache_k.dtype, _sm_count(q.device.index or 0))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if return_lse else q.dtype)
     n_acc = b * hq * splits * d      # part_acc, then part_ml (b * hq * splits * 2)
     tickets, partials = _scratch(q.device, stream, b * hkv, n_acc + b * hq * splits * 2)
     part_acc = partials.data_ptr()
-    lib, fn = _entry()
-    code = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), lengths.data_ptr(),
-              out.data_ptr(), part_acc, part_acc + 4 * n_acc, tickets.data_ptr(),
+    ptrs = [q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), lengths.data_ptr(),
+            out.data_ptr()]
+    lse = None
+    if return_lse:
+        lse = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+        ptrs.append(lse.data_ptr())
+    lib, fn = _entry_lse() if return_lse else _entry()
+    code = fn(*ptrs, part_acc, part_acc + 4 * n_acc, tickets.data_ptr(),
               b, s, hq, hkv, d, splits, float(scale), float(softcap),
               DTYPE_CODES[q.dtype], DTYPE_CODES[cache_k.dtype], stream)
     _build.check(lib, "decode_attn", code)
     decode_attention_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention_cuda.launches = 0

@@ -19,6 +19,17 @@ The projections are 2-D products against the weights reshaped to
 
 The cache writers update the cache tensors in place (the reference returns
 new arrays) and return them, so a step allocates no second cache.
+
+On a mesh (DTensor activations and caches, ``parallel.sharding``): prefill
+attends each rank's batch rows and heads under ``local_map`` (K3 a rank).
+The caches are placed by ``model.cache_specs`` under the decode rules, the
+slots over ``model``: each rank writes only the slots it holds, and a
+decode step runs K2 on each rank's slots at its local lengths, then
+``merge_shards`` combines the ranks' outputs by their log-sum-exp with
+three all-reduces over the mesh dimensions that split the slots: the
+max, and the sums of the weighted outputs and of the weights. These are
+the all-reduces GSPMD gives the reference's ``decode_attend`` over a
+sharded ``act_kv_seq``.
 """
 from __future__ import annotations
 
@@ -26,11 +37,12 @@ import functools
 import math
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.kernels.decode_attn.ops import decode_attention
-from repro_torch.kernels.flash_attn.ops import flash_attention
+from repro_torch.kernels.decode_attn.ops import decode_attention_op
+from repro_torch.kernels.flash_attn.ops import flash_attention_op
 from repro_torch.models.layers import rms_headnorm, rope, softcap
 from repro_torch.parallel.sharding import constrain
 
@@ -42,9 +54,46 @@ def _scale(cfg) -> float:
     return cfg.query_scale or 1.0 / math.sqrt(cfg.head_dim)
 
 
+class _GradPlacedLike(torch.autograd.Function):
+    """The identity on a DTensor, whose gradient comes back in the input's
+    placements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def _flat_weight(w, shape, heads_dim: int):
+    """``w.reshape(shape)``. On a mesh where a dimension of size n does not
+    divide w's heads, DTensor may split the product's gradient over the
+    flattened heads n ways, which the reshape's backward cannot unflatten;
+    the gradient then comes back in the weight's placements first."""
+    flat = w.reshape(shape)
+    if isinstance(w, DTensor) and any(
+            p == Replicate() and w.shape[heads_dim] % n
+            for p, n in zip(w.placements, w.device_mesh.shape)):
+        return _GradPlacedLike.apply(flat)
+    return flat
+
+
 def _heads(x, w):
-    """x (B, S, d) times w (d, H, Dh) -> (B, S, H, Dh), as one 2-D product."""
-    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    """x (B, S, d) times w (d, H, Dh) -> (B, S, H, Dh), as one 2-D product.
+    On a mesh, DTensor may split the product's H·Dh columns over more ranks
+    than divide H (2 kv heads over a ``model`` of 4); those columns are
+    gathered before they are split into heads."""
+    y = x @ _flat_weight(w, (w.shape[0], -1), 1)
+    if isinstance(y, DTensor):
+        col = Shard(y.dim() - 1)
+        ways = math.prod(n for p, n in zip(y.placements, y.device_mesh.shape) if p == col)
+        if w.shape[1] % ways:
+            y = y.redistribute(y.device_mesh, [Replicate() if p == col else p
+                                               for p in y.placements])
+    return y.unflatten(-1, w.shape[1:])
 
 
 def project_qkv(cfg, params, x, kv_x=None, *, positions=None, kv_positions=None,
@@ -80,7 +129,7 @@ def cross_query(cfg, params, x_t):
 def output_proj(cfg, params, o, env=None):
     """o (B, S, Hq, Dh) times wo (Hq, Dh, d) -> (B, S, d), one 2-D product."""
     wo = params["wo"]
-    out = o.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+    out = o.flatten(-2) @ _flat_weight(wo, (-1, wo.shape[-1]), 0)
     out = out + params["bo"] if cfg.attn_bias else out
     return constrain(env, out, "act_batch", "act_seq", "act_embed")
 
@@ -91,14 +140,18 @@ def attention_core(cfg, q, k, v, *, mask_kind: str, prefix_len: int = 0):
     ``mask_kind``: "causal"; "local" (causal within ``cfg.local_window``);
     "full" (no mask: the encoder's self-attention, and cross-attention with
     Sq != Skv); "prefix" (causal, and keys before ``prefix_len`` visible to
-    every query: paligemma's image prefix).
+    every query: paligemma's image prefix). On a mesh (DTensors) K3 runs on
+    each rank's rows and heads (``_attend_shards``).
     """
     if mask_kind not in ("causal", "local", "full", "prefix"):
         raise ValueError(f"unknown mask_kind {mask_kind!r}")
+    if isinstance(q, DTensor):
+        return _attend_shards(functools.partial(attention_core, cfg, mask_kind=mask_kind,
+                                                prefix_len=prefix_len), q, k, v)
     window = cfg.local_window if mask_kind == "local" else 0
-    return flash_attention(q, k, v, causal=mask_kind != "full", window=window,
-                           prefix_len=prefix_len if mask_kind == "prefix" else 0,
-                           softcap=cfg.attn_logit_softcap, scale=_scale(cfg))
+    return flash_attention_op(q, k, v, causal=mask_kind != "full", window=window,
+                              prefix_len=prefix_len if mask_kind == "prefix" else 0,
+                              softcap=cfg.attn_logit_softcap, scale=_scale(cfg))
 
 
 def _mask_block(mask_kind: str, qpos, kpos, window: int, prefix_len):
@@ -177,16 +230,6 @@ def attention_chunked(cfg, q, k, v, *, mask_kind: str, q_offset: int = 0,
     return out.to(q.dtype)
 
 
-def check_serving_env(env) -> None:
-    """Serving runs on a mesh of one device only: with the KV sequence
-    sharded over ``model`` the kernels need a ``local_map`` wrapper and a
-    merge of the splits across ranks (ROADMAP item 12)."""
-    if env is not None and env.size > 1:
-        raise NotImplementedError(
-            "serving on a mesh of more than one device (K2 and K3 under local_map with the KV "
-            "sequence over model) is ROADMAP item 12")
-
-
 def _attend_shards(attend, q, k, v):
     """``attend`` (over plain tensors) on each rank's shards of the DTensors
     q, k, v under ``local_map``: the batch and the heads split as the
@@ -215,9 +258,58 @@ def _attend_shards(attend, q, k, v):
                      device_mesh=mesh)(q, k, v)
 
 
+# ---------------------------------------------------------------- on a mesh
+def slot_shard(cache):
+    """(first slot, slots, the mesh dimensions that split them, major to
+    minor) of this rank's part of a cache DTensor (B, S, H, D). A cache
+    whose S no mesh dimension of more than one rank splits (``ShardEnv._fit``
+    left it whole, or the mesh has one rank) is all on every rank: (0, S,
+    [])."""
+    mesh = cache.device_mesh
+    dims = [i for i, p in enumerate(cache.placements) if p == Shard(1) and mesh.size(i) > 1]
+    coord, idx = mesh.get_coordinate(), 0
+    for i in dims:
+        idx = idx * mesh.size(i) + coord[i]
+    n = cache.to_local().shape[1]
+    return idx * n, n, dims
+
+
+def _row_placements(cache):
+    return [Shard(0) if p == Shard(0) else Replicate() for p in cache.placements]
+
+
+def rows_like(x, cache):
+    """``x`` (a DTensor whose dim 0 is the batch) split over the batch as
+    ``cache`` is, whole elsewhere: each rank's rows, every position and
+    head."""
+    return x.redistribute(cache.device_mesh, _row_placements(cache))
+
+
+def _write_local(cache_k, cache_v, k, v, src_of):
+    """Each rank writes its own slots: local slot j takes position
+    ``src_of(global slot)`` of k/v (None: unchanged)."""
+    off, n, _ = slot_shard(cache_k)
+    dst, src = [], []
+    for j in range(n):
+        p = src_of(off + j)
+        if p is not None:
+            dst.append(j)
+            src.append(p)
+    dev = cache_k.device
+    dst, src = torch.tensor(dst, device=dev), torch.tensor(src, device=dev)
+    for cache, x in ((cache_k, k), (cache_v, v)):
+        rows = rows_like(x, cache).to_local()   # a collective: every rank takes part
+        if len(dst):
+            local = cache.to_local()
+            local[:, dst] = rows[:, src].to(local.dtype)
+    return cache_k, cache_v
+
+
 def write_full_cache(cache_k, cache_v, k, v):
     """Write a prefill's k/v into slots [0, S) of a full-length cache."""
     s = k.shape[1]
+    if isinstance(cache_k, DTensor):
+        return _write_local(cache_k, cache_v, k, v, lambda g: g if g < s else None)
     cache_k[:, :s] = k.to(cache_k.dtype)
     cache_v[:, :s] = v.to(cache_v.dtype)
     return cache_k, cache_v
@@ -228,6 +320,11 @@ def write_ring_cache(cache_k, cache_v, k, v):
     slot of absolute position p is p % W."""
     w, s = cache_k.shape[1], k.shape[1]
     n = min(s, w)
+    if isinstance(cache_k, DTensor):
+        def src_of(g):      # the position in [s - n, s) whose slot is g
+            p = s - n + (g - (s - n)) % w
+            return p if p < s else None
+        return _write_local(cache_k, cache_v, k, v, src_of)
     idx = torch.arange(s - n, s, device=k.device) % w
     cache_k[:, idx] = k[:, s - n:].to(cache_k.dtype)
     cache_v[:, idx] = v[:, s - n:].to(cache_v.dtype)
@@ -239,9 +336,26 @@ def decode_write(cache_k, cache_v, k_t, v_t, pos, ring: bool):
     position of the new token (slot ``pos % W`` in a ring)."""
     w = cache_k.shape[1]
     slots = pos % w if ring else pos
+    if isinstance(cache_k, DTensor):
+        return _decode_write_local(cache_k, cache_v, k_t, v_t, slots)
     rows = torch.arange(cache_k.shape[0], device=cache_k.device)
     cache_k[rows, slots] = k_t[:, 0].to(cache_k.dtype)
     cache_v[rows, slots] = v_t[:, 0].to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def _decode_write_local(cache_k, cache_v, k_t, v_t, slots):
+    """``decode_write`` on caches split over the slots: the rank holding a
+    row's slot writes it; the others write back what they hold."""
+    off, n, _ = slot_shard(cache_k)
+    slot = rows_like(slots, cache_k).to_local() - off
+    mine = (slot >= 0) & (slot < n)
+    slot = slot.clamp(0, n - 1)
+    for cache, x in ((cache_k, k_t), (cache_v, v_t)):
+        local = cache.to_local()
+        rows = torch.arange(local.shape[0], device=local.device)
+        new = rows_like(x, cache).to_local()[:, 0].to(local.dtype)
+        local[rows, slot] = torch.where(mine[:, None, None], new, local[rows, slot])
     return cache_k, cache_v
 
 
@@ -259,17 +373,80 @@ def decode_lengths(pos, slots: int, *, ring: bool):
     return (pos + 1).to(torch.int32)
 
 
-def decode_attend(cfg, q_t, cache_k, cache_v, pos, *, ring: bool, cross: bool = False,
-                  env=None):
+def merge_shards(out, lse, has, reduce_max, reduce_sum):
+    """Combine K2's results over disjoint parts of one cache: ``out`` (B, 1,
+    Hq, D) f32 and ``lse`` (B, Hq) of each part (``return_lse``), ``has``
+    (B,) whether the part holds a valid slot of the row. ``reduce_max`` and
+    ``reduce_sum`` reduce over the parts: all-reduces over the mesh
+    dimensions that split the slots, or reductions over a stacked dimension
+    (``chip_smoke.py`` phase 10b). A part with no valid slot gets weight 0
+    by ``has``, whatever its ``lse`` (K2 reads a length of 0 as all of its
+    slots, masked). Returns the merged (B, 1, Hq, D) in f32."""
+    m = reduce_max(torch.where(has[..., None], lse, NEG_INF))
+    w = torch.where(has[..., None], torch.exp(lse - m), 0.0)
+    num = reduce_sum(w.unsqueeze(-2).unsqueeze(-1) * out)
+    return num / reduce_sum(w).unsqueeze(-2).unsqueeze(-1)
+
+
+def merge_stacked(out, lse, has):
+    """``merge_shards`` over parts stacked on a leading dimension: out (P, B,
+    1, Hq, D), lse (P, B, Hq), has (P, B)."""
+    return merge_shards(out, lse, has, lambda x: x.amax(0, keepdim=True), lambda x: x.sum(0))
+
+
+def _all_reduce(mesh, dims, op):
+    """A reduction over the mesh dimensions ``dims``, one all-reduce each."""
+    def reduce(x):
+        for i in dims:
+            x = funcol.all_reduce(x, op, (mesh, i))
+        return x
+    return reduce
+
+
+def _decode_shards(attend, q_t, cache_k, cache_v, pos):
+    """``attend(q, k, v, pos, offset, slots)`` (over plain tensors, with
+    ``return_lse`` when the slots are split) on each rank's rows and slots
+    under ``local_map``, merged over the ranks that split the slots."""
+    mesh = cache_k.device_mesh
+    off, n, dims = slot_shard(cache_k)
+    row_pl = _row_placements(cache_k)
+
+    def local(q, k, v, p):
+        if not dims:
+            return attend(q, k, v, p, off, n)
+        o, lse, has = attend(q, k, v, p, off, n)
+        merged = merge_shards(o, lse, has, _all_reduce(mesh, dims, "max"),
+                              _all_reduce(mesh, dims, "sum"))
+        return merged.to(q.dtype)
+
+    pos_pl = None if pos is None else row_pl
+    return local_map(local, out_placements=row_pl,
+                     in_placements=(row_pl, cache_k.placements, cache_v.placements, pos_pl),
+                     device_mesh=mesh)(rows_like(q_t, cache_k), cache_k, cache_v,
+                                       None if pos is None else rows_like(pos, cache_k))
+
+
+def decode_attend(cfg, q_t, cache_k, cache_v, pos, *, ring: bool, cross: bool = False):
     """One-token attention against a cache. q_t: (B, 1, Hq, Dh); cache:
     (B, S, Hkv, Dh); pos: (B,) position of the new token, already written.
     ``cross``: the cache holds an encoder's K/V, every slot valid for every
     row (``pos`` is not read). The reference constrains its scores here
     (the KV sequence over ``model`` under ``DECODE_RULES``); K2 keeps them
-    inside the kernel, so a mesh of more than one device raises."""
-    check_serving_env(env)
-    b, s = cache_k.shape[:2]
-    lengths = (torch.full((b,), s, dtype=torch.int32, device=cache_k.device) if cross
-               else decode_lengths(pos, s, ring=ring))
-    return decode_attention(q_t, cache_k, cache_v, lengths,
-                            softcap=cfg.attn_logit_softcap, scale=_scale(cfg))
+    inside the kernel, and on a mesh each rank runs it on its own slots
+    (``_decode_shards``), its valid slots the first ``clamp(len − offset,
+    0, slots)`` of them."""
+    s = cache_k.shape[1]
+    kw = dict(softcap=cfg.attn_logit_softcap, scale=_scale(cfg))
+
+    def attend(q, k, v, p, off=0, n=s):
+        length = (torch.full((q.shape[0],), s, dtype=torch.int32, device=k.device) if cross
+                  else decode_lengths(p, s, ring=ring))
+        if n == s:
+            return decode_attention_op(q, k, v, length, **kw)
+        mine = torch.clamp(length - off, 0, n).to(torch.int32)
+        o, lse = decode_attention_op(q, k, v, mine, return_lse=True, **kw)
+        return o, lse, (mine > 0) | (length <= 0)
+
+    if isinstance(cache_k, DTensor):
+        return _decode_shards(attend, q_t, cache_k, cache_v, None if cross else pos)
+    return attend(q_t, cache_k, cache_v, pos)

@@ -64,8 +64,12 @@ Sharding: ``param_specs``, ``cache_specs`` and ``input_specs`` give the
 logical axes of every leaf (``parallel.sharding`` resolves them), and the
 model functions take ``env``, the reference's ``ShardEnv``, whose
 constraints redistribute DTensor activations at the reference's points
-(``env=None``: the single-device path, unchanged). Serving takes an env of
-one device only.
+(``env=None``: the single-device path, unchanged). Serving on a mesh:
+``prefill`` under the prefill rules allocates the cache under the decode
+rules (``sharding.phase_env``, or ``cache_env``), each rank its own slots,
+and writes its stripe; ``decode_step`` writes and attends each rank's slots
+(``attention.decode_attend``) and keeps the recurrent states placed as
+``cache_specs`` has them.
 
 A prefill's ``batch`` holds ``tokens`` (B, S) and the frontend's input:
 ``src_embeds`` (B, S_src, d), the encoder's frame embeddings, for an
@@ -90,6 +94,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
+from repro_torch.parallel import sharding as SH
 
 
 # ================================================================== params
@@ -183,12 +188,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
 
 # =================================================================== cache
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               kv_dtype=torch.bfloat16, device=None, cross_len: int = 0) -> List[Dict[str, Any]]:
+               kv_dtype=torch.bfloat16, device=None, cross_len: int = 0,
+               env=None) -> List[Dict[str, Any]]:
     """A zeroed cache, on the card unless ``device="cpu"``: K/V in
     ``kv_dtype`` for attention layers (with the cross-attention's
     ``cross_len`` slots, or ``max_len`` when 0, in an encoder-decoder), the
-    recurrent state in f32."""
+    recurrent state in f32. With ``env`` on a DeviceMesh, DTensors placed by
+    ``cache_specs`` under its rules, each rank allocating its shard only."""
     device = resolve_device(device)
+    if SH.on_devices(env):
+        struct = init_cache(cfg, batch, max_len, kv_dtype, "meta", cross_len)
+        shardings = SH.tree_shardings(env, cache_specs(cfg), struct)
+        return [{k: SH.zeros(t.shape, t.dtype, device, shardings[i][k]) for k, t in e.items()}
+                for i, e in enumerate(struct)]
 
     def f32(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
@@ -376,74 +388,75 @@ def _mask_kind(cfg, kind, prefix_len):
     return "prefix" if cfg.prefix_lm and prefix_len else "causal"
 
 
-def _cross_prefill(cfg, lp, x, entry, enc_out):
+def _cross_prefill(cfg, lp, x, entry, enc_out, env=None):
     """Cross-attention of the prompt over the encoder output (``ln_cross``,
     K/V with biases and no RoPE, the full mask); stores that K/V as the
     layer's ``ck``/``cv``."""
     h = L.rmsnorm(lp["ln_cross"], x, cfg.norm_eps)
-    q, k, v = attn.project_qkv(cfg, lp["cross"], h, kv_x=enc_out, use_rope=False)
+    q, k, v = attn.project_qkv(cfg, lp["cross"], h, kv_x=enc_out, use_rope=False, env=env)
     o = attn.attention_core(cfg, q, k, v, mask_kind="full")
-    entry["ck"].copy_(k)
-    entry["cv"].copy_(v)
-    return attn.output_proj(cfg, lp["cross"], o)
+    attn.write_full_cache(entry["ck"], entry["cv"], k, v)
+    return attn.output_proj(cfg, lp["cross"], o, env)
 
 
-def _cross_decode(cfg, lp, x_t, entry):
+def _cross_decode(cfg, lp, x_t, entry, env=None):
     """A step's cross-attention against the stored ``ck``/``cv``."""
     h = L.rmsnorm(lp["ln_cross"], x_t, cfg.norm_eps)
     q = attn.cross_query(cfg, lp["cross"], h)
     o = attn.decode_attend(cfg, q, entry["ck"], entry["cv"], None, ring=False, cross=True)
-    return attn.output_proj(cfg, lp["cross"], o)
+    return attn.output_proj(cfg, lp["cross"], o, env)
 
 
 def _keep_state(entry, state):
-    """Write a recurrent block's new (h, conv) into its cache entry in place."""
-    entry["h"].copy_(state[0])
-    entry["conv"].copy_(state[1])
+    """Write a recurrent block's new (h, conv) into its cache entry in place
+    (on a mesh, placed as the entry is)."""
+    entry["h"].copy_(SH.placed_like(state[0], entry["h"]))
+    entry["conv"].copy_(SH.placed_like(state[1], entry["conv"]))
 
 
-def _block_prefill(cfg, kind, lp, x, entry, positions, prefix_len=0, enc_out=None):
+def _block_prefill(cfg, kind, lp, x, entry, positions, prefix_len=0, enc_out=None, env=None):
     """One block over the prompt, filling its cache entry. RG-LRU has its
     FFN after it; SSD only its residual; an encoder-decoder's attention
     block its cross-attention over ``enc_out`` before the FFN."""
     h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     if kind == BLOCK_RGLRU:
-        out, state = rglru_mod.rglru_forward(cfg, lp["rglru"], h, return_state=True)
+        out, state = rglru_mod.rglru_forward(cfg, lp["rglru"], h, return_state=True, env=env)
         _keep_state(entry, state)
-        return _ffn(cfg, lp, x + out)
+        return _ffn(cfg, lp, x + out, env)
     if kind == BLOCK_SSD:
-        out, state = ssd_mod.ssd_forward(cfg, lp["ssd"], h, return_state=True)
+        out, state = ssd_mod.ssd_forward(cfg, lp["ssd"], h, return_state=True, env=env)
         _keep_state(entry, state)
         return x + out
-    q, k, v = attn.project_qkv(cfg, lp["attn"], h, positions=positions)
+    q, k, v = attn.project_qkv(cfg, lp["attn"], h, positions=positions, env=env)
     o = attn.attention_core(cfg, q, k, v, mask_kind=_mask_kind(cfg, kind, prefix_len),
                             prefix_len=prefix_len)
-    out = attn.output_proj(cfg, lp["attn"], o)
+    out = attn.output_proj(cfg, lp["attn"], o, env)
     if kind == BLOCK_LOCAL_ATTN and entry["k"].shape[1] < k.shape[1]:
         attn.write_ring_cache(entry["k"], entry["v"], k, v)
     else:
         attn.write_full_cache(entry["k"], entry["v"], k, v)
     cross = None if enc_out is None else (
-        lambda y: _cross_prefill(cfg, lp, y, entry, enc_out))
-    return _residual(cfg, lp, x, h, out, cross)
+        lambda y: _cross_prefill(cfg, lp, y, entry, enc_out, env))
+    return _residual(cfg, lp, x, h, out, cross, env)
 
 
-def _block_decode(cfg, kind, lp, x_t, entry, pos):
+def _block_decode(cfg, kind, lp, x_t, entry, pos, env=None):
     h = L.rmsnorm(lp["ln1"], x_t, cfg.norm_eps)
     if kind == BLOCK_RGLRU:
-        out, state = rglru_mod.rglru_step(cfg, lp["rglru"], h, (entry["h"], entry["conv"]))
+        out, state = rglru_mod.rglru_step(cfg, lp["rglru"], h, (entry["h"], entry["conv"]),
+                                          env=env)
         _keep_state(entry, state)
-        return _ffn(cfg, lp, x_t + out)
+        return _ffn(cfg, lp, x_t + out, env)
     if kind == BLOCK_SSD:
-        out, state = ssd_mod.ssd_step(cfg, lp["ssd"], h, (entry["h"], entry["conv"]))
+        out, state = ssd_mod.ssd_step(cfg, lp["ssd"], h, (entry["h"], entry["conv"]), env=env)
         _keep_state(entry, state)
         return x_t + out
-    q, k, v = attn.project_qkv(cfg, lp["attn"], h, positions=pos[:, None])
+    q, k, v = attn.project_qkv(cfg, lp["attn"], h, positions=pos[:, None], env=env)
     ring = kind == BLOCK_LOCAL_ATTN
     attn.decode_write(entry["k"], entry["v"], k, v, pos, ring)
     o = attn.decode_attend(cfg, q, entry["k"], entry["v"], pos, ring=ring)
-    cross = (lambda y: _cross_decode(cfg, lp, y, entry)) if "ck" in entry else None
-    return _residual(cfg, lp, x_t, h, attn.output_proj(cfg, lp["attn"], o), cross)
+    cross = (lambda y: _cross_decode(cfg, lp, y, entry, env)) if "ck" in entry else None
+    return _residual(cfg, lp, x_t, h, attn.output_proj(cfg, lp["attn"], o, env), cross, env)
 
 
 def _logits(cfg, params, x, env=None):
@@ -499,38 +512,44 @@ def _encode(cfg, params, src, attend=attn.attention_core, wrap=lambda fn: fn, en
 
 # ========================================================= prefill/decode
 def prefill(cfg: ModelConfig, params, batch, max_len: int = 0,
-            kv_dtype=torch.bfloat16, env=None):
+            kv_dtype=torch.bfloat16, env=None, cache_env=None):
     """Run the prompt (``batch["tokens"]`` (B, S), after ``patch_embeds``
     (B, P, d) for a vision frontend; an encoder-decoder first encodes
     ``src_embeds`` (B, S_src, d)), fill a new cache of max(max_len, P+S)
     slots, return (last_logits (B, V), cache, pos) with pos = P+S-1 for
     every row. The next token's position is pos+1, and decode step i (from
-    0) passes pos+1+i. ``env``: a mesh of one device only (ROADMAP item
-    12 lowers serving over more)."""
-    attn.check_serving_env(env)
-    enc_out = _encode(cfg, params, batch["src_embeds"]) if cfg.is_encoder_decoder else None
-    x, positions, prefix_len = _embed_inputs(cfg, params, batch)
-    b, s = x.shape[:2]
-    cache = init_cache(cfg, b, max(max_len or s, s), kv_dtype, x.device,
-                       cross_len=0 if enc_out is None else enc_out.shape[1])
-    for kind, lp, entry in zip(cfg.layer_kinds(), params["layers"], cache):
-        x = _block_prefill(cfg, kind, lp, x, entry, positions, prefix_len, enc_out)
-    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    logits = _logits(cfg, params, x)[:, 0]
+    0) passes pos+1+i. ``env``: the prefill's rules on a mesh (parameters
+    and batch placed by ``param_specs`` and the batch's specs); the cache
+    and pos are placed under ``cache_env``, by default ``env`` with the
+    decode rules (``sharding.phase_env``)."""
+    cache_env = cache_env or SH.phase_env(env, "decode")
+    with SH.sharded(env):
+        enc_out = (_encode(cfg, params, batch["src_embeds"], env=env)
+                   if cfg.is_encoder_decoder else None)
+        x, positions, prefix_len = _embed_inputs(cfg, params, batch, env)
+        b, s = x.shape[:2]
+        cache = init_cache(cfg, b, max(max_len or s, s), kv_dtype, x.device,
+                           cross_len=0 if enc_out is None else enc_out.shape[1], env=cache_env)
+        for kind, lp, entry in zip(cfg.layer_kinds(), params["layers"], cache):
+            x = _block_prefill(cfg, kind, lp, x, entry, positions, prefix_len, enc_out, env)
+        x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+        logits = _logits(cfg, params, x, env)[:, 0]
     pos = torch.full((b,), s - 1, dtype=torch.int32, device=x.device)
+    if SH.on_devices(cache_env):
+        pos = SH.distribute(pos, cache_env.sharding("act_batch", shape=(b,)))
     return logits, cache, pos
 
 
 def decode_step(cfg: ModelConfig, params, token, pos, cache, env=None):
     """One decode step. token: (B, 1) int; pos: (B,) absolute position of
     the new token. Updates ``cache`` in place; returns (logits (B, V),
-    cache). ``env`` as ``prefill``'s."""
-    attn.check_serving_env(env)
-    x = L.embed_lookup(params["embed"], token, cfg.embed_scale)
-    for kind, lp, entry in zip(cfg.layer_kinds(), params["layers"], cache):
-        x = _block_decode(cfg, kind, lp, x, entry, pos)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(cfg, params, x)[:, 0], cache
+    cache). ``env``: the decode rules on a mesh, as the cache was placed."""
+    with SH.sharded(env):
+        x = L.embed_lookup(params["embed"], token, cfg.embed_scale, env)
+        for kind, lp, entry in zip(cfg.layer_kinds(), params["layers"], cache):
+            x = _block_decode(cfg, kind, lp, x, entry, pos, env)
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return _logits(cfg, params, x, env)[:, 0], cache
 
 
 # ================================================================ training

@@ -95,14 +95,15 @@ def rglru_forward(cfg, params, x, *, chunk: int = 256, h0=None, conv_state=None,
     return out
 
 
-def rglru_step(cfg, params, x_t, state):
+def rglru_step(cfg, params, x_t, state, env=None):
     """One decode step. x_t: (B, 1, d); state = (h (B, W) f32, conv state
-    (B, width-1, W) f32). Returns (out (B, 1, d), new state)."""
+    (B, width-1, W) f32). Returns (out (B, 1, d), new state); ``env``
+    constrains the recurrent input and the output as ``rglru_forward``."""
     h, conv_state = state
     ga = F.gelu(x_t[:, 0] @ params["w_a"], approximate="tanh")
-    u = x_t[:, 0] @ params["w_b"]
+    u = constrain(env, x_t[:, 0] @ params["w_b"], "act_batch", "act_mlp")
     u_conv, new_conv = conv1d_step(params["conv"], u, conv_state.to(u.dtype))
     a, b = _gates(params, u_conv)
     h_new = a * h + b
     out = (ga.float() * h_new).to(x_t.dtype) @ params["w_out"]
-    return out[:, None, :], (h_new, new_conv.float())
+    return constrain(env, out, "act_batch", "act_embed")[:, None, :], (h_new, new_conv.float())

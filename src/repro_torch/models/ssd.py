@@ -115,12 +115,13 @@ def ssd_forward(cfg, params, x, *, state=None, conv_state=None,
     return out
 
 
-def ssd_step(cfg, params, x_t, state):
+def ssd_step(cfg, params, x_t, state, env=None):
     """One decode step. x_t: (B, 1, d); state: (h (B, nh, P, N) f32, conv
-    state (B, width-1, d_inner+2N) f32). Returns (out (B, 1, d), new state)."""
+    state (B, width-1, d_inner+2N) f32). Returns (out (B, 1, d), new state);
+    ``env`` constrains the projection and the output as ``ssd_forward``."""
     h, conv_state = state
     di, n, nh, p_dim = cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_num_heads, cfg.ssm_head_dim
-    proj = x_t[:, 0] @ params["w_in"]
+    proj = constrain(env, x_t[:, 0] @ params["w_in"], "act_batch", "act_mlp")
     z, xbc, dt = _split_proj(cfg, proj)
     xbc_c, new_conv = conv1d_step(params["conv"], xbc, conv_state.to(xbc.dtype))
     xbc_c = F.silu(xbc_c)
@@ -134,5 +135,5 @@ def ssd_step(cfg, params, x_t, state):
     y = y + params["d_skip"][:, None] * xs
     y = y.reshape(-1, di)
     y = _gated_norm(params, y, z, cfg.norm_eps).to(x_t.dtype)
-    out = y @ params["w_out"]
+    out = constrain(env, y @ params["w_out"], "act_batch", "act_embed")
     return out[:, None, :], (h_new, new_conv.float())

@@ -25,11 +25,14 @@ Baseline parallelism (the rule tables are the reference's, key for key):
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
+import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 Axes = Union[None, str, Tuple[str, ...]]
 
@@ -244,6 +247,31 @@ class ShardEnv:
                          for k, v in self.rules.items()})
 
 
+# The keys whose rules differ between the two serving phases: heads over
+# ``model`` at prefill, the KV sequence over it at decode.
+PHASE_KEYS = tuple(k for k in DECODE_RULES if DECODE_RULES[k] != DEFAULT_RULES[k])
+
+
+def phase_env(env: Optional[ShardEnv], mode: str) -> Optional[ShardEnv]:
+    """``env`` with the rules of serving phase ``mode`` ("prefill" or
+    "decode") at ``PHASE_KEYS``, its other rules (the batch's, overrides)
+    kept; None stays None."""
+    if env is None:
+        return None
+    return env.with_rules({k: RULE_SETS[mode][k] for k in PHASE_KEYS})
+
+
+def on_devices(env: Optional[ShardEnv]) -> bool:
+    """Whether ``env`` holds a DeviceMesh (DTensors), not a description."""
+    return env is not None and not isinstance(env.mesh, MeshShape)
+
+
+def sharded(env: Optional[ShardEnv]):
+    """While a sharded step runs, plain tensors among DTensors (RoPE's
+    frequencies, positions, masks) count as replicated."""
+    return implicit_replication() if on_devices(env) else contextlib.nullcontext()
+
+
 def make_env(mesh, mode: str = "train",
              overrides: Sequence[Tuple[str, Axes]] = ()) -> ShardEnv:
     rules = dict(RULE_SETS[mode])
@@ -304,6 +332,18 @@ def distribute(x, sharding: Sharding):
     if all(n == 1 for p, n in zip(placements, mesh.shape) if p.is_shard()):
         return DTensor.from_local(x, mesh, placements, shape=x.shape, stride=x.stride())
     return distribute_tensor(x, mesh, placements, src_data_rank=None)
+
+
+def zeros(shape, dtype, device, sharding: Sharding):
+    """A zeroed DTensor of global ``shape`` placed by ``sharding``, each rank
+    allocating only its own shard (on ``device``, the meta device too)."""
+    local = list(shape)
+    for p, n in zip(sharding.placements, sharding.mesh.shape):
+        if p.is_shard():
+            local[p.dim] //= n
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device), sharding.mesh,
+                              sharding.placements, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def distribute_tree(tree, shardings):

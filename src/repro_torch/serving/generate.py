@@ -6,10 +6,12 @@ The counterpart of the reference's ``examples/serve_ciao.py``
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
-from repro_torch.models.attention import check_serving_env
+from repro_torch.parallel import sharding as SH
+from repro_torch.train.train_step import batch_logical_specs
 
 
 def generate(cfg, params, prompts, max_new_tokens: int, *, frontend=None, device=None,
@@ -24,21 +26,38 @@ def generate(cfg, params, prompts, max_new_tokens: int, *, frontend=None, device
     returns logits[:, i], whose argmax is tokens[:, i+1]. Returns (tokens
     (B, n) int64, logits (B, n, V)) on the device, n = max_new_tokens. Runs
     on the card unless ``device="cpu"``; ``params`` must already live on
-    that device. ``env``: a mesh of one device; a larger one raises
-    (serving over a mesh is ROADMAP item 12).
+    that device.
+
+    ``env``: the decode steps' ``ShardEnv`` (the decode or long-decode
+    rules) on a DeviceMesh, with ``params`` placed by ``param_specs``. The
+    prompts and frontend inputs are placed by the prefill batch's specs;
+    the prefill runs under ``phase_env(env, "prefill")``, the cache is
+    placed under ``env``, and tokens and logits come back as DTensors.
     """
-    check_serving_env(env)
     dev = resolve_device(device)
     batch = {name: torch.as_tensor(t, device=dev) for name, t in (frontend or {}).items()}
     batch["tokens"] = torch.as_tensor(prompts, device=dev)
+    prefill_env = SH.phase_env(env, "prefill")
+    if SH.on_devices(env):
+        batch = SH.distribute_tree(batch, SH.tree_shardings(
+            prefill_env, {k: batch_logical_specs(cfg, "prefill")[k] for k in batch}, batch))
     logits, cache, pos = M.prefill(cfg, params, batch,
                                    max_len=M.prompt_len(batch) + max_new_tokens,
-                                   kv_dtype=kv_dtype, env=env)
-    tok = logits.argmax(dim=-1)[:, None]
+                                   kv_dtype=kv_dtype, env=prefill_env, cache_env=env)
+    tok = greedy(logits)
     tokens, step_logits = [], []
     for i in range(max_new_tokens):
         tokens.append(tok)
         logits, cache = M.decode_step(cfg, params, tok, pos + 1 + i, cache, env=env)
         step_logits.append(logits)
-        tok = logits.argmax(dim=-1)[:, None]
+        tok = greedy(logits)
     return torch.cat(tokens, dim=1), torch.stack(step_logits, dim=1)
+
+
+def greedy(logits):
+    """The argmax over the vocab of (B, V) logits, as (B, 1); on a mesh the
+    vocab is gathered first, so each rank picks from all of it."""
+    if isinstance(logits, DTensor):
+        logits = logits.redistribute(logits.device_mesh, [
+            Replicate() if p == Shard(1) else p for p in logits.placements])
+    return logits.argmax(dim=-1)[:, None]

@@ -230,8 +230,9 @@ def train_state_struct(cfg: ModelConfig, run: RunConfig, npod: int = 1):
 
 def make_serve_steps(cfg: ModelConfig, run: RunConfig, env=None):
     """(prefill_fn(params, batch, max_len=0), decode_fn(params, token, pos,
-    cache)) over ``model.prefill`` and ``model.decode_step`` (``env``: a
-    mesh of one device; more raise, ROADMAP item 12)."""
+    cache)) over ``model.prefill`` and ``model.decode_step``, each under
+    ``env`` (a prefill cell's or a decode cell's rules on a mesh; the
+    prefill's cache is placed under ``phase_env(env, "decode")``)."""
     def prefill_fn(params, batch, max_len: int = 0):
         return M.prefill(cfg, params, batch, max_len=max_len, env=env)
 
