@@ -125,12 +125,37 @@ Phases, each of which exits non-zero on failure:
     (``launch/dryrun.run_cell``: a fake group of 256 ranks, the meta
     device) on this machine's torch: per-rank FLOPs, bytes, collective
     bytes by kind, the peak and the seconds.
+11. the runner, the run ledger, the runs CLI and the examples: 11a,
+    benchmarks/run.py's fig8 grid (12 apps x 7 policies at scale 0.5, seed
+    0, best-swl and statpcal swept over their limits) through
+    ``run_grid(engine="torch", strict=True)`` on the card, its records
+    equal field for field to ``run_grid(engine="batched")`` on the C rung
+    run on the host, ``save_records`` -> ``load_records`` equal, and a 2-SM
+    grid of kmn and syrk x (gto, ciao-p, ciao-c) at scale 0.25 whose chunks
+    the torch rung sends to C (``host_chunks``), equal to the batched
+    run's; the seconds, ``last_batched_perf()``, the iterations and the
+    capture seconds; 11b, the --quick grid (syrk and kmn x gto, ciao-p,
+    ciao-c at scale 0.2; a token budget that gives each app a chunk) under
+    a ledger in build/phase11/runs: a run whose first dispatch the fault
+    plan holds past its deadline returns truncated FailedCells for the
+    second chunk, ``resume`` gives records equal to an uninterrupted run,
+    ``python -m repro_torch.runs list`` and ``show`` exit 0 and report the
+    run complete, and ``runs create`` + two ``runs work`` processes drain a
+    fresh run together on the card with records equal to the serial run's;
+    11c, examples/torch_serve_ciao.py's decode on the card (K3 once an
+    attention layer at the prefill, K2 once a layer a step; tokens equal
+    to the CPU plain path's on the same seeded weights) and its policy
+    table (equal to the CPU run's), examples/torch_quickstart.py (40
+    steps; its greedy generation launches K3 once a layer and K2 once a
+    layer a step) and examples/torch_train_tiny_lm.py --steps 20 with
+    falling losses, training launching no kernel.
 
 Phase 2 also shows that the attention kernels refuse CUDA inputs that
 require grad (they have no backward). Before the card line come one JSON
 object {"stepper": ...} of phase 7's numbers, one {"train": ...} of phase
-8's and 9's and one {"sharded_serving": ...} of phase 10's; the line
-before the last is
+8's and 9's, one {"sharded_serving": ...} of phase 10's and one
+{"runner": ...} of phase 11's numbers and seconds; the line before the
+last is
 one JSON object of per-kernel numbers; the last line is
 {"ok": true, "device": {...}}. Without a card, or outside a checkout
 of the repository, it prints no result and exits non-zero.
@@ -2454,6 +2479,323 @@ def sharded_phase(card, phase4):
     return {"merge_ms": merge, "serve": serve_mesh, "dry_run": dry_run_cells()}
 
 
+# ----------------------------------------------------------------- phase 11
+# The runner, the run ledger and the runs CLI, and the four examples.
+# 11a: benchmarks/run.py's fig8 grid through run_grid on the torch rung
+# against the C rung, and a 2-SM grid whose chunks the torch rung sends to
+# C; 11b: the --quick grid (benchmarks/run.py) under a ledger: truncated by
+# a deadline, resumed, inspected with ``python -m repro_torch.runs`` and
+# drained by two ``runs work`` processes; 11c: the examples on the card.
+QUICK_APPS, QUICK_POLICIES, QUICK_SCALE = ("syrk", "kmn"), ("gto", "ciao-p", "ciao-c"), 0.2
+MS_APPS, MS_POLICIES, MS_SCALE = ("kmn", "syrk"), ("gto", "ciao-p", "ciao-c"), 0.25
+# The 11b run with a deadline: its first chunk's dispatch is held back by
+# QUICK_DELAY_S (the repo's fault plan), so the deadline passes while that
+# chunk runs and the chunk after it is truncated, at any card speed.
+QUICK_DEADLINE_S, QUICK_DELAY_S = 2.0, 4.0
+# examples/torch_serve_ciao.py's policy table on the CPU (the reference's
+# table, held equal in tests/test_torch_examples.py): (steps, decoded
+# tokens, work units, preemptions, refetched pages, completed) a policy
+SERVE_TABLE = {"gto": (5911, 92064, 128022.0, 106, 178, 256),
+               "ccws": (9101, 92064, 127008.0, 93, 198, 256),
+               "statpcal": (5583, 92064, 122448.0, 67, 177, 256),
+               "ciao-p": (5776, 92064, 122347.0, 74, 173, 256),
+               "ciao-t": (8840, 92064, 124102.0, 83, 199, 256),
+               "ciao-c": (5783, 92064, 121517.0, 73, 173, 256)}
+
+
+def env_vars(**kv):
+    """Environment variables set for a block, the old values back after it."""
+    from unittest import mock
+    return mock.patch.dict(os.environ, {k: str(v) for k, v in kv.items()})
+
+
+def timed_grid(grid, **kw):
+    """(records, seconds, last_batched_perf()) of one ``run_grid``."""
+    from repro_torch.core.runner import last_batched_perf, run_grid
+    t0 = time.perf_counter()
+    recs = run_grid(grid, **kw)
+    return recs, time.perf_counter() - t0, last_batched_perf()
+
+
+def runner_full_size(device="cuda"):
+    """11a: the fig8 grid (12 apps x 7 policies at scale 0.5, seed 0, the
+    limit sweeps flattened) through ``run_grid(engine="torch",
+    strict=True)`` on the card, field for field against the C rung's run
+    on the host; its JSON round trip; a 2-SM grid whose chunks go to C
+    (``host_chunks``) with records equal to the batched run's."""
+    import dataclasses
+    from repro_torch.core.gpu import GPUConfig
+    from repro_torch.core.runner import ExperimentGrid, load_records, save_records
+    out = {}
+    grid = ExperimentGrid(name="fig8", workloads=FIG8_APPS, policies=POLICIES,
+                          scale=GRID_SCALE, seed=0)
+    log(f"[11a] run_grid: fig8 ({len(FIG8_APPS)} apps x {len(POLICIES)} policies, scale "
+        f"{GRID_SCALE}) on the torch rung ({device}) and on the C rung")
+    recs, secs, perf = timed_grid(grid, engine="torch", strict=True, device=device)
+    with env_vars(REPRO_BATCHED_BACKEND="c"):
+        c_recs, c_secs, c_perf = timed_grid(grid, engine="batched", strict=True)
+    if c_perf["stepper_s"] <= 0 or perf["iterations"] <= 0:
+        fail("11a: the fig8 runs did not run their steppers")
+    if perf["host_chunks"]:
+        fail(f"11a: fig8 sent {perf['host_chunks']} single-SM chunks to the host")
+    got = [dataclasses.asdict(r) for r in recs]
+    want = [dataclasses.asdict(r) for r in c_recs]
+    if got != want:
+        fail(f"11a: {sum(a != b for a, b in zip(got, want))} of {len(recs)} fig8 records on the "
+             f"torch rung differ from the C rung's")
+    path = ROOT / "build" / "phase11" / "fig8.json"
+    save_records(recs, str(path), grid=grid)
+    if load_records(str(path)) != recs:
+        fail("11a: save_records -> load_records does not give the fig8 records back")
+    out["fig8"] = {"cells": len(recs), "torch_s": secs, "c_s": c_secs,
+                   "iterations": perf["iterations"], "capture_s": perf["capture_s"],
+                   "perf": perf, "c_perf": c_perf}
+    log(f"  fig8: {len(recs)} records equal to the C rung's, JSON round trip equal; torch "
+        f"{secs:.2f} s ({perf['iterations']:.0f} iterations, {perf['capture_s']:.2f} s capture, "
+        f"{perf['chunks']:.0f} chunks), C {c_secs:.3f} s")
+    log(f"  last_batched_perf (torch): {json.dumps(perf)}")
+    ms = ExperimentGrid(name="fig8-2sm", workloads=MS_APPS, policies=MS_POLICIES,
+                        scale=MS_SCALE, seed=0, gpu=GPUConfig(num_sms=2))
+    recs, secs, perf = timed_grid(ms, engine="torch", strict=True, device=device)
+    with env_vars(REPRO_BATCHED_BACKEND="c"):
+        c_recs, c_secs, _ = timed_grid(ms, engine="batched", strict=True)
+    if not perf["host_chunks"] or perf["host_chunks"] != perf["chunks"] or perf["iterations"]:
+        fail(f"11a: the 2-SM grid's chunks did not all go to the host: {perf}")
+    if [dataclasses.asdict(r) for r in recs] != [dataclasses.asdict(r) for r in c_recs]:
+        fail("11a: the 2-SM grid's records under engine='torch' differ from the batched run's")
+    out["multi_sm"] = {"cells": len(recs), "seconds": secs, "c_s": c_secs,
+                       "host_chunks": perf["host_chunks"], "perf": perf}
+    log(f"  2-SM grid ({len(MS_APPS)} apps x {len(MS_POLICIES)} policies, scale {MS_SCALE}): "
+        f"{perf['host_chunks']:.0f} of {perf['chunks']:.0f} chunks on the host, records equal "
+        f"to the batched run's; {secs:.3f} s")
+    return out
+
+
+def quick_grid():
+    from repro_torch.core.runner import ExperimentGrid
+    return ExperimentGrid(name="quick", workloads=QUICK_APPS, policies=QUICK_POLICIES,
+                          scale=QUICK_SCALE)
+
+
+def quick_budget():
+    """A token budget that puts each of the quick grid's workloads in a
+    chunk of its own (the largest one-workload plane, so two do not fit)."""
+    from repro_torch.core.runner import _cached_workload, workload_seed
+    return max(len(wl.traces) * max(len(k) for k, _ in wl.traces) * 8
+               for wl in (_cached_workload(w, workload_seed(0, w), QUICK_SCALE)
+                          for w in QUICK_APPS))
+
+
+def runs_cli(*argv, env=None):
+    """``python -m repro_torch.runs`` in a subprocess: (return code, stdout)."""
+    out = subprocess.run([sys.executable, "-m", "repro_torch.runs", *argv], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        log(f"  runs {' '.join(argv)}: rc {out.returncode}: {out.stderr.strip()[-2000:]}")
+    return out.returncode, out.stdout
+
+
+def ledger_and_cli(device="cuda"):
+    """11b: the quick grid (2 chunks) under a ledger on the torch rung: a
+    run with a deadline truncates its second chunk, ``resume`` fills it in
+    equal to an uninterrupted run; ``runs list`` and ``show`` report the
+    run complete; ``runs create`` and two ``runs work`` processes drain a
+    fresh run together on the card, and the reassembled records equal the
+    serial run's."""
+    import dataclasses
+    import shutil
+    from repro_torch.core import faults
+    from repro_torch.core.ledger import RunLedger
+    from repro_torch.core.runner import FailedCell, RunRecord
+    out = {}
+    runs_dir = ROOT / "build" / "phase11" / "runs"
+    shutil.rmtree(runs_dir, ignore_errors=True)
+    grid = quick_grid()
+    budget = quick_budget()
+    env = dict(os.environ, REPRO_RUNS_DIR=str(runs_dir), REPRO_BATCH_TOKEN_BUDGET=str(budget),
+               PYTHONPATH=str(ROOT / "src") + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("REPRO_BATCHED_BACKEND", None)
+    with env_vars(REPRO_RUNS_DIR=runs_dir, REPRO_BATCH_TOKEN_BUDGET=budget):
+        with env_vars(REPRO_BATCHED_BACKEND="c"):
+            serial, serial_s, _ = timed_grid(grid, engine="batched", strict=True)
+        log(f"[11b] the quick grid ({len(QUICK_APPS)} apps x {len(QUICK_POLICIES)} policies, "
+            f"scale {QUICK_SCALE}, a token budget of {budget} bytes: one chunk an app) under a "
+            f"ledger on the torch rung ({device}); deadline {QUICK_DEADLINE_S} s, the first "
+            f"dispatch held {QUICK_DELAY_S} s")
+        with faults.injected(f"chunk.dispatch@1=delay:{QUICK_DELAY_S}"):
+            cut, cut_s, cut_perf = timed_grid(grid, engine="torch", device=device, run_id="quick-dl",
+                                              deadline_s=QUICK_DEADLINE_S)
+        done = [r for r in cut if isinstance(r, RunRecord)]
+        trunc = [r for r in cut if isinstance(r, FailedCell) and r.truncated]
+        if not done or not trunc or len(done) + len(trunc) != len(cut):
+            fail(f"11b: the deadline run gave {len(done)} records and {len(trunc)} truncated cells "
+                 f"of {len(cut)}")
+        if RunLedger("quick-dl").load()["status"] != "truncated":
+            fail("11b: the deadline run's ledger is not marked truncated")
+        resumed, resume_s, resume_perf = timed_grid(grid, engine="torch", device=device,
+                                                    resume="quick-dl", strict=True)
+        if resumed != serial or resume_perf["chunks_resumed"] != 1:
+            fail(f"11b: the resumed run's records differ from the uninterrupted run's "
+                 f"(chunks resumed {resume_perf['chunks_resumed']})")
+        log(f"  deadline run {cut_s:.2f} s: {len(done)} records, {len(trunc)} truncated cells; "
+            f"resume {resume_s:.2f} s, 1 chunk from the ledger, records equal to the "
+            f"uninterrupted run's")
+        rc, listed = runs_cli("list", "--json", env=env)
+        infos = {i["run_id"]: i for i in json.loads(listed)} if rc == 0 else {}
+        if infos.get("quick-dl", {}).get("status") != "complete":
+            fail(f"11b: runs list does not report quick-dl complete: {infos}")
+        rc, shown = runs_cli("show", "quick-dl", "--assert-status", "complete", env=env)
+        if rc:
+            fail("11b: runs show --assert-status complete failed")
+        log(f"  runs list / show: exit 0, quick-dl complete ({infos['quick-dl']['shards']} "
+            f"shards): {shown.strip().splitlines()[0]}")
+        rc, _ = runs_cli("create", "quick-drain", "--workloads", ",".join(QUICK_APPS),
+                         "--policies", ",".join(QUICK_POLICIES), "--scale", str(QUICK_SCALE),
+                         "--engine", "torch", "--name", "quick", env=env)
+        if rc:
+            fail("11b: runs create failed")
+        t0 = time.perf_counter()
+        workers = [subprocess.Popen([sys.executable, "-m", "repro_torch.runs", "work", "quick-drain",
+                                     "--worker", f"w{k}", "--device", device], cwd=ROOT, env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                   for k in range(2)]
+        outs = []
+        try:
+            for w in workers:
+                outs.append(w.communicate(timeout=600)[0])
+        finally:
+            for w in workers:
+                if w.poll() is None:
+                    w.kill()
+        drain_s = time.perf_counter() - t0
+        for w, text in zip(workers, outs):
+            if w.returncode:
+                fail(f"11b: a runs work process exited {w.returncode}: {text[-3000:]}")
+        summaries = RunLedger("quick-drain").worker_summaries()
+        claims = {d["worker"]: d.get("lease_claims", 0) for d in summaries}
+        drained, _, drained_perf = timed_grid(grid, engine="torch", device=device,
+                                              resume="quick-drain", strict=True)
+        if drained != serial or drained_perf["chunks_resumed"] != drained_perf["chunks"]:
+            fail("11b: the two workers' records differ from the serial run's")
+        if sum(claims.values()) < drained_perf["chunks"]:
+            fail(f"11b: the workers claimed {claims} of {drained_perf['chunks']} chunks")
+        log(f"  runs create + 2 x runs work on {device}: {drain_s:.2f} s, claims {claims}, "
+            f"records equal to the serial run's; " + " | ".join(
+                t.strip().splitlines()[-1] for t in outs))
+    out.update(serial_c_s=serial_s, deadline_run_s=cut_s, truncated=len(trunc),
+               completed=len(done), resume_s=resume_s, drain_s=drain_s, claims=claims,
+               deadline_perf=cut_perf, resume_perf=resume_perf)
+    return out
+
+
+def load_example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_on_card(device="cuda"):
+    """11c: examples/torch_serve_ciao.py's decode on the card (K3 once an
+    attention layer at the prefill, K2 once a layer a step; tokens equal
+    to the CPU plain path's on the same seeded weights, logits within phase
+    3's bf16 tolerance) and its policy table (equal to the CPU run's);
+    torch_quickstart.py (40 steps; its greedy generation through K3 and
+    K2) and torch_train_tiny_lm.py --steps 20 with falling losses, the
+    training launching no kernel."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.model import init_params
+    out = {}
+    serve = load_example("torch_serve_ciao")
+    cfg = reduced_config("gemma2-2b")
+    log(f"[11c] examples/torch_serve_ciao.py on {device}")
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device, torch.float32)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 10), device=device,
+                            generator=torch.Generator(device=device).manual_seed(1))
+    kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        tokens, logits = serve.real_model_decode(device)
+    serve_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    per_prefill, per_step = attention_calls(cfg)
+    want = {"flash_attn": per_prefill, "decode_attn": per_step * 10, "ciao_gather": 0}
+    if device == "cuda" and counts != want:
+        fail(f"11c: the serve example launched {counts}, want {want}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu_tokens, cpu_logits = serve.real_model_decode("cpu", to_device(params, "cpu"),
+                                                         prompts.cpu())
+    err = max_err(logits, cpu_logits)
+    if tokens != cpu_tokens or err > 3e-2:
+        fail(f"11c: the serve example's tokens on {device} {tokens} differ from the CPU "
+             f"path's {cpu_tokens} (max |logit err| {err:.3g})")
+    log(f"  decode: launches {counts}, tokens equal to the CPU plain path's, max|logit err| "
+        f"{err:.3g}; {serve_s:.2f} s")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        table = serve.ciao_policy_comparison()
+    got = {p: (st.steps, st.decoded_tokens, st.work_units, st.preemptions, st.refetched_pages,
+               st.completed) for p, st in table.items()}
+    if got != SERVE_TABLE:
+        fail(f"11c: the policy table {got} differs from the CPU run's {SERVE_TABLE}")
+    out["serve"] = {"launches": counts, "tokens": tokens, "max_logit_err": err, "seconds": serve_s,
+                    "policy_table_s": time.perf_counter() - t0,
+                    "tokens_per_unit": {p: st.tokens_per_unit for p, st in table.items()}}
+    log(f"  policy table equal to the CPU run's ({out['serve']['policy_table_s']:.2f} s)")
+    kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        quick = load_example("torch_quickstart").main(device, steps=40)
+    counts = kernel_counts()
+    losses = quick["losses"]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not all(math.isfinite(x) for x in losses) or not last < first - 0.5:
+        fail(f"11c: the quickstart's loss does not fall: {losses}")
+    # its training launches nothing; its greedy generation (a prefill, 12
+    # steps) goes through K3 and K2
+    want = {"flash_attn": per_prefill, "decode_attn": per_step * 12, "ciao_gather": 0}
+    if device == "cuda" and counts != want:
+        fail(f"11c: the quickstart launched {counts}, want {want}")
+    out["quickstart"] = {"first5": first, "last5": last, "launches": counts,
+                         "seconds": time.perf_counter() - t0}
+    ckpt = ROOT / "build" / "phase11" / "tiny_lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        trained = load_example("torch_train_tiny_lm").main(
+            ["--steps", "20", "--ckpt", str(ckpt)] + (["--device", device] if device != "cuda"
+                                                       else []))
+    tl = trained["losses"]
+    if len(tl) != 20 or not all(math.isfinite(x) for x in tl) or not tl[-1] < tl[0] - 0.5:
+        fail(f"11c: torch_train_tiny_lm's loss does not fall: {tl}")
+    counts = kernel_counts()
+    if any(counts.values()):
+        fail(f"11c: training launched kernels: {counts}")
+    out["train_tiny_lm"] = {"first": tl[0], "last": tl[-1], "seconds": time.perf_counter() - t0}
+    log(f"  quickstart 40 steps: loss {first:.3f} -> {last:.3f} (means of 5), its generation "
+        f"launched {out['quickstart']['launches']}; train_tiny_lm 20 steps: {tl[0]:.3f} -> "
+        f"{tl[-1]:.3f}, no kernel launched")
+    return out
+
+
+def runner_phase(card, device="cuda"):
+    """Phase 11, in order."""
+    t0 = time.perf_counter()
+    out = {"card": card, "runner": runner_full_size(device)}
+    out["runner_s"] = time.perf_counter() - t0
+    out["ledger"] = ledger_and_cli(device)
+    out["ledger_s"] = time.perf_counter() - t0 - out["runner_s"]
+    out["examples"] = examples_on_card(device)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> None:
     import torch
     t_script = time.perf_counter()
@@ -2512,14 +2854,18 @@ def main() -> None:
     took("9")
     sharded = sharded_phase(card, phase4)
     took("10")
+    runner = runner_phase(card)
+    took("11")
     for k in kernels:
         k["train_launches"] = train_launches[k["name"]]
         k["sharded_launches"] = sharded["serve"]["launches"].get(k["name"], 0)
+        k["example_launches"] = runner["examples"]["serve"]["launches"][k["name"]]
     log(f"the script took {time.perf_counter() - t_script:.1f} s, kernels' build included; "
         f"by phase: {json.dumps(phase_s)}")
     log(json.dumps({"stepper": stepper}))
     log(json.dumps({"train": train}))
     log(json.dumps({"sharded_serving": sharded}))
+    log(json.dumps({"runner": runner}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

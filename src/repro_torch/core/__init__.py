@@ -1,6 +1,7 @@
 """The CIAO simulator: the scalar ``SMSimulator`` (the oracle), the
-multi-SM ``GPUSimulator``, and the batched engine with its numpy, C and
-torch steppers. A copy of ``repro.core`` without its runner and ledger."""
+multi-SM ``GPUSimulator``, the batched engine with its numpy, C and torch
+steppers, the experiment runner and its run ledger. A copy of
+``repro.core``."""
 from repro_torch.core.vta import VictimTagArray  # noqa: F401
 from repro_torch.core.interference import InterferenceDetector, DetectorConfig  # noqa: F401
 from repro_torch.core.onchip import OnChipMemory, OnChipConfig  # noqa: F401
@@ -19,5 +20,10 @@ from repro_torch.core.batched import (  # noqa: F401
     supports_config)
 from repro_torch.core.faults import (  # noqa: F401
     FaultPlan, FaultSpec, InjectedFault)
+from repro_torch.core.ledger import RunLedger, grid_hash  # noqa: F401
+from repro_torch.core.runner import (  # noqa: F401
+    ExperimentGrid, FailedCell, RunRecord, geomean, index_records,
+    load_records, run_grid, save_records)
 from repro_torch.workloads import (  # noqa: F401
-    WORKLOADS, Workload, make_workload, register_workload)
+    WORKLOADS, Workload, load_workload, make_workload, register_workload,
+    save_workload)

@@ -1,15 +1,20 @@
 """Workload subsystem: the access-pattern IR, the synthetic benchmark
 families, the traces walked out of the reference's Pallas kernels, and the
-token compilation the simulator consumes. A copy of ``repro.workloads``
-without its on-disk format (``io``) and curated trace set.
+token compilation the simulator consumes, and the versioned on-disk
+format. A copy of ``repro.workloads``.
 
 Entry points:
 
 * :func:`make_workload` / :data:`WORKLOADS` / :data:`REGISTRY` — the
-  registry.
+  registry (``repro_torch.core.traces`` re-exports these for back-compat).
 * :mod:`repro_torch.workloads.ir` — primitives + :func:`compile_workload`.
 * :mod:`repro_torch.workloads.tokens` — the trace -> token-stream contract
   the simulator consumes.
+* :mod:`repro_torch.workloads.io` — :func:`save_workload` /
+  :func:`load_workload` (npz + JSON header, format-versioned; the
+  reference's files, read and written alike).
+* :mod:`repro_torch.workloads.curated` — the shipped, checksum-manifested
+  trace set under ``results/workloads/curated``.
 * :mod:`repro_torch.workloads.derived` — traces walked out of the
   reference's Pallas kernels (flashattn / decodeattn / gather), registered
   alongside the synthetic families; ``gather_index_stream`` also drives the
@@ -32,3 +37,5 @@ from repro_torch.workloads import derived as _derived  # noqa: F401  (registers)
 from repro_torch.workloads.derived import (  # noqa: F401
     decodeattn_workload, flashattn_workload, gather_index_stream,
     gather_workload)
+from repro_torch.workloads.io import (  # noqa: F401
+    FORMAT_VERSION, load_workload, save_workload)
