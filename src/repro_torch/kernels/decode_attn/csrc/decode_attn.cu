@@ -18,38 +18,43 @@
 // -1e30, so the softmax is uniform over the S slots.
 //
 // Two kernels:
-//  * bf16 q and cache at D = 256, the serving path: decode_ring_kernel, one
-//    launch a call. The grid is one wave (kernel.split_plan: one block an
-//    SM). In a block, one producer warp streams 32-key K and V tiles with
-//    TMA (one box a tile from 4-D tensor maps over (D, H, S, B); a split's
-//    last, partial tile as cp.async.bulk copies of one 512-byte row a lane)
-//    into a ring of 4 stages (128 KB, so up to 128 KB in flight an SM)
-//    behind full/empty mbarriers, and 8
-//    consumer warps compute while the next stages land. A consumer warp
-//    owns 4 keys of a tile: 8 lanes a key read whole 16-byte chunks of K
-//    from shared memory (3 shuffle levels instead of a 5-level butterfly
-//    per key), then each lane takes 8 columns of V for the warp's keys.
-//    It serves G = 1, 2, 4, 8 and 16 query rows a KV head; at G 16
-//    (recurrentgemma's MQA) a warp holds 8 of the rows and owns 8 keys,
-//    walked 4 at a time (kRingRows), so its registers stay those of G 8.
-//    The softcap's tanh is 1 - 2/(e^{2y}+1): one ex2 and one rcp, with
-//    scale*log2e folded in, and the softmax runs in base 2. The block
-//    merges its warps in shared memory; the last block of a (b, kv head)
-//    to finish (an atomic ticket after a __threadfence) merges the splits'
-//    partials, which stay in L2, and writes the output. The ticket is reset
-//    by that block, so the counters are zero between launches (one set a
-//    stream: kernel._scratch). The host's work a launch is kept to the
-//    launch itself: the tensor maps are encoded once a cache tensor and the
-//    shared-memory limit raised once a device.
-//  * every other dtype pair and head dim: decode_split_kernel, where a warp
-//    loads 4 keys of K and V into registers per step, and a second launch,
-//    decode_combine_kernel, merges the splits. It serves f32 checks, the
-//    reduced models and the bf16 serving path of the D = 64 and 128 archs
-//    (granite-moe, qwen3, nemotron, command-r, arctic), at G = 1, 2, 4, 8
-//    and, at those two head dims, 3, 6 and 7: one instantiation a G, with
-//    the G query rows' q and accumulators in registers (launch_d). Its
-//    grid aims at several resident blocks an SM (kernel.plan_for), since a
-//    block keeps only one step's loads in flight.
+//  * bf16 q and cache at D = 64, 128 and 256, the serving path:
+//    decode_ring_kernel, one launch a call. The grid is one wave
+//    (kernel.split_plan: one block an SM). In a block, one producer warp
+//    streams K and V tiles with TMA (one box a tile from 4-D tensor maps over
+//    (D, H, S, B); a split's last, partial tile as cp.async.bulk copies of
+//    one row at a time, several rows a lane where a tile has more than 32
+//    keys) into a ring of 4 stages of 32 KB each (K rows, then V rows; so up
+//    to 128 KB in flight an SM) behind full/empty mbarriers, and 8 consumer
+//    warps compute while the next stages land. A stage holds 8192 / D keys
+//    (RingShape: 128 at D 64, 64 at D 128, 32 at D 256), a consumer warp
+//    1024 / D of them, walked in passes of 4 keys: for the scores 8 lanes a
+//    key read whole 16-byte chunks of K from shared memory (D / 64 chunks a
+//    lane; 3 shuffle levels instead of a 5-level butterfly per key), then
+//    for PV each lane takes 8 columns of V, so a row spans D / 8 lanes and
+//    the warp's 256 / D lane groups each take a key of the pass at once,
+//    each group keeping its own partial accumulator until the block merge
+//    sums them. It serves G = 1, 2, 4 and 8 query rows a KV head at every
+//    head dim, 3, 6 and 7 at D 64 and 128 (granite-moe, nemotron, arctic),
+//    and 16 at D 256; at G 16 (recurrentgemma's MQA) a warp holds 8 of the
+//    rows and owns 8 keys, walked 4 at a time (kRingRows), so its registers
+//    stay those of G 8. The softcap's tanh is 1 - 2/(e^{2y}+1): one ex2 and
+//    one rcp, with scale*log2e folded in, and the softmax runs in base 2.
+//    The block merges its warps in shared memory; the last block of a (b,
+//    kv head) to finish (an atomic ticket after a __threadfence) merges the
+//    splits' partials, which stay in L2, and writes the output. The ticket
+//    is reset by that block, so the counters are zero between launches (one
+//    set a stream: kernel._scratch). The host's work a launch is kept to the
+//    launch itself: the tensor maps are encoded once a cache tensor and head
+//    dim, and the shared-memory limit raised once a device.
+//  * f32 queries (with an f32 or a bf16 cache) at every head dim, and bf16
+//    at D = 32 (the reduced models): decode_split_kernel, where a warp loads
+//    4 keys of K and V into registers per step, and a second launch,
+//    decode_combine_kernel, merges the splits. It serves G = 1, 2, 4, 8 and,
+//    at D = 64 and 128, 3, 6 and 7: one instantiation a G, with the G query
+//    rows' q and accumulators in registers (launch_d). Its grid aims at
+//    several resident blocks an SM (kernel.plan_for), since a block keeps
+//    only one step's loads in flight.
 //
 // Where the split merge ends, either kernel can also write each query row's
 // log-sum-exp, lse = m + log(l) in scaled-score units (natural log; -1e30
@@ -283,14 +288,27 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
 }
 
 // --------------------------------------------------------------- bf16 path
-constexpr int kRingD = 256;
-constexpr int kRowB = kRingD * 2;                  // bytes of one K or V row
-constexpr int kTileKeys = 32;                      // keys a stage holds
+constexpr int kStageB = 32 * 1024;                 // a stage: K rows, then V rows
 constexpr int kStages = 4;
-constexpr int kConsumers = 8;                      // consumer warps, 4 keys each
+constexpr int kConsumers = 8;                      // consumer warps
 constexpr int kRingThreads = (kConsumers + 1) * 32;
-constexpr int kStageB = 2 * kTileKeys * kRowB;     // K rows, then V rows: 32 KB
 constexpr int kRingB = kStages * kStageB;
+constexpr int kPassKeys = 4;                       // keys a warp scores at once, 8 lanes each
+
+// The ring's shape at head dim D: a stage of a fixed byte size holds
+// kTileKeys keys, whole TMA boxes of {D, 1, kTileKeys, 1}; for PV a lane
+// takes 8 columns, so a row spans D / 8 lanes and a warp kLaneGroups rows
+// at once (kernel.ring_plan writes the same schedule in Python).
+template <int D>
+struct RingShape {
+  static constexpr int kRowB = D * 2;                        // bytes of one K or V row
+  static constexpr int kTileKeys = kStageB / (2 * kRowB);    // 128, 64, 32 at D 64, 128, 256
+  static constexpr int kLaneGroups = 256 / D;
+  static_assert(D == 64 || D == 128 || D == 256, "the ring kernel's head dims");
+  static_assert(kRowB % 16 == 0 && D <= 256 && kTileKeys <= 256,
+                "a TMA box's inner extent is a multiple of 16 bytes, each dimension <= 256");
+  static_assert(kTileKeys % (kConsumers * kPassKeys) == 0, "a stage's keys split evenly");
+};
 
 // Query rows a consumer warp holds: all G up to 8. The 288-thread block is
 // allocated registers as 12 warps, which caps a thread at 168, and G 8
@@ -305,10 +323,10 @@ constexpr int kRingB = kStages * kStageB;
 template <int G>
 constexpr int kRingRows = G > 8 ? 8 : G;
 
-template <int G>
+template <int D, int G>
 constexpr size_t ring_smem_bytes() {
   // the ring, q as f32, 2 * kStages mbarriers, the last-block flag
-  return (size_t)kRingB + (size_t)G * kRingD * 4 + 16 * kStages + 16;
+  return (size_t)kRingB + (size_t)G * D * 4 + 16 * kStages + 16;
 }
 
 // bytes from global to shared memory, completing on the mbarrier `bar`
@@ -330,7 +348,7 @@ __device__ __forceinline__ void unpack8(const uint4 t, float (&f)[8]) {
 // x = cap2 - 2 cap2 / (2^(dot*mul) + 1) with mul = 2 log2e scale / cap and
 // cap2 = cap log2e (that is log2e * cap * tanh(dot * scale / cap));
 // without it, x = dot * mul with mul = scale log2e.
-template <int G, bool CAP>
+template <int D, int G, bool CAP>
 __global__ void __launch_bounds__(kRingThreads, 1)
 decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, const __nv_bfloat16* __restrict__ q,
@@ -340,7 +358,8 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
                    float* __restrict__ part_acc, float* __restrict__ part_ml,
                    int* __restrict__ tickets, int S, int Hkv,
                    float mul, float cap2) {
-  constexpr int D = kRingD;
+  constexpr int kRowB = RingShape<D>::kRowB, kTileKeys = RingShape<D>::kTileKeys;
+  constexpr int NG = RingShape<D>::kLaneGroups;
   extern __shared__ __align__(128) unsigned char ring_smem[];
   float* sq = reinterpret_cast<float*>(ring_smem + kRingB);                 // [G][D]
   uint64_t* bars = reinterpret_cast<uint64_t*>(ring_smem + kRingB + G * D * 4);
@@ -363,11 +382,25 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int e = threadIdx.x; e < G * D; e += blockDim.x) sq[e] = __bfloat162float(q[qrow * D + e]);
   __syncthreads();
+  // the producer's first loads go out while the consumers bring q into
+  // shared memory and meet at named barrier 1 (0.5-2 us a call on an H100,
+  // PERF.md)
+  if (warp < kConsumers) {
+    for (int e = threadIdx.x; e < G * D; e += kConsumers * 32)
+      sq[e] = __bfloat162float(q[qrow * D + e]);
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 32) : "memory");
+  }
 
   constexpr int R = kRingRows<G>, H = G / R;
-  static_assert(G % R == 0 && kConsumers % H == 0, "rows must split evenly over the warps");
+  // keys of a stage a consumer warp walks, in passes of kPassKeys; with at
+  // most 4 rows a warp the passes are unrolled (granite-moe's G 3 at D 64:
+  // 0.0262 -> 0.0208 ms on an H100), with more they are not (G 6-8 at D 128
+  // and G 16 lose 9-39%, PERF.md)
+  constexpr int kWarpKeys = kTileKeys * H / kConsumers;
+  constexpr int kPassUnroll = R <= 4 ? kWarpKeys / kPassKeys : 1;
+  static_assert(G % R == 0 && kConsumers % H == 0 && kWarpKeys % kPassKeys == 0,
+                "rows and keys must split evenly over the warps");
   float m[R], l[R], acc[R][8];
 #pragma unroll
   for (int g = 0; g < R; ++g) {
@@ -379,8 +412,8 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
 
   if (warp == kConsumers) {
     // producer: a whole tile of K and of V is one TMA box each; the last,
-    // partial tile of a split takes its rows one a lane, so no key past the
-    // split is read
+    // partial tile of a split takes its rows one at a time, so no key past
+    // the split is read
     const size_t row_stride = (size_t)Hkv * D;
     const __nv_bfloat16* kb = k + ((size_t)b * S * Hkv + kvh) * D;
     const __nv_bfloat16* vb = v + ((size_t)b * S * Hkv + kvh) * D;
@@ -399,28 +432,30 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
       }
       if (lane == 0) mbar_expect_tx(full0 + 8 * st, 2 * n * kRowB);
       __syncwarp();
-      if (lane < n) {
-        const uint32_t dst = ring + st * kStageB + lane * kRowB;
-        bulk_load(dst, kb + (size_t)(t0 + lane) * row_stride, kRowB, full0 + 8 * st);
-        bulk_load(dst + kTileKeys * kRowB, vb + (size_t)(t0 + lane) * row_stride, kRowB,
+      for (int r = lane; r < n; r += 32) {
+        const uint32_t dst = ring + st * kStageB + r * kRowB;
+        bulk_load(dst, kb + (size_t)(t0 + r) * row_stride, kRowB, full0 + 8 * st);
+        bulk_load(dst + kTileKeys * kRowB, vb + (size_t)(t0 + r) * row_stride, kRowB,
                   full0 + 8 * st);
       }
     }
   } else {
-    // this warp's rows (half * R .. + R) and keys (key0 .. + 4 H of a stage)
-    const int half = warp % H, key0 = 4 * H * (warp / H), sub = lane & 7;
+    // this warp's rows (half * R .. + R) and keys (key0 .. + kWarpKeys of a
+    // stage); for PV, this lane's columns (8 col .. + 8) and lane group
+    const int half = warp % H, key0 = kWarpKeys * (warp / H), sub = lane & 7;
+    const int col = lane % (D / 8), group = lane / (D / 8);
     const float4* q4 = reinterpret_cast<const float4*>(sq + half * R * D);
     for (int i = 0; i < ntiles; ++i) {
       const int st = i % kStages;
       const int n = min(kTileKeys, end - (start + i * kTileKeys));
       mbar_wait(full0 + 8 * st, (i / kStages) & 1);
       const unsigned char* tile = ring_smem + st * kStageB;
-#pragma unroll 1
-      for (int u = 0; u < H; ++u) {
-        const int base = key0 + 4 * u;        // the pass's 4 keys
+#pragma unroll kPassUnroll
+      for (int u = 0; u < kWarpKeys / kPassKeys; ++u) {
+        const int base = key0 + kPassKeys * u;   // the pass's 4 keys
         if (base >= n) break;
-        const int mine = base + (lane >> 3);  // this lane's key of the tile
-        // scores: 8 lanes a key, each over 4 chunks of 8 columns
+        const int mine = base + (lane >> 3);    // this lane's key of the tile
+        // scores: 8 lanes a key, each over D / 64 chunks of 8 columns
         const uint4* kr = reinterpret_cast<const uint4*>(tile + mine * kRowB);
         float s[R];
 #pragma unroll
@@ -464,24 +499,37 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
 #pragma unroll
           for (int e = 0; e < 8; ++e) acc[g][e] *= corr;
         }
-        // PV: lane takes columns 8*lane.. of the pass's 4 V rows
+        // PV: lane group `group` takes the pass's keys group, group + NG, ..
+        // (all 4 at D 256), this lane their columns 8 col .. + 8; a key
+        // past the tile adds p = 0 times zeros
 #pragma unroll
-        for (int v4 = 0; v4 < 4; ++v4) {
-          if (base + v4 < n) {
-            float vf[8];
-            unpack8(reinterpret_cast<const uint4*>(tile + (kTileKeys + base + v4) * kRowB)[lane],
-                    vf);
+        for (int t = 0; t < kPassKeys / NG; ++t) {
+          const int key = group + NG * t;
+          const uint4 raw = base + key < n
+              ? reinterpret_cast<const uint4*>(tile + (kTileKeys + base + key) * kRowB)[col]
+              : make_uint4(0u, 0u, 0u, 0u);
+          float vf[8];
+          unpack8(raw, vf);
 #pragma unroll
-            for (int g = 0; g < R; ++g) {
-              const float pu = __shfl_sync(0xffffffffu, p[g], 8 * v4);
+          for (int g = 0; g < R; ++g) {
+            const float pu = __shfl_sync(0xffffffffu, p[g], 8 * key);
 #pragma unroll
-              for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(pu, vf[e], acc[g][e]);
-            }
+            for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(pu, vf[e], acc[g][e]);
           }
         }
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(empty0 + 8 * st);
+    }
+    // the lane groups' partials (D < 256) into the first D / 8 lanes: m and
+    // l are the warp's, so they add as they are
+#pragma unroll
+    for (int o = D / 8; o < 32; o <<= 1) {
+#pragma unroll
+      for (int g = 0; g < R; ++g) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+      }
     }
   }
 
@@ -494,9 +542,11 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
   if (warp < kConsumers) {
 #pragma unroll
     for (int g = 0; g < R; ++g) {
-      float4* dst = reinterpret_cast<float4*>(s_acc + (warp * R + g) * D + 8 * lane);
-      dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
-      dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+      if (lane < D / 8) {
+        float4* dst = reinterpret_cast<float4*>(s_acc + (warp * R + g) * D + 8 * lane);
+        dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+        dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+      }
       if (lane == 0) {
         s_m[warp * R + g] = m[g];
         s_l[warp * R + g] = l[g];
@@ -597,15 +647,15 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 }
 
-// A 4-D map over a (B, S, Hkv, 256) bf16 cache, innermost first, with a box
-// of one head's 256 columns and kTileKeys rows, unswizzled (row r of the box
-// at r * 512 bytes).
+// A 4-D map over a (B, S, Hkv, D) bf16 cache, innermost first, with a box
+// of one head's D columns and a stage's 8192 / D rows (RingShape), unswizzled
+// (row r of the box at r * 2 D bytes).
 cudaError_t cache_map(CUtensorMap* map, EncodeTiledFn encode, const void* ptr, int B, int S,
-                      int Hkv) {
-  const cuuint64_t dims[4] = {(cuuint64_t)kRingD, (cuuint64_t)Hkv, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)kRowB, (cuuint64_t)Hkv * kRowB,
-                                 (cuuint64_t)S * Hkv * kRowB};
-  const cuuint32_t box[4] = {(cuuint32_t)kRingD, 1, (cuuint32_t)kTileKeys, 1};
+                      int Hkv, int D) {
+  const cuuint64_t row = 2 * (cuuint64_t)D;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {row, Hkv * row, S * Hkv * row};
+  const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)(kStageB / (2 * row)), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -615,25 +665,27 @@ cudaError_t cache_map(CUtensorMap* map, EncodeTiledFn encode, const void* ptr, i
 }
 
 // The maps of the caches launched on so far, encoded once each: the serving
-// path passes the same 2 x 26 cache tensors at every step, and a map
-// depends only on (pointer, B, S, Hkv). 256 entries, direct-mapped by the
-// pointer; a collision encodes again. ctypes drops the GIL, hence the lock.
+// path passes the same cache tensors at every step, and a map depends only
+// on (pointer, B, S, Hkv, D), the head dim setting its box too. 256
+// entries, direct-mapped by the pointer; a collision, or a pointer reused at
+// another shape or head dim, encodes again. ctypes drops the GIL, hence the
+// lock.
 struct MapEntry {
   CUtensorMap map;
   const void* ptr;
-  int B, S, Hkv;
+  int B, S, Hkv, D;
 };
 
-cudaError_t cached_cache_map(CUtensorMap* map, const void* ptr, int B, int S, int Hkv) {
+cudaError_t cached_cache_map(CUtensorMap* map, const void* ptr, int B, int S, int Hkv, int D) {
   static std::mutex mu;
   static MapEntry table[256];
   const uint64_t h = (reinterpret_cast<uintptr_t>(ptr) * 0x9E3779B97F4A7C15ull) >> 56;
   std::lock_guard<std::mutex> lock(mu);
   MapEntry& e = table[h];
-  if (e.ptr != ptr || e.B != B || e.S != S || e.Hkv != Hkv) {
+  if (e.ptr != ptr || e.B != B || e.S != S || e.Hkv != Hkv || e.D != D) {
     EncodeTiledFn encode;
     cudaError_t err = encode_tiled(&encode);
-    if (err == cudaSuccess) err = cache_map(&e.map, encode, ptr, B, S, Hkv);
+    if (err == cudaSuccess) err = cache_map(&e.map, encode, ptr, B, S, Hkv, D);
     if (err != cudaSuccess) {
       e.ptr = nullptr;
       return err;
@@ -642,39 +694,41 @@ cudaError_t cached_cache_map(CUtensorMap* map, const void* ptr, int B, int S, in
     e.B = B;
     e.S = S;
     e.Hkv = Hkv;
+    e.D = D;
   }
   *map = e.map;
   return cudaSuccess;
 }
 
-template <int G, bool CAP>
+template <int D, int G, bool CAP>
 cudaError_t launch_ring_cap(const void* q, const void* k, const void* v, const int* lengths,
                             void* out, float* lse, float* pa, float* pm, int* tickets, int B, int S,
                             int Hkv, int nsplit, float mul, float cap2, cudaStream_t st) {
-  constexpr size_t smem = ring_smem_bytes<G>();
+  constexpr size_t smem = ring_smem_bytes<D, G>();
+  static_assert(smem <= 232448, "the ring, q and the barriers fit a block's 227 KB");
   static std::atomic<uint64_t> smem_set{0};
   CUtensorMap tk, tv;
   cudaError_t err;
-  if ((err = cached_cache_map(&tk, k, B, S, Hkv)) != cudaSuccess) return err;
-  if ((err = cached_cache_map(&tv, v, B, S, Hkv)) != cudaSuccess) return err;
-  if ((err = allow_smem(decode_ring_kernel<G, CAP>, (int)smem, smem_set)) != cudaSuccess)
+  if ((err = cached_cache_map(&tk, k, B, S, Hkv, D)) != cudaSuccess) return err;
+  if ((err = cached_cache_map(&tv, v, B, S, Hkv, D)) != cudaSuccess) return err;
+  if ((err = allow_smem(decode_ring_kernel<D, G, CAP>, (int)smem, smem_set)) != cudaSuccess)
     return err;
-  decode_ring_kernel<G, CAP><<<dim3(nsplit, Hkv, B), kRingThreads, smem, st>>>(
+  decode_ring_kernel<D, G, CAP><<<dim3(nsplit, Hkv, B), kRingThreads, smem, st>>>(
       tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out), lse, pa, pm,
       tickets, S, Hkv, mul, cap2);
   return cudaGetLastError();
 }
 
-template <int G>
+template <int D, int G>
 cudaError_t launch_ring(const void* q, const void* k, const void* v, const int* lengths,
                         void* out, float* lse, float* pa, float* pm, int* tickets, int B, int S, int Hkv,
                         int nsplit, float scale, float softcap, cudaStream_t st) {
   if (softcap != 0.f)
-    return launch_ring_cap<G, true>(q, k, v, lengths, out, lse, pa, pm, tickets, B, S, Hkv, nsplit,
-                                    2.f * kLog2e * scale / softcap, softcap * kLog2e, st);
-  return launch_ring_cap<G, false>(q, k, v, lengths, out, lse, pa, pm, tickets, B, S, Hkv, nsplit,
-                                   scale * kLog2e, 0.f, st);
+    return launch_ring_cap<D, G, true>(q, k, v, lengths, out, lse, pa, pm, tickets, B, S, Hkv,
+                                       nsplit, 2.f * kLog2e * scale / softcap, softcap * kLog2e, st);
+  return launch_ring_cap<D, G, false>(q, k, v, lengths, out, lse, pa, pm, tickets, B, S, Hkv,
+                                      nsplit, scale * kLog2e, 0.f, st);
 }
 
 template <typename TQ, typename TKV, int D, int G>
@@ -695,7 +749,7 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, const int*
   return cudaGetLastError();
 }
 
-// Groups of the split kernel: 1, 2, 4 and 8 at every head dim; 3, 6 and 7
+// Groups of both kernels: 1, 2, 4 and 8 at every head dim; 3, 6 and 7
 // (granite-moe, nemotron, arctic: Hq/Hkv = 24/8, 48/8, 56/8) at D = 64 and
 // 128 only, the head dims of those archs, so the build instantiates no case
 // that no configuration runs (kernel.check_supported holds the same table).
@@ -724,19 +778,54 @@ cudaError_t launch_d(int G, const void* q, const void* k, const void* v, const i
   }
 }
 
+// The split kernel's head dims: all four for f32 queries; for bf16 q and
+// cache only D = 32, since D 64, 128 and 256 go to decode_ring_kernel.
 template <typename TQ, typename TKV>
 cudaError_t launch_t(int D, int G, const void* q, const void* k, const void* v,
                      const int* lengths, void* out, float* lse, float* pa, float* pm, int B,
                      int S,
                      int Hkv, int nsplit, float scale, float softcap, cudaStream_t st) {
+  constexpr bool kRingDtypes = std::is_same_v<TQ, __nv_bfloat16>;
   switch (D) {
     case 32: return launch_d<TQ, TKV, 32>(G, q, k, v, lengths, out, lse, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
-    case 64: return launch_d<TQ, TKV, 64>(G, q, k, v, lengths, out, lse, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
-    case 128: return launch_d<TQ, TKV, 128>(G, q, k, v, lengths, out, lse, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+    case 64:
+      if constexpr (!kRingDtypes)
+        return launch_d<TQ, TKV, 64>(G, q, k, v, lengths, out, lse, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+      return cudaErrorInvalidValue;
+    case 128:
+      if constexpr (!kRingDtypes)
+        return launch_d<TQ, TKV, 128>(G, q, k, v, lengths, out, lse, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+      return cudaErrorInvalidValue;
     case 256:
-      // bf16 q and cache at D = 256 go to decode_ring_kernel
-      if constexpr (!std::is_same_v<TQ, __nv_bfloat16>)
+      if constexpr (!kRingDtypes)
         return launch_d<TQ, TKV, 256>(G, q, k, v, lengths, out, lse, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
+      return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The ring kernel's groups at head dim D: kOddGroups' table, and G 16
+// (recurrentgemma's MQA) at D = 256 only (kernel.RING_GROUPS).
+template <int D>
+cudaError_t launch_ring_d(int G, const void* q, const void* k, const void* v, const int* len,
+                          void* out, float* ls, float* pa, float* pm, int* tk, int B, int S,
+                          int Hkv, int nsplit, float scale, float softcap, cudaStream_t st) {
+  switch (G) {
+    case 1: return launch_ring<D, 1>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+    case 2: return launch_ring<D, 2>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+    case 4: return launch_ring<D, 4>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+    case 8: return launch_ring<D, 8>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+    case 3:
+      if constexpr (kOddGroups<D>) return launch_ring<D, 3>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+      return cudaErrorInvalidValue;
+    case 6:
+      if constexpr (kOddGroups<D>) return launch_ring<D, 6>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+      return cudaErrorInvalidValue;
+    case 7:
+      if constexpr (kOddGroups<D>) return launch_ring<D, 7>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+      return cudaErrorInvalidValue;
+    case 16:
+      if constexpr (D == 256) return launch_ring<D, 16>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
@@ -767,20 +856,18 @@ int decode_attn_launch_lse(const void* q, const void* k, const void* v, const vo
   int* tk = static_cast<int*>(tickets);
   float* ls = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 1 && kv_dtype == 1 && D == kRingD) {
-    switch (G) {
-      case 1: return launch_ring<1>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
-      case 2: return launch_ring<2>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
-      case 4: return launch_ring<4>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
-      case 8: return launch_ring<8>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
-      case 16: return launch_ring<16>(q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
-      default: return cudaErrorInvalidValue;
+  if (q_dtype == 1 && kv_dtype == 1) {
+    // bf16 q and cache: the ring kernel at D 64, 128 and 256 (kernel.RING_DIMS)
+    switch (D) {
+      case 64: return launch_ring_d<64>(G, q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+      case 128: return launch_ring_d<128>(G, q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+      case 256: return launch_ring_d<256>(G, q, k, v, len, out, ls, pa, pm, tk, B, S, Hkv, nsplit, scale, softcap, st);
+      default:
+        return launch_t<__nv_bfloat16, __nv_bfloat16>(D, G, q, k, v, len, out, ls, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
     }
   }
   if (q_dtype == 0 && kv_dtype == 0)
     return launch_t<float, float>(D, G, q, k, v, len, out, ls, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
-  if (q_dtype == 1 && kv_dtype == 1)
-    return launch_t<__nv_bfloat16, __nv_bfloat16>(D, G, q, k, v, len, out, ls, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
   if (q_dtype == 0 && kv_dtype == 1)
     return launch_t<float, __nv_bfloat16>(D, G, q, k, v, len, out, ls, pa, pm, B, S, Hkv, nsplit, scale, softcap, st);
   return cudaErrorInvalidValue;

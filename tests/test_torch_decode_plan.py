@@ -76,13 +76,18 @@ def test_split_plan(batch, hkv, s, want):
 @pytest.mark.parametrize("b,hkv,s,d,dtypes,want", [
     (4, 4, 4640, 256, (torch.bfloat16, torch.bfloat16), 8),     # gemma2: the ring kernel
     (4, 4, 4640, 256, (torch.float32, torch.bfloat16), 66),     # f32 q: the split kernel
-    (4, 8, 4640, 64, (torch.bfloat16, torch.bfloat16), 33),     # granite-moe
-    (2, 8, 1032, 128, (torch.bfloat16, torch.bfloat16), 17),    # nemotron, arctic: 64-slot cap
+    (4, 8, 4640, 64, (torch.bfloat16, torch.bfloat16), 4),      # granite-moe: the ring kernel
+    (2, 8, 1032, 128, (torch.bfloat16, torch.bfloat16), 8),     # nemotron, arctic: the ring
     (4, 1, 2048, 256, (torch.bfloat16, torch.bfloat16), 32),    # recurrentgemma's 2048-slot ring
+    (4, 16, 4096, 64, (torch.bfloat16, torch.bfloat16), 2),     # seamless's cross step: the ring
+    (4, 8, 4640, 64, (torch.float32, torch.bfloat16), 33),      # granite, f32 q: the split kernel
+    (2, 8, 1032, 128, (torch.float32, torch.float32), 17),      # f32: split, 64-slot cap
+    (2, 8, 1032, 32, (torch.bfloat16, torch.bfloat16), 17),     # bf16 at D 32: the split kernel
 ])
 def test_plan_for_gives_the_split_kernel_several_blocks_an_sm(b, hkv, s, d, dtypes, want):
-    """The ring kernel keeps one block an SM; the split kernel's grid aims
-    at SPLIT_BLOCKS_PER_SM resident blocks an SM, within the 64-slot cap."""
+    """The ring kernel (bf16 q and cache at D 64, 128 and 256) keeps one
+    block an SM; the split kernel's grid aims at SPLIT_BLOCKS_PER_SM
+    resident blocks an SM, within the 64-slot cap."""
     splits = DK.plan_for(b, hkv, s, d, *dtypes, sm_count=132)
     assert splits == want
     per_sm = 1 if DK.uses_ring(*dtypes, d) else DK.SPLIT_BLOCKS_PER_SM

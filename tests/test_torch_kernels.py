@@ -226,11 +226,15 @@ def test_every_included_header_is_on_the_include_path(monkeypatch):
     (40, 8, 128, False), (128, 8, 128, False), (128, 8, 256, "ring"),  # G 5, 16
     (16, 1, 256, "ring"), (16, 1, 128, False), (32, 2, 64, False),   # recurrentgemma's G 16
     (8, 3, 128, False), (8, 4, 96, False),
+    (16, 1, 64, False), (128, 8, 64, False), (48, 8, 64, True), (56, 8, 64, True),  # G 16, 6, 7
+    (24, 8, 128, True), (8, 8, 128, True), (16, 8, 64, True), (64, 8, 64, True),    # G 3, 1, 2, 8
+    (40, 8, 64, False), (112, 8, 128, False),                                      # G 5, 14
 ])
 def test_decode_wrapper_refuses_groups_the_kernel_lacks(hq, hkv, d, ok):
     """The wrapper's table of (G, D): G 1, 2, 4, 8 everywhere, 3, 6, 7 at D
-    64 and 128, 16 on the bf16 ring kernel (bf16 q and cache at D 256) only;
-    anything else raises before a launch."""
+    64 and 128 (on both kernels: the ring kernel takes bf16 q and cache
+    there), 16 on the ring kernel at D 256 only; anything else raises before
+    a launch."""
     for q_dtype, kv_dtype in DK.DTYPE_PAIRS:
         if ok is True or ok == "ring" and DK.uses_ring(q_dtype, kv_dtype, d):
             DK.check_supported(hq, hkv, d, q_dtype, kv_dtype)
@@ -244,8 +248,11 @@ def test_decode_wrapper_refuses_groups_the_kernel_lacks(hq, hkv, d, ok):
 def test_decode_group_table_matches_the_source():
     """``kernel.GROUPS``/``ODD_GROUPS``/``RING_GROUPS`` are the cases
     decode_attn.cu instantiates: the split kernel's ``launch_d`` switch (odd
-    groups under ``kOddGroups``, whose head dims are ``ODD_GROUP_DIMS``) and
-    the bf16 ring kernel's switch (GROUPS and RING_GROUPS)."""
+    groups under ``kOddGroups``, whose head dims are ``ODD_GROUP_DIMS``),
+    the ring kernel's ``launch_ring_d`` switch at each of ``RING_DIMS``
+    (GROUPS, the odd groups under ``kOddGroups`` at D 64 and 128, and
+    RING_GROUPS at ``RING_GROUP_DIMS`` only), and the dispatch that sends
+    bf16 q and cache at ``RING_DIMS`` to the ring kernel and nowhere else."""
     import re
     src = _build.source("decode_attn").read_text()
     launch_d = src[src.index("cudaError_t launch_d("):src.index("cudaError_t launch_t(")]
@@ -255,8 +262,24 @@ def test_decode_group_table_matches_the_source():
     assert sorted(odd) == sorted(DK.ODD_GROUPS)
     dims = re.search(r"kOddGroups = (.*);", src).group(1)
     assert sorted(int(x) for x in re.findall(r"D == (\d+)", dims)) == sorted(DK.ODD_GROUP_DIMS)
-    ring = src[src.index("if (q_dtype == 1 && kv_dtype == 1 && D == kRingD)"):]
+    ring = src[src.index("cudaError_t launch_ring_d("):src.index('extern "C"')]
     ring = ring[:ring.index("default:")]
-    assert sorted(int(c) for c in re.findall(r"case (\d+):", ring)) == sorted(
-        DK.GROUPS + DK.RING_GROUPS)
+    ring_cases = [int(c) for c in re.findall(r"case (\d+):", ring)]
+    ring_odd = [int(c) for c in
+                re.findall(r"case (\d+):\s*\n\s*if constexpr \(kOddGroups", ring)]
+    ring_wide = re.findall(r"case (\d+):\s*\n\s*if constexpr \(D == (\d+)\)", ring)
+    assert sorted(ring_cases) == sorted(DK.GROUPS + DK.ODD_GROUPS + DK.RING_GROUPS)
+    assert sorted(ring_odd) == sorted(DK.ODD_GROUPS)
+    assert sorted(int(g) for g, _ in ring_wide) == sorted(DK.RING_GROUPS)
+    assert sorted({int(d) for _, d in ring_wide}) == sorted(DK.RING_GROUP_DIMS)
     assert not set(DK.RING_GROUPS) & set(cases)      # the split kernel has no G 16
+    # the dispatch: bf16 q and cache at RING_DIMS to the ring kernel
+    entry = src[src.index("if (q_dtype == 1 && kv_dtype == 1) {"):]
+    entry = entry[:entry.index("default:")]
+    assert sorted(int(d) for d in re.findall(r"case (\d+): return launch_ring_d<\1>", entry)) \
+        == sorted(DK.RING_DIMS)
+    # the split kernel keeps no bf16 instantiation at RING_DIMS
+    launch_t = src[src.index("cudaError_t launch_t("):src.index("cudaError_t launch_ring_d(")]
+    guarded = re.findall(r"case (\d+):\s*\n\s*if constexpr \(!kRingDtypes\)", launch_t)
+    assert sorted(int(d) for d in guarded) == sorted(DK.RING_DIMS)
+    assert "kRingDtypes = std::is_same_v<TQ, __nv_bfloat16>" in launch_t

@@ -2,15 +2,17 @@
 """Check and time the CIAO gather (K1) and decode attention (K2) kernels on the card.
 
     python3 tools/kernel_probe.py [--check] [--broken] [--variants] [--parent DIR]
-                                  [--source KERNEL:NAME=PATH ...] [--decode] [--scaling]
-                                  [--build-times DIR] [--split-blocks N [N ...]]
+                                  [--source KERNEL:NAME=PATH ...] [--decode [ARCH ...]]
+                                  [--scaling] [--build-times DIR] [--split-blocks N [N ...]]
 
 --check     build the kernels and run phase 2 of chip_smoke.py (each kernel
             against its plain version at its grid and edge cases);
 --broken    build broken copies of K1, K2 and K3 (text edits of the sources,
             under build/probe/) and run phase 2's checks of that kernel with
             each, printing which checks fail (K3's copy without the K stage
-            wait also with a slowed producer, and the slowed producer alone);
+            wait also with a slowed producer, and the slowed producer alone;
+            K2's ring kernel without a stage's keys at D 64 and without one
+            lane group's partials at D 128);
 --variants  time text-edited variants of both kernels in turns at the main
             paths' shapes; those marked "wrong" leave out part of the work on
             purpose and only say what that part costs;
@@ -19,13 +21,20 @@
             decode_attn and ciao_gather wrappers, built from its own sources,
             are timed in turns with the current ones, beside the plain
             versions, the library calls and the bounds, with the device
-            time of each launch under the profiler;
+            time of each launch under the profiler (K2 at gemma2-2b's local
+            and global steps and at every shape phase 6 times it: the zoo's
+            last decode steps and the frontends' steps);
 --source    another source of one kernel (decode_attn or ciao_gather),
             bound through the current wrapper, timed in turns like the
             parent;
---decode    (with --parent) full-width gemma2-2b decode, 32 steps after one
-            prefill, with the parent's K2 and the current one in turns, and
-            a profiled step of each;
+--decode [ARCH ...]
+            (with --parent) full-width decode after one prefill, with the
+            parent's K2 and the current one in turns, and a profiled step of
+            each (device busy ms and K2's device ms): gemma2-2b (phase 4's 4 x
+            4608 tokens, 32 steps) when no ARCH is named; else each ARCH at
+            its chip_smoke.py phase's workload (granite-moe-3b-a800m at 4b's,
+            the 4c archs at 2 x 1024 tokens and 8 steps with 4c's depth
+            cuts), "zoo" naming granite-moe and the four 4c archs;
 --scaling   K1 at larger traces and caches than the gather path's (4x the
             requests, 4096 + 1024 slots), every K1 library in turns, with
             the device time of each of its kernels;
@@ -34,10 +43,12 @@
             DIR (as for --parent) and of the current one, one build at a
             time, in turns (older, current, current, older);
 --split-blocks N [N ...]
-            K2's split kernel at the zoo paths' last decode steps (granite-moe,
-            nemotron, arctic; chip_smoke.ZOO_DECODE) with its plan aimed at
-            each N blocks an SM (kernel.SPLIT_BLOCKS_PER_SM), in turns,
-            each held against the plain version.
+            K2's split kernel (f32 queries against a bf16 cache: the bf16
+            serving path takes the ring kernel) at the zoo paths' last decode
+            steps at D 64 and 128 (chip_smoke.ZOO_DECODE but recurrentgemma)
+            with its plan aimed at each N blocks an SM
+            (kernel.SPLIT_BLOCKS_PER_SM), in turns, each held against the
+            plain version.
 
 K2 is timed three ways: CUDA events around 50 back-to-back calls (as
 chip_smoke.py's phase 6 times it, host launch cost included), a CUDA graph
@@ -93,6 +104,15 @@ BROKEN = [
     ("decode_attn", "drop_last_split", [(
         "    for (int s = 0; s < nsplit; ++s) {\n      const float4 a = __ldcg(",
         "    for (int s = 0; s < nsplit - 1; ++s) {\n      const float4 a = __ldcg(")]),
+    # the ring kernel's consumers skip a split's second stage at D 64
+    ("decode_attn", "drop_second_stage_d64", [(
+        "        if (base >= n) break;\n",
+        "        if (base >= n || (D == 64 && i == 1)) break;\n")]),
+    # the ring kernel's lane-group sum skips its one level at D 128, losing
+    # lane group 1's partial accumulators
+    ("decode_attn", "lose_lane_group_d128", [(
+        "    for (int o = D / 8; o < 32; o <<= 1) {\n",
+        "    for (int o = D == 128 ? 32 : D / 8; o < 32; o <<= 1) {\n")]),
     ("ciao_gather", "every_request_a_miss", [(
         "atomicAdd(&cnt[2 * r.z + (r0 + lane == p ? 1 : 0)], 1)",
         "atomicAdd(&cnt[2 * r.z + 1], 1)")]),
@@ -112,13 +132,30 @@ VARIANTS = [
         "  for (int idx = G * D; idx < G * D / 4; idx += blockDim.x) {")]),
     ("decode_attn", "stages_2", True, [("constexpr int kStages = 4;", "constexpr int kStages = 2;")]),
     ("decode_attn", "stages_6", True, [("constexpr int kStages = 4;", "constexpr int kStages = 6;")]),
-    ("ciao_gather", "kernel", True, []),
-    ("ciao_gather", "batch_1", True, [("constexpr int kBatch = 2;", "constexpr int kBatch = 1;")]),
-    ("ciao_gather", "batch_4", True, [("constexpr int kBatch = 2;", "constexpr int kBatch = 4;")]),
-    ("ciao_gather", "gather_warps_4", True, [("constexpr int kGatherWarps = 8;",
-                                              "constexpr int kGatherWarps = 4;")]),
-    ("ciao_gather", "no_hit_copies", False, [(
-        "          const int m = min(32, q - r0);", "          const int m = r0 == p ? 1 : 0;")]),
+    # the TMA boxes' L2 promotion: a D 64 row is 128 bytes, so 256-byte
+    # promotion also fetches the next head's row
+    ("decode_attn", "l2_128b_at_d64", True, [(
+        "CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,",
+        "CU_TENSOR_MAP_SWIZZLE_NONE, D == 64 ? CU_TENSOR_MAP_L2_PROMOTION_L2_128B : "
+        "CU_TENSOR_MAP_L2_PROMOTION_L2_256B,")]),
+    ("decode_attn", "l2_none", True, [(
+        "CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,",
+        "CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,")]),
+    # the producer waits for q in shared memory before its first loads
+    ("decode_attn", "q_before_producer", True, [(
+        "  __syncthreads();\n  // the producer's first loads go out while the consumers bring q into\n",
+        "  for (int e = threadIdx.x; e < G * D; e += blockDim.x) sq[e] = "
+        "__bfloat162float(q[qrow * D + e]);\n  __syncthreads();\n"
+        "  // the producer's first loads go out while the consumers bring q into\n"),
+        ("  if (warp < kConsumers) {\n    for (int e = threadIdx.x; e < G * D; e += kConsumers * 32)\n"
+         "      sq[e] = __bfloat162float(q[qrow * D + e]);\n"
+         "    asm volatile(\"bar.sync 1, %0;\\n\" ::\"n\"(kConsumers * 32) : \"memory\");\n  }\n",
+         "")]),
+    # a consumer warp's passes over a stage never unrolled, and always
+    ("decode_attn", "passes_rolled", True, [(
+        "#pragma unroll kPassUnroll\n", "#pragma unroll 1\n")]),
+    ("decode_attn", "passes_unrolled", True, [(
+        "#pragma unroll kPassUnroll\n", "#pragma unroll\n")]),
 ]
 
 
@@ -253,22 +290,29 @@ def per_launch(prof):
 
 
 def decode_cases(gen):
-    """K2's bf16 ring-kernel shapes on the serving paths, {label: ((q,
-    cache_k, cache_v, lengths), args)}: gemma2-2b's last decode step on a
-    local and a global layer (G 2, softcap 50) and recurrentgemma-9b's on
-    its wrapped 2,048-slot ring (G 16, no softcap)."""
+    """K2's bf16 shapes on the serving paths, {label: ((q, cache_k, cache_v,
+    lengths), args)}: gemma2-2b's last decode step on a local and a global
+    layer (G 2, softcap 50), each zoo path's last step that phase 6 times
+    (``chip_smoke.ZOO_DECODE``: granite-moe at D 64, qwen3, nemotron,
+    command-r and arctic at D 128, recurrentgemma's wrapped 2,048-slot
+    ring at G 16), and the frontends' steps (seamless's cross step at D 64,
+    paligemma's last step), every slot valid, no softcap."""
     import torch
     _, decode = C.main_path_inputs(torch.bfloat16, gen)
     cases = {kind: (decode[kind], dict(scale=C.SCALE, softcap=50.0))
              for kind in ("local", "global")}
     for name, b, sq, steps, hq, hkv, d, scale, window in C.zoo_paths():
-        if name == C.RECURRENTGEMMA:
-            s = min(sq + steps, window)
+        if name in C.ZOO_DECODE:
+            s = min(sq + steps, window or sq + steps)
             dq = torch.randn(b, 1, hq, d, generator=gen, device="cuda").to(torch.bfloat16)
             ck, cv = (torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
                       for _ in range(2))
             lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
             cases[name] = ((dq, ck, cv, lens), dict(scale=scale, softcap=0.0))
+    for name, call, kernel, shape, scale in C.frontend_calls():
+        if kernel == "decode_attn" and (name, call) in C.FRONTEND_TIMED:
+            *inputs, args = C.frontend_inputs(kernel, shape, scale, torch.bfloat16, gen)
+            cases[f"{name} {call}"] = (tuple(inputs), args)
     return cases
 
 
@@ -368,21 +412,39 @@ def time_gather(libs_k1, card, profile, shapes):
         torch.cuda.empty_cache()
 
 
-def time_decode_steps(libs_k2, card):
-    """Full-width gemma2-2b: one prefill, then 32 decode steps with each K2
-    library in turns (in both orders, five times over): wall and host CPU
-    ms a step, the host's ms inside the K2 calls, and one profiled step of
-    each. The steps write the same cache slots each time, so every turn
-    does the same work."""
-    import torch
+def decode_workload(name):
+    """(config, batch, prompt, steps) of ``name``'s serving phase in
+    chip_smoke.py: 4 and 4b (BATCH x SEQ, STEPS) for gemma2-2b and
+    granite-moe, 4c (ZOO_BATCH x ZOO_SEQ, ZOO_STEPS, with its depth cuts)
+    for the others."""
+    import dataclasses
     from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if name in ("gemma2-2b", C.GRANITE):
+        return cfg, C.BATCH, C.SEQ, C.STEPS
+    if name not in C.ZOO_ARCHS:
+        raise SystemExit(f"--decode takes gemma2-2b, {C.GRANITE} or {C.ZOO_ARCHS}, not {name}")
+    if name in C.DEPTH_CUTS and (name == "arctic-480b" or C.reckoned_peak_gb(
+            cfg, C.ZOO_BATCH, C.ZOO_SEQ, C.ZOO_STEPS) > C.PEAK_BUDGET_GB):
+        cfg = dataclasses.replace(cfg, num_layers=C.DEPTH_CUTS[name])
+    return cfg, C.ZOO_BATCH, C.ZOO_SEQ, C.ZOO_STEPS
+
+
+def time_decode_steps(libs_k2, card, name="gemma2-2b"):
+    """One arch at full width (``decode_workload``): one prefill, then its
+    decode steps with each K2 library in turns (in both orders, five times
+    over): wall and host CPU ms a step, the host's ms inside the K2 calls,
+    and one profiled step of each (device busy ms and K2's device ms). The
+    steps write the same cache slots each time, so every turn does the same
+    work."""
+    import torch
     from repro_torch.kernels.decode_attn import ops as DO
     from repro_torch.models import model as M
 
     k2_s = []     # host seconds inside each K2 call
 
-    def use_k2(name):     # the model reaches K2 through ops.kernel
-        mod, entry = libs_k2[name]
+    def use_k2(tag):     # the model reaches K2 through ops.kernel
+        mod, entry = libs_k2[tag]
         use(mod, entry)
 
         def timed(*a, **kw):
@@ -394,52 +456,52 @@ def time_decode_steps(libs_k2, card):
         DO.kernel = types.SimpleNamespace(decode_attention_cuda=timed)
 
     own = DO.kernel
-    cfg = get_config("gemma2-2b")
+    cfg, batch, seq, n_steps = decode_workload(name)
     g = torch.Generator(device="cuda").manual_seed(0)
     params = M.init_params(cfg, g, "cuda", torch.bfloat16)
-    prompts = torch.randint(0, cfg.vocab_size, (C.BATCH, C.SEQ), generator=g, device="cuda")
-    logits0, cache, pos = M.prefill(cfg, params, {"tokens": prompts}, max_len=C.SEQ + C.STEPS)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g, device="cuda")
+    logits0, cache, pos = M.prefill(cfg, params, {"tokens": prompts}, max_len=seq + n_steps)
     tok0 = logits0.argmax(-1)[:, None]
 
     def steps():
         tok = tok0
-        for i in range(C.STEPS):
+        for i in range(n_steps):
             step_logits, _ = M.decode_step(cfg, params, tok, pos + 1 + i, cache)
             tok = step_logits.argmax(-1)[:, None]
 
     names = list(libs_k2)
-    for name in names:
-        use_k2(name)
+    for tag in names:
+        use_k2(tag)
         steps()
     wall = {n: [] for n in names}
     cpu = {n: [] for n in names}     # this thread's CPU ms a step, before the synchronise
-    in_k2 = {n: [] for n in names}   # host ms a step inside the 26 K2 calls
-    for name in (names + names[::-1]) * 5:
-        use_k2(name)
+    in_k2 = {n: [] for n in names}   # host ms a step inside the K2 calls
+    for tag in (names + names[::-1]) * 5:
+        use_k2(tag)
         C.sync()
         k2_s.clear()
         t0, c0 = time.perf_counter(), time.thread_time()
         steps()
         c1 = time.thread_time()
         C.sync()
-        wall[name].append((time.perf_counter() - t0) * 1e3 / C.STEPS)
-        cpu[name].append((c1 - c0) * 1e3 / C.STEPS)
-        in_k2[name].append(sum(k2_s) * 1e3 / C.STEPS)
-    C.log(f"decode, gemma2-2b bf16, batch {C.BATCH}, {C.STEPS} steps after a {C.SEQ}-token "
-          f"prefill, ms a step in turns; {card}")
-    for name in names:
-        use_k2(name)
-        prof = C.device_profile(lambda: M.decode_step(cfg, params, tok0, pos + C.STEPS, cache),
-                                top=6)
+        wall[tag].append((time.perf_counter() - t0) * 1e3 / n_steps)
+        cpu[tag].append((c1 - c0) * 1e3 / n_steps)
+        in_k2[tag].append(sum(k2_s) * 1e3 / n_steps)
+    C.log(f"decode, {name} bf16 ({cfg.num_layers} layers), batch {batch}, {n_steps} steps "
+          f"after a {seq}-token prefill, ms a step in turns; {card}")
+    for tag in names:
+        use_k2(tag)
+        prof = C.device_profile(lambda: M.decode_step(cfg, params, tok0, pos + n_steps, cache),
+                                top=64)
         k2 = sum(ms for k, ms, n in prof["top"] if "decode" in k)
-        C.log(f"  {name:24s} wall {', '.join(f'{x:.2f}' for x in wall[name])} ms a step "
-              f"(median {statistics.median(wall[name]):.2f}); host CPU "
-              f"{', '.join(f'{x:.2f}' for x in cpu[name])} ms a step (median "
-              f"{statistics.median(cpu[name]):.2f}); host in K2 calls "
-              f"{', '.join(f'{x:.2f}' for x in in_k2[name])} ms a step (median "
-              f"{statistics.median(in_k2[name]):.2f}); one step profiled: device busy "
+        C.log(f"  {tag:24s} wall {', '.join(f'{x:.2f}' for x in wall[tag])} ms a step "
+              f"(median {statistics.median(wall[tag]):.2f}); host CPU "
+              f"{', '.join(f'{x:.2f}' for x in cpu[tag])} ms a step (median "
+              f"{statistics.median(cpu[tag]):.2f}); host in K2 calls "
+              f"{', '.join(f'{x:.2f}' for x in in_k2[tag])} ms a step (median "
+              f"{statistics.median(in_k2[tag]):.2f}); one step profiled: device busy "
               f"{prof['device_busy_ms']:.3f} ms, K2 {k2:.4f} ms")
-        for kname, ms, calls in prof["top"]:
+        for kname, ms, calls in prof["top"][:6]:
             C.log(f"    {ms:9.4f} ms {calls:4d}x  {kname}")
     DO.kernel = own
     del params, cache
@@ -468,18 +530,19 @@ def build_times(parent: Path) -> None:
 
 
 def time_split_blocks(values, card):
-    """K2 at the zoo's decode shapes with SPLIT_BLOCKS_PER_SM at each of
-    ``values``, in turns (values, then reversed): events around 50 calls and
-    a CUDA graph of 100, and max |err| against the plain version."""
+    """K2's split kernel (f32 queries, a bf16 cache) at the zoo's decode
+    shapes at D 64 and 128 with SPLIT_BLOCKS_PER_SM at each of ``values``,
+    in turns (values, then reversed): events around 50 calls and a CUDA
+    graph of 100, and max |err| against the plain version."""
     import torch
     from repro_torch.kernels.decode_attn import kernel as DK, ops as DO
     gen = torch.Generator(device="cuda").manual_seed(2)
     keep = DK.SPLIT_BLOCKS_PER_SM
     for name, b, sq, steps, hq, hkv, d, scale, _ in C.zoo_paths():
-        if name not in C.ZOO_DECODE:
+        if name not in C.ZOO_DECODE or d not in DK.ODD_GROUP_DIMS:
             continue
         s = sq + steps
-        dq = torch.randn(b, 1, hq, d, generator=gen, device="cuda").to(torch.bfloat16)
+        dq = torch.randn(b, 1, hq, d, generator=gen, device="cuda")    # f32: the split kernel
         ck, cv = (torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
                   for _ in range(2))
         lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
@@ -510,7 +573,7 @@ def main() -> None:
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--parent", type=Path)
     ap.add_argument("--source", action="append", default=[], metavar="KERNEL:NAME=PATH")
-    ap.add_argument("--decode", action="store_true")
+    ap.add_argument("--decode", nargs="*", metavar="ARCH")
     ap.add_argument("--scaling", action="store_true")
     ap.add_argument("--build-times", type=Path, metavar="DIR")
     ap.add_argument("--split-blocks", type=int, nargs="+", metavar="N")
@@ -519,7 +582,7 @@ def main() -> None:
     if args.broken_one:
         run_broken_one(args.broken_one[0], Path(args.broken_one[1]))
         return
-    if args.decode and not args.parent:
+    if args.decode is not None and not args.parent:
         ap.error("--decode needs --parent")
     import torch
     from repro_torch.kernels import _build
@@ -575,9 +638,12 @@ def main() -> None:
     time_decode(libs["decode_attn"], card, profile)
     time_gather(libs["ciao_gather"], card, profile,
                 GATHER_PATH + (GATHER_SCALING if args.scaling else []))
-    if args.decode:
-        time_decode_steps({tag: lib for tag, lib in libs["decode_attn"].items()
-                           if "wrong" not in tag}, card)
+    if args.decode is not None:
+        archs = [a for name in args.decode or ["gemma2-2b"]
+                 for a in ((C.GRANITE,) + C.ZOO_ARCHS if name == "zoo" else (name,))]
+        for arch in archs:
+            time_decode_steps({tag: lib for tag, lib in libs["decode_attn"].items()
+                               if "wrong" not in tag}, card, arch)
     C.log(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     C.log(card)
