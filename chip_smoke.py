@@ -326,11 +326,30 @@ FLASH_GRID += [(1, 300, 300, hq, hkv, d, True, 0, 0.0) for hq, hkv, d in ZOO_HEA
 # seamless-m4t-medium's heads (16 of 64, G 1): K3 non-causal (the encoder,
 # and cross-attention) with Sq != Skv, both ragged
 FLASH_GRID += [(2, 77, 301, 16, 16, 64, False, 0, 0.0), (1, 300, 190, 16, 16, 64, False, 0, 0.0)]
+# the edges of the D 64 and D 128 plans (kernel.PLANS: 128-key tiles, the
+# exponent folded into one FMA; D 64: blocks of 192 query rows in three
+# consumer warpgroups, two at Sq <= 128) at granite's heads (G 3, D 64) and
+# qwen3's (G 4, D 128), and at seamless's (G 1, D 64): Sq and Skv no
+# multiple of the tile or the block, Sq 1, Skv shorter than one tile
+# (causal and not), Sq 129 and 193 (just past a short block and a block of
+# three), a causal block whose first tile (taken last-to-first) is wholly
+# masked for its first warpgroup (D 64 at Sq 300 and 384: the last tile of
+# the block at 192 starts at 256), a window, a softcap, and non-causal Sq
+# != Skv
+FLASH_GRID += [case for hq, hkv, d in ((24, 8, 64), (32, 8, 128)) for case in (
+    (2, 200, 200, hq, hkv, d, True, 0, 0.0), (1, 385, 385, hq, hkv, d, True, 0, 0.0),
+    (2, 1, 1, hq, hkv, d, True, 0, 0.0), (2, 50, 50, hq, hkv, d, True, 0, 0.0),
+    (2, 90, 50, hq, hkv, d, False, 0, 0.0), (1, 384, 384, hq, hkv, d, True, 0, 0.0),
+    (1, 300, 300, hq, hkv, d, True, 100, 0.0), (1, 333, 333, hq, hkv, d, True, 0, 30.0),
+    (1, 300, 300, hq, hkv, d, True, 100, 50.0), (2, 129, 700, hq, hkv, d, False, 0, 0.0))]
+FLASH_GRID += [(2, 1, 257, 16, 16, 64, False, 0, 0.0), (1, 193, 127, 16, 16, 64, False, 0, 0.0)]
 # (b, sq, hq, hkv, d, prefix): K3 causal with a prefix-LM prefix at a ragged
-# Sq, at paligemma-3b's heads (8 q on 1 kv head of 256) and at D 32 (the
-# 64-byte swizzle): prefixes that are no multiple of the 64-key tile or of
-# the 128-row block, one that ends the sequence (P = Sq) and one past it
-FLASH_PREFIX_GRID = [(2, 333, hq, hkv, d, p) for hq, hkv, d in ((8, 1, 256), (4, 2, 32))
+# Sq, at paligemma-3b's heads (8 q on 1 kv head of 256), at D 32 (the
+# 64-byte swizzle) and at the D 64 and D 128 plans (granite's and qwen3's
+# heads): prefixes that are no multiple of the tile or of the block, one
+# that ends the sequence (P = Sq) and one past it
+FLASH_PREFIX_GRID = [(2, 333, hq, hkv, d, p)
+                     for hq, hkv, d in ((8, 1, 256), (4, 2, 32), (24, 8, 64), (32, 8, 128))
                      for p in (1, 100, 200, 300, 333, 400)]
 # (b, s, hq, hkv, d, lengths or None for random ones): the kernel tests'
 # grid, then the edges of the bf16 ring kernel (D = 256, 32-key tiles, one
@@ -1471,10 +1490,11 @@ def time_gather(table, idx, st, isos):
 # the zoo paths whose last decode step phase 6 times K2 at: granite-moe
 # (4b; G 3, D 64), qwen3, nemotron, command-r and arctic (4c; G 4, 6, 8 and
 # 7, D 128) and recurrentgemma (4d; G 16, D 256), all on the ring kernel;
-# and whose prefill it times K3 at: recurrentgemma's (G 16, window 2048)
+# and whose prefill it times K3 at: every zoo path's (granite-moe's D 64 and
+# the 4c archs' D 128 plans, recurrentgemma's G 16 with a window of 2048)
 ZOO_DECODE = (GRANITE, "qwen3-4b", "nemotron-4-15b", "command-r-35b", "arctic-480b",
               RECURRENTGEMMA)
-ZOO_PREFILL = (RECURRENTGEMMA,)
+ZOO_PREFILL = ZOO_DECODE
 # the calls of phase 4e's paths that phase 6 times (``frontend_calls``): K3
 # at seamless's encoder and cross prefill and at paligemma's prefill (the
 # prefix mask), K2 at seamless's cross step and at paligemma's last step
@@ -1588,8 +1608,11 @@ def time_kernels(errs, launches, card, gather, paths):
     for kind in ("local", "global"):
         rows["decode_attn"].append(time_decode(f"decode_attn {kind}", *decode[kind],
                                                SCALE, 50.0))
-    # K3 at the zoo's prefill shapes: recurrentgemma's (4d), no softcap
+    # K3 at the zoo's prefill shapes (ZOO_PREFILL), no softcap, by events
+    # and over a CUDA graph of 20 calls; the plain version a batch row at a
+    # time (granite's (24, 4608, 4608) f32 scores are 2 GB a row)
     zoo_prefill = {}
+    t_zoo = time.perf_counter()
     for name, b, sq, steps, hq, hkv, d, scale, window in zoo_paths():
         if name not in ZOO_PREFILL:
             continue
@@ -1598,7 +1621,9 @@ def time_kernels(errs, launches, card, gather, paths):
                 for _ in range(2))
         args = dict(scale=scale, causal=True, window=window, softcap=0.0)
         ms = cuda_ms(lambda: FK.flash_attention_cuda(q, k, v, **args), 5)
-        plain = cuda_ms(lambda: FO.flash_attention_plain(q, k, v, **args), 2)
+        device = graph_ms(lambda: FK.flash_attention_cuda(q, k, v, **args), 20)
+        plain = cuda_ms(lambda: [FO.flash_attention_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                                          **args) for i in range(b)], 2)
         lib = lib_err = None
         try:
             call, back = library_flash(q, k, v, window, scale=scale, cap=0.0)
@@ -1609,12 +1634,16 @@ def time_kernels(errs, launches, card, gather, paths):
         b_ms, by = bound_ms(*flash_bound(q, k, v, window))
         zoo_prefill[name] = {"shape": {"batch": b, "seq": sq, "hq": hq, "hkv": hkv, "d": d,
                                        "window": window},
-                             "launches": paths[name]["flash_attn"], "ms": ms, "plain_ms": plain,
-                             "library_ms": lib, "bound_ms": b_ms, "bound_by": by}
+                             "launches": paths[name]["flash_attn"], "ms": ms, "device_ms": device,
+                             "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                             "bound_by": by}
         log(f"  flash_attn {name} prefill (B {b}, S {sq}, {hq}/{hkv} heads of {d}, window "
-            f"{window}): kernel {ms:.4f} ms, plain {plain:.4f} ms, flex_attention {lib} ms "
-            f"(max|diff| {lib_err}), bound {b_ms:.4f} ms ({by})")
+            f"{window}): kernel {ms:.4f} ms (events), {device:.4f} ms (CUDA graph of 20 calls), "
+            f"plain {plain:.4f} ms, flex_attention {lib} ms (max|diff| {lib_err}), bound "
+            f"{b_ms:.4f} ms ({by}); {paths[name]['flash_attn']} launches on its path")
         del q, k, v
+        torch.cuda.empty_cache()
+    log(f"  K3 at the {len(zoo_prefill)} zoo prefills took {time.perf_counter() - t_zoo:.1f} s")
     # K2 at the zoo's decode shapes: each arch's last step of its
     # phase-4b/4c/4d run (recurrentgemma's wrapped ring), no softcap
     zoo = {}
@@ -2605,6 +2634,11 @@ def sharded_phase(card, phase4):
 # drained by two ``runs work`` processes; 11c: the examples on the card.
 QUICK_APPS, QUICK_POLICIES, QUICK_SCALE = ("syrk", "kmn"), ("gto", "ciao-p", "ciao-c"), 0.2
 MS_APPS, MS_POLICIES, MS_SCALE = ("kmn", "syrk"), ("gto", "ciao-p", "ciao-c"), 0.25
+# 11a's fig8 grid runs at a fifth of GRID_SCALE: phase 7 already holds and
+# times fig8's 84 cells at GRID_SCALE on the stepper, and at 0.5 the grid
+# took 129.5 s more through run_grid (a script of 1,065 s against its
+# 1,200 s limit on an H100)
+RUNNER_SCALE = 0.1
 # The 11b run with a deadline: its first chunk's dispatch is held back by
 # QUICK_DELAY_S (the repo's fault plan), so the deadline passes while that
 # chunk runs and the chunk after it is truncated, at any card speed.
@@ -2635,7 +2669,7 @@ def timed_grid(grid, **kw):
 
 
 def runner_full_size(device="cuda"):
-    """11a: the fig8 grid (12 apps x 7 policies at scale 0.5, seed 0, the
+    """11a: the fig8 grid (12 apps x 7 policies at RUNNER_SCALE, seed 0, the
     limit sweeps flattened) through ``run_grid(engine="torch",
     strict=True)`` on the card, field for field against the C rung's run
     on the host; its JSON round trip; a 2-SM grid whose chunks go to C
@@ -2645,9 +2679,9 @@ def runner_full_size(device="cuda"):
     from repro_torch.core.runner import ExperimentGrid, load_records, save_records
     out = {}
     grid = ExperimentGrid(name="fig8", workloads=FIG8_APPS, policies=POLICIES,
-                          scale=GRID_SCALE, seed=0)
+                          scale=RUNNER_SCALE, seed=0)
     log(f"[11a] run_grid: fig8 ({len(FIG8_APPS)} apps x {len(POLICIES)} policies, scale "
-        f"{GRID_SCALE}) on the torch rung ({device}) and on the C rung")
+        f"{RUNNER_SCALE}) on the torch rung ({device}) and on the C rung")
     recs, secs, perf = timed_grid(grid, engine="torch", strict=True, device=device)
     with env_vars(REPRO_BATCHED_BACKEND="c"):
         c_recs, c_secs, c_perf = timed_grid(grid, engine="batched", strict=True)

@@ -16,39 +16,63 @@
 // arrive as zeros in shared memory.
 //
 // Two kernels, chosen by dtype:
-//  * bf16: flash_wgmma_kernel, for the serving path. Two bounds at
-//    gemma2-2b's prefill (S = 4608, D = 256, softcap 50). The tensor cores:
-//    a (q, k) pair costs 4*D operations against a few bytes of input. And
-//    the special-function units under the softcap: a score costs an ex2
-//    and a rcp for the tanh (tanh.approx.f32 is too coarse at a cap of
-//    50) and an ex2 for the softmax, 3 of the SM's 16 a clock, about 3/4 of
-//    the tensor-core time. So the softmax has to run beside the products,
-//    not after them. The design:
-//    - a block owns 128 query rows of one (batch, q head); one producer
-//      warp streams 64-key K and V tiles with TMA (4-D tensor maps over
+//  * bf16: flash_wgmma_kernel, for the serving path: one design, with a
+//    plan of tile and block sizes for each head dim (Plan<D>). Two bounds
+//    at gemma2-2b's prefill (S = 4608, D = 256, softcap 50). The tensor
+//    cores: a (q, k) pair costs 4*D operations against a few bytes of
+//    input. And the special-function units under the softcap: a score
+//    costs an ex2 and a rcp for the tanh (tanh.approx.f32 is too coarse at
+//    a cap of 50) and an ex2 for the softmax, 3 of the SM's 16 a clock,
+//    about 3/4 of the tensor-core time. So the softmax has to run beside
+//    the products, not after them. The design:
+//    - a block owns 64 NWG query rows of one (batch, q head); one producer
+//      warp streams BK-key K and V tiles with TMA (4-D tensor maps over
 //      (D, H, S, B), 128-byte swizzle, boxes of 64 columns) into a ring of
 //      2 stages behind full/empty mbarriers, K of the next tile ahead of V
 //      of this one;
-//    - two consumer warpgroups (64 rows each, 240 registers a thread after
-//      setmaxnreg; the producer's warpgroup keeps 24) run S = Q K^T as
-//      wgmma m64n64k16 from shared memory and O += P V as m64nDk16 with P
-//      from registers (the S accumulator is the A fragment) and V
-//      MN-major;
+//    - NWG consumer warpgroups (64 rows each; after setmaxnreg 240
+//      registers a thread of two, 160 of three, the producer's warpgroup
+//      24) run S = Q K^T as wgmma m64nBKk16 from shared memory and O += P V
+//      as m64nDk16 with P from registers (the S accumulator is the A
+//      fragment) and V MN-major;
 //    - step i issues S_i and P_{i-1} V_{i-1} together and runs the softmax
-//      of S_i while the PV product is in flight; the two warpgroups take
-//      turns to issue (named barriers), so one's softmax overlaps the
-//      other's products;
+//      of S_i while the PV product is in flight; the warpgroups take turns
+//      to issue (named barriers), so one's softmax overlaps another's
+//      products;
 //    - scale*log2e is folded into the exponent (ex2), only tiles that
 //      cross the diagonal (outside the prefix), the window's edge or Skv
-//      apply the mask, and O
-//      is rescaled only when a row's maximum grows by more than 2^8;
+//      apply the mask (each row's valid keys an interval [lo, hi]: two
+//      compares a score), and O is rescaled only when a row's maximum
+//      grows by more than 2^8;
 //    - the blocks late in the sequence, which have the most tiles, launch
 //      first.
 //    P is rounded to bf16 for the PV product, as the reference's
-//    attention_core rounds p to V's dtype. On an H100 the products alone
-//    run at ~89% of the tensor-core rate; what holds the kernel near half
-//    its bound is the softmax, which runs at about half speed beside the
-//    other warpgroup's products (PERF.md).
+//    attention_core rounds p to V's dtype. At D 256 (64-key tiles, two
+//    warpgroups in ping-pong, 2 stages) the products alone run at ~89% of
+//    the tensor-core rate; what holds the kernel near half its bound is
+//    the softmax, which runs at about half speed beside the other
+//    warpgroup's products (PERF.md).
+//    At D 64 without a softcap (granite-moe's prefill, seamless's encoder)
+//    the balance moves: a score's products cost 4*64 = 256 operations,
+//    1/16 of an SM's clock at ~4,096 a clock, and its ex2 also 1/16 (16 a
+//    clock), so the exponentials alone equal the products; and the costs of
+//    a tile (mbarrier and named-barrier waits, wgmma fences, commits and
+//    waits, the maxima's shuffles) weigh four times as much against a
+//    quarter of the product work. D 256's plan reached 29-32% of the bound
+//    there; without its softmax 45-51%, without its ex2 only 16-18%
+//    faster, and without the bf16 packs of p no faster (they do not
+//    compete with ex2). So what D 64 lacked was latency hidden, more than
+//    special-function throughput. Its plan: 128-key tiles (half the costs a
+//    key; S is 64 registers), three consumer warpgroups of 64 rows (192 a
+//    block: three warps on each scheduler to hide the softmax's dependent
+//    chains), and the row maximum taken on the raw scores, so an unmasked
+//    tile's exponent is one FMA (x mul - m mul) and its maximum needs no
+//    multiply. A query sequence that fits one block of two warpgroups (Sq
+//    <= 128) runs two (short_block). D 128 takes the 128-key tiles and the
+//    folded exponent with two warpgroups. Moving a share of the
+//    exponentials to the FMA pipe (a polynomial 2^x), a deeper ring and
+//    64-key tiles were timed and dropped (PERF.md; tools/flash_probe.py
+//    keeps them as variants).
 //  * f32: flash_f32_kernel keeps f32 end to end (TF32 would miss the f32
 //    tolerance of 2e-5). A lane scores one key of a 32-key tile against 8
 //    query rows with float4 reads of shared memory, and the PV product
@@ -59,6 +83,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <climits>
 
 #include "hopper.cuh"   // mbarriers, TMA, ex2/rcp, the tensor-map encoder
 
@@ -223,34 +249,76 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // --------------------------------------------------------------- bf16 path
-constexpr int kBQ = 128;          // query rows a block
 constexpr int kWgRows = 64;       // query rows a consumer warpgroup
-constexpr int kBK = 64;           // keys a tile
 constexpr int kStages = 2;        // K and V ring stages
-constexpr int kWgmmaThreads = 3 * 128;   // producer warpgroup + 2 consumer warpgroups
 constexpr float kRegrow = 8.f;    // log2 units a row maximum may grow before O is rescaled
 
-// Shared-memory image of a 64-row tile of D bf16 columns, as the TMA box
-// writes it: D is cut into chunks of CW columns (64, or 32 at D = 32), a
-// chunk holds 64 rows of CW*2 bytes, swizzled at that width (128 or 64
-// bytes). That is the canonical swizzled layout of wgmma's operands: K-major
-// for Q and K (the reduction dimension D runs along a row), MN-major for V
-// in the PV product (its N dimension D runs along a row).
+// The bf16 kernel's plan at head dim D. BK: keys a tile; NWG: consumer
+// warpgroups (64 query rows each, so a block takes 64 NWG rows; two for a
+// short sequence, short_block); FOLD: the row maximum taken on the raw
+// scores and the scale folded into the exponent's FMA (the masked tiles and
+// the softcap keep the plain form). D 32 and 256 keep the plan tuned at D
+// 256; D 64 and 128 have their own (PERF.md: each choice timed against
+// its neighbours at the zoo's prefills).
 template <int D>
+struct Plan {
+  static constexpr int BK = 64, NWG = 2;
+  static constexpr bool FOLD = false;
+};
+template <>
+struct Plan<64> {
+  static constexpr int BK = 128, NWG = 3;
+  static constexpr bool FOLD = true;
+};
+template <>
+struct Plan<128> {
+  static constexpr int BK = 128, NWG = 2;
+  static constexpr bool FOLD = true;
+};
+
+// Shared-memory images of the tiles, as the TMA boxes write them: D is cut
+// into chunks of CW columns (64, or 32 at D = 32); a chunk holds a tile's
+// rows (64 of Q a warpgroup, BK of K or V) of CW*2 bytes, swizzled at that
+// width (128 or 64 bytes). That is the canonical swizzled layout of wgmma's
+// operands: K-major for Q and K (the reduction dimension D runs along a
+// row), MN-major for V in the PV product (its N dimension D runs along a
+// row). NWG: the block's consumer warpgroups (the plan's, or two for a
+// short query sequence: short_block).
+template <int D, int NWG>
 struct Tile {
+  using P = Plan<D>;
   static constexpr int CW = D < 64 ? D : 64;
   static constexpr int NCH = D / CW;
   static constexpr int ROW_B = CW * 2;
-  static constexpr int CHUNK_B = kBK * ROW_B;
-  static constexpr int BYTES = NCH * CHUNK_B;
+  static constexpr int Q_CHUNK_B = kWgRows * ROW_B;
+  static constexpr int Q_BYTES = NCH * Q_CHUNK_B;
+  static constexpr int KV_CHUNK_B = P::BK * ROW_B;
+  static constexpr int KV_BYTES = NCH * KV_CHUNK_B;
   static constexpr uint64_t LAYOUT = ROW_B == 128 ? 1 : 2;   // descriptor: B128 or B64
-  // Q (two warpgroups' rows), the K and V rings, 9 mbarriers, and the slack
-  // to align the base to the swizzle pattern's 1024 bytes.
-  static constexpr size_t SMEM = 1024 + (size_t)(2 + 2 * kStages) * BYTES + 128;
+  static constexpr int BQ = NWG * kWgRows;                    // query rows a block
+  static constexpr int THREADS = 128 * (1 + NWG);             // producer warpgroup + consumers
+  // Registers a thread after setmaxnreg: the producer's warpgroup gives up
+  // all but 24, the consumers take what the SM's 64 K leave (240 of two,
+  // 160 of three warpgroups).
+  static_assert(NWG == 2 || NWG == 3, "two or three consumer warpgroups");
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = NWG == 2 ? 240 : 160;
+  // Q (every warpgroup's rows), the K and V rings, 1 + 4 kStages mbarriers,
+  // and the slack to align the base to the swizzle pattern's 1024 bytes.
+  static constexpr size_t SMEM =
+      1024 + (size_t)NWG * Q_BYTES + (size_t)2 * kStages * KV_BYTES + 8 * (1 + 4 * kStages);
 };
 
-// Named barriers 1 and 2 pass the right to issue wgmma between the two
-// consumer warpgroups (256 threads: one side syncs, the other arrives).
+// A plan of three consumer warpgroups runs two when the query sequence fits
+// one block of two (Sq <= 128: seamless's 64-token decoder prompt), which
+// would otherwise leave two of three idle.
+template <int D>
+constexpr bool short_block(int Sq) {
+  return Plan<D>::NWG == 3 && Sq <= 2 * kWgRows;
+}
+
+// Named barriers 1..NWG pass the right to issue wgmma from one consumer
+// warpgroup to the next (256 threads: one side syncs, the other arrives).
 __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
 }
@@ -278,9 +346,10 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
-__device__ __forceinline__ void pin(uint32_t (&r)[4][4]) {
+template <int K>
+__device__ __forceinline__ void pin(uint32_t (&r)[K][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < K; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
@@ -299,8 +368,8 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
 }
 
 // m64nNk16, bf16 in, f32 accumulate. wgmma_ss: A and B from shared memory,
-// both K-major. wgmma_rs: A from registers, B from shared memory MN-major
-// (the transpose bit), always accumulating.
+// both K-major (N = 64 or 128 keys). wgmma_rs: A from registers, B from
+// shared memory MN-major (the transpose bit), always accumulating.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -314,6 +383,29 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -406,132 +498,175 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// S = Q K^T over D: D/16 k-steps of m64n64k16, one commit group.
+// S = Q K^T over D: D/16 k-steps of m64nBKk16, one commit group.
 template <int D>
-__device__ __forceinline__ void gemm_qk(float (&s)[32], uint32_t q, uint32_t k) {
-  using T = Tile<D>;
+__device__ __forceinline__ void gemm_qk(float (&s)[Plan<D>::BK / 2], uint32_t q, uint32_t k) {
+  using T = Tile<D, 2>;
   constexpr int KS = T::CW / 16;   // k-steps a chunk
   const uint64_t dq = smem_desc(q, 16, 8 * T::ROW_B, T::LAYOUT);
   const uint64_t dk = smem_desc(k, 16, 8 * T::ROW_B, T::LAYOUT);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = ((kk / KS) * T::CHUNK_B + (kk % KS) * 32) >> 4;
-    wgmma_ss(s, dq + off, dk + off, kk > 0);
+    const uint32_t in = (kk % KS) * 32;
+    wgmma_ss(s, dq + (((kk / KS) * T::Q_CHUNK_B + in) >> 4),
+             dk + (((kk / KS) * T::KV_CHUNK_B + in) >> 4), kk > 0);
   }
   wgmma_commit();
 }
 
-// O += P V over the tile's 64 keys: 4 k-steps of m64nDk16, P from
+// O += P V over the tile's BK keys: BK/16 k-steps of m64nDk16, P from
 // registers, V MN-major (leading offset: the next chunk of D; stride
 // offset: the next 8 keys), one commit group.
 template <int D>
-__device__ __forceinline__ void gemm_pv(float (&o)[D / 2], const uint32_t (&p)[4][4], uint32_t v) {
-  using T = Tile<D>;
-  const uint64_t dv = smem_desc(v, T::CHUNK_B, 8 * T::ROW_B, T::LAYOUT);
+__device__ __forceinline__ void gemm_pv(float (&o)[D / 2], const uint32_t (&p)[Plan<D>::BK / 16][4],
+                                        uint32_t v) {
+  using T = Tile<D, 2>;
+  const uint64_t dv = smem_desc(v, T::KV_CHUNK_B, 8 * T::ROW_B, T::LAYOUT);
 #pragma unroll
-  for (int ks = 0; ks < kBK / 16; ++ks) wgmma_rs(o, p[ks], dv + ((ks * 16 * T::ROW_B) >> 4));
+  for (int ks = 0; ks < Plan<D>::BK / 16; ++ks)
+    wgmma_rs(o, p[ks], dv + ((ks * 16 * T::ROW_B) >> 4));
   wgmma_commit();
 }
 
-// Scores of one tile in log2 units, then the online softmax of this
-// thread's two rows (ra and ra + 8; columns 8j + c0 + {0, 1} in s[4j..4j+3]).
-// CAP: x = cap * tanh(dot * scale / cap) as cap - 2 cap / (e^{2 dot scale/cap} + 1),
-// one ex2 and one rcp; mul = 2 log2e scale / cap and cap2 = cap log2e.
-// Otherwise x = dot * mul with mul = scale log2e. MASK: scores of keys past
-// Skv, above the diagonal and past the prefix, or outside the window become
-// -1e30. A row keeps
+// Scores of one tile, then the online softmax of this thread's two rows
+// (ra and ra + 8; columns 8j + c0 + {0, 1} in s[4j..4j+3], N = BK/2 of them).
+// Units: with FOLD and no softcap (RAW) the scores, m and the mask's -1e30
+// stay raw dot products and u = mul = scale log2e takes a difference of
+// them to log2 units. Otherwise the scores go to log2 units first and u = 1:
+// x = dot * mul, or under CAP x = cap * tanh(dot * scale / cap) as
+// cap - 2 cap / (e^{2 dot scale/cap} + 1), one ex2 and one rcp, with mul =
+// 2 log2e scale / cap and cap2 = cap log2e. MASK: a row's valid keys are
+// [lo, hi] (row_keys), the others' scores become -1e30; dl and dh are lo
+// and hi less this thread's first key of the tile, kt + c0. A row keeps
 // its reference maximum m until the tile's maximum exceeds it by more than
-// kRegrow (then corr takes the old sums to the new m; else corr = 1 and the
-// O rescale is skipped): p = 2^(x - m) stays below 2^kRegrow, which f32 sums
-// and bf16 p hold with the same relative precision, and O / l is unchanged.
+// kRegrow in log2 units (then corr takes the old sums to the new m; else
+// corr = 1 and the O rescale is skipped): p = 2^((x - m) u) stays below
+// 2^kRegrow, which f32 sums and bf16 p hold with the same relative
+// precision, and O / l is unchanged. An unmasked RAW tile takes each
+// exponent as one FMA, x u - m u (m is finite there: the tile has a valid
+// key in every row); a masked tile as (x - m) u, which is 0 when x and m
+// are both -1e30 (a row whose keys so far were all masked: p = 1 until the
+// first valid key's corr = 0 wipes it) and far below the least float's
+// exponent when only x is. The maxima and sums run in two chains at N = 64.
 // On return s holds p and psum this thread's share of the row sums.
-template <bool CAP, bool MASK>
-__device__ __forceinline__ void softmax_tile(float (&s)[32], float mul, float cap2, int kt, int c0,
-                                             int ra, int Skv, int causal, int window, int prefix,
+template <int N, bool CAP, bool MASK, bool FOLD>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float mul, float cap2,
+                                             const int (&dl)[2], const int (&dh)[2],
                                              float (&m)[2], float (&corr)[2], float (&psum)[2]) {
-  float mx[2] = {m[0], m[1]};
+  constexpr bool RAW = FOLD && !CAP;
+  constexpr int CH = N >= 64 ? 2 : 1;        // independent chains a row
+  const float u = RAW ? mul : 1.f;
+  float mx[CH][2], sum[CH][2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int c = 0; c < CH; ++c) mx[c][0] = m[0], mx[c][1] = m[1];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
     float x = s[i];
     if (CAP) {
       x = fmaf(-2.f * cap2, rcp(ex2(x * mul) + 1.f), cap2);
-    } else {
+    } else if (!RAW) {
       x *= mul;
     }
     if (MASK) {
-      const int kpos = kt + (i / 4) * 8 + c0 + (i & 1), qpos = ra + ((i >> 1) & 1) * 8;
-      bool valid = kpos < Skv;
-      if (causal)
-        valid = valid && (kpos <= qpos || kpos < prefix) && (window == 0 || qpos - kpos < window);
-      x = valid ? x : kNegInf;
+      const int key = (i / 4) * 8 + (i & 1), r = (i >> 1) & 1;
+      x = key >= dl[r] && key <= dh[r] ? x : kNegInf;
     }
     s[i] = x;
-    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    mx[(i >> 2) % CH][(i >> 1) & 1] = fmaxf(mx[(i >> 2) % CH][(i >> 1) & 1], x);
+  }
+  float nm[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float t = mx[0][r];
+#pragma unroll
+    for (int c = 1; c < CH; ++c) t = fmaxf(t, mx[c][r]);
+    t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, 1));
+    t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, 2));
+    const bool grow = (t - m[r]) * u > kRegrow;
+    corr[r] = grow ? ex2((m[r] - t) * u) : 1.f;
+    m[r] = grow ? t : m[r];
+    nm[r] = -m[r] * u;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) sum[c][r] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int r = (i >> 1) & 1;
+    const float e = MASK ? (s[i] - m[r]) * u : fmaf(s[i], u, nm[r]);
+    s[i] = ex2(e);
+    sum[(i >> 2) % CH][r] += s[i];
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const bool grow = mx[r] - m[r] > kRegrow;
-    corr[r] = grow ? ex2(m[r] - mx[r]) : 1.f;
-    m[r] = grow ? mx[r] : m[r];
-    psum[r] = 0.f;
-  }
+    psum[r] = sum[0][r];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int r = (i >> 1) & 1;
-    s[i] = ex2(s[i] - m[r]);
-    psum[r] += s[i];
+    for (int c = 1; c < CH; ++c) psum[r] += sum[c][r];
   }
 }
 
-template <bool CAP>
-__device__ __forceinline__ void softmax_tile(bool mask, float (&s)[32], float mul, float cap2,
-                                             int kt, int c0, int ra, int Skv, int causal,
-                                             int window, int prefix, float (&m)[2],
-                                             float (&corr)[2], float (&psum)[2]) {
-  if (mask)
-    softmax_tile<CAP, true>(s, mul, cap2, kt, c0, ra, Skv, causal, window, prefix, m, corr, psum);
-  else
-    softmax_tile<CAP, false>(s, mul, cap2, kt, c0, ra, Skv, causal, window, prefix, m, corr,
-                             psum);
+template <int D, bool CAP>
+__device__ __forceinline__ void softmax_step(bool mask, float (&s)[Plan<D>::BK / 2], float mul,
+                                             float cap2, int k0, const int (&lo)[2],
+                                             const int (&hi)[2], float (&m)[2], float (&corr)[2],
+                                             float (&psum)[2]) {
+  using P = Plan<D>;
+  if (mask) {
+    const int dl[2] = {lo[0] - k0, lo[1] - k0}, dh[2] = {hi[0] - k0, hi[1] - k0};
+    softmax_tile<P::BK / 2, CAP, true, P::FOLD>(s, mul, cap2, dl, dh, m, corr, psum);
+  } else {
+    softmax_tile<P::BK / 2, CAP, false, P::FOLD>(s, mul, cap2, lo, hi, m, corr, psum);
+  }
+}
+
+// The keys [lo, hi] that query row qpos may see: before Skv; when causal,
+// at or below the diagonal or before the prefix, and inside the window.
+__device__ __forceinline__ void row_keys(int qpos, int Skv, int causal, int window, int prefix,
+                                         int& lo, int& hi) {
+  lo = INT_MIN / 2;
+  hi = Skv - 1;
+  if (causal) {
+    hi = min(hi, max(qpos, prefix - 1));
+    if (window > 0) lo = qpos - window + 1;
+  }
 }
 
 // p of the tile as the bf16 A operand of the PV product: the accumulator
 // layout of S is the A fragment layout, keys 16ks.. in p[ks].
-__device__ __forceinline__ void to_p(const float (&s)[32], uint32_t (&p)[4][4]) {
+template <int N>
+__device__ __forceinline__ void to_p(const float (&s)[N], uint32_t (&p)[N / 8][4]) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
+  for (int ks = 0; ks < N / 8; ++ks)
 #pragma unroll
     for (int j = 0; j < 4; ++j) p[ks][j] = pack_bf16(s[8 * ks + 2 * j], s[8 * ks + 2 * j + 1]);
 }
 
-// One block: 128 query rows of one (batch, q head). Warpgroup 0 is the
-// producer (one thread issues every TMA load); warpgroups 1 and 2 are the
+// One block: 64 NWG query rows of one (batch, q head). Warpgroup 0 is the
+// producer (one thread issues every TMA load); warpgroups 1..NWG are the
 // consumers, 64 rows each. Tiles run from the block's last KV tile down to
 // its first, so the tiles that cross the diagonal come first.
-template <int D, bool CAP>
-__global__ void __launch_bounds__(kWgmmaThreads, 1)
+template <int D, bool CAP, int NWG>
+__global__ void __launch_bounds__(Tile<D, NWG>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
                    int Sq, int Skv, int Hq, int Hkv, float mul, float cap2, int causal,
                    int window, int prefix) {
-  using T = Tile<D>;
+  using T = Tile<D, NWG>;
+  constexpr int kBK = Plan<D>::BK, kNWG = NWG;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sQ = base, sK = sQ + 2 * T::BYTES, sV = sK + kStages * T::BYTES;
-  const uint32_t bars = sV + kStages * T::BYTES;
+  const uint32_t sQ = base, sK = sQ + kNWG * T::Q_BYTES, sV = sK + kStages * T::KV_BYTES;
+  const uint32_t bars = sV + kStages * T::KV_BYTES;
   const uint32_t barQ = bars;
   auto full_k = [&](int s) { return bars + 8u * (1 + s); };
-  auto full_v = [&](int s) { return bars + 8u * (3 + s); };
-  auto empty_k = [&](int s) { return bars + 8u * (5 + s); };
-  auto empty_v = [&](int s) { return bars + 8u * (7 + s); };
+  auto full_v = [&](int s) { return bars + 8u * (1 + kStages + s); };
+  auto empty_k = [&](int s) { return bars + 8u * (1 + 2 * kStages + s); };
+  auto empty_v = [&](int s) { return bars + 8u * (1 + 3 * kStages + s); };
 
   const int b = blockIdx.x / Hq, h = blockIdx.x % Hq, kvh = h / (Hq / Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // the longest causal blocks first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T::BQ;   // the longest causal blocks first
   int lo, hi;
-  kv_range(q0, min(q0 + kBQ, Sq), Skv, causal, window, prefix, kBK, lo, hi);
+  kv_range(q0, min(q0 + T::BQ, Sq), Skv, causal, window, prefix, kBK, lo, hi);
   const int n = (hi - lo + kBK - 1) / kBK;             // tiles; tile i starts at key kt(i)
   const int last = lo + (n - 1) * kBK;
   auto kt = [&](int i) { return last - i * kBK; };
@@ -541,8 +676,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full_k(s), 1);
       mbar_init(full_v(s), 1);
-      mbar_init(empty_k(s), 2);   // one arrival from each consumer warpgroup
-      mbar_init(empty_v(s), 2);
+      mbar_init(empty_k(s), kNWG);   // one arrival from each consumer warpgroup
+      mbar_init(empty_v(s), kNWG);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -552,20 +687,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == 0) {
     // ---- producer: K of tile i+1 goes out before V of tile i, which the
     // consumers need one step later.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(T::PRODUCER_REGS));
     if (threadIdx.x == 0 && n > 0) {
-      mbar_expect_tx(barQ, 2 * T::BYTES);
-      for (int w = 0; w < 2; ++w)
+      mbar_expect_tx(barQ, kNWG * T::Q_BYTES);
+      for (int w = 0; w < kNWG; ++w)
         for (int c = 0; c < T::NCH; ++c)
-          tma_load(sQ + w * T::BYTES + c * T::CHUNK_B, &tm_q, barQ, c * T::CW, h,
+          tma_load(sQ + w * T::Q_BYTES + c * T::Q_CHUNK_B, &tm_q, barQ, c * T::CW, h,
                    q0 + kWgRows * w, b);
       auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full, uint32_t empty,
                       int i) {
         mbar_wait(empty, ((i / kStages) & 1) ^ 1);
-        mbar_expect_tx(full, T::BYTES);
-        const uint32_t dst = ring + (i % kStages) * T::BYTES;
+        mbar_expect_tx(full, T::KV_BYTES);
+        const uint32_t dst = ring + (i % kStages) * T::KV_BYTES;
         for (int c = 0; c < T::NCH; ++c)
-          tma_load(dst + c * T::CHUNK_B, map, full, c * T::CW, kvh, kt(i), b);
+          tma_load(dst + c * T::KV_CHUNK_B, map, full, c * T::CW, kvh, kt(i), b);
       };
       load(&tm_k, sK, full_k(0), empty_k(0), 0);
       for (int i = 0; i < n; ++i) {
@@ -577,14 +712,23 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   } else {
     // ---- consumers. Step i issues S_i = Q K_i^T and O += P_{i-1} V_{i-1}
     // together, then runs the softmax of S_i while the PV product is in
-    // flight, then rescales O. The two warpgroups take turns to issue
-    // (named barriers 1 and 2), so one's softmax overlaps the other's
-    // products.
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    // flight, then rescales O. The warpgroups take turns to issue (named
+    // barrier 1 + cw waits for this one's turn, 1 + (cw + 1) % NWG passes it
+    // on), so one's softmax overlaps the others' products.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::CONSUMER_REGS));
     const int cw = wg - 1, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int c0 = 2 * (lane % 4);
     const int rmin = q0 + kWgRows * cw, ra = rmin + 16 * warp + lane / 4;
-    const uint32_t sQw = sQ + cw * T::BYTES;
+    const uint32_t sQw = sQ + cw * T::Q_BYTES;
+    // this thread's rows' key bounds, less its first column c0
+    int klo[2], khi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      row_keys(ra + 8 * r, Skv, causal, window, prefix, klo[r], khi[r]);
+      klo[r] -= c0;
+      khi[r] -= c0;
+    }
+    const int next = 1 + (cw + 1) % kNWG;
     // Tiles that need no mask: every key before Skv, at or below the
     // diagonal of every row of this warpgroup or wholly inside the prefix,
     // and inside its window.
@@ -593,24 +737,23 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
              (causal && ((k0 + kBK - 1 > rmin && k0 + kBK > prefix) ||
                          (window > 0 && rmin + kWgRows - 1 - k0 >= window)));
     };
-    float acc[D / 2], s[32], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2], psum[2];
-    uint32_t p[4][4];
+    float acc[D / 2], s[kBK / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2], psum[2];
+    uint32_t p[kBK / 16][4];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
     if (n > 0) {
-      if (cw == 1) named_arrive(1);   // warpgroup 0 issues first
+      if (cw == kNWG - 1) named_arrive(1);   // warpgroup 0 issues first
       mbar_wait(barQ, 0);
       mbar_wait(full_k(0), 0);
       named_sync(1 + cw);
       wgmma_fence();
       gemm_qk<D>(s, sQw, sK);
-      named_arrive(2 - cw);
+      named_arrive(next);
       wgmma_wait<0>();
       pin(s);
       if (tid == 0) mbar_arrive(empty_k(0));
-      softmax_tile<CAP>(masked(kt(0)), s, mul, cap2, kt(0), c0, ra, Skv, causal, window, prefix, m,
-                        corr, psum);
+      softmax_step<D, CAP>(masked(kt(0)), s, mul, cap2, kt(0), klo, khi, m, corr, psum);
       l[0] = psum[0];
       l[1] = psum[1];
       to_p(s, p);
@@ -621,14 +764,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_wait(full_v(sv), ((i - 1) / kStages) & 1);
         named_sync(1 + cw);
         wgmma_fence();
-        gemm_qk<D>(s, sQw, sK + sk * T::BYTES);
-        gemm_pv<D>(acc, p, sV + sv * T::BYTES);
-        named_arrive(2 - cw);
+        gemm_qk<D>(s, sQw, sK + sk * T::KV_BYTES);
+        gemm_pv<D>(acc, p, sV + sv * T::KV_BYTES);
+        named_arrive(next);
         wgmma_wait<1>();
         pin(s);
         if (tid == 0) mbar_arrive(empty_k(sk));
-        softmax_tile<CAP>(masked(kt(i)), s, mul, cap2, kt(i), c0, ra, Skv, causal, window, prefix,
-                          m, corr, psum);
+        softmax_step<D, CAP>(masked(kt(i)), s, mul, cap2, kt(i), klo, khi, m, corr, psum);
         wgmma_wait<0>();
         pin(acc);
         pin(p);
@@ -646,8 +788,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(full_v(sv), ((n - 1) / kStages) & 1);
       named_sync(1 + cw);
       wgmma_fence();
-      gemm_pv<D>(acc, p, sV + sv * T::BYTES);
-      if (cw == 0) named_arrive(2);   // warpgroup 1 has no step left to pass the turn to
+      gemm_pv<D>(acc, p, sV + sv * T::KV_BYTES);
+      if (cw != kNWG - 1) named_arrive(next);   // the last warpgroup's turn passes to no one
       wgmma_wait<0>();
       pin(acc);
       pin(p);
@@ -676,16 +818,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // A 4-D map over a (B, S, H, D) bf16 tensor, innermost first, with a box of
-// CW columns of one head and 64 rows, swizzled as Tile<D> lays it out.
-// Rows past S read as zeros; the next sequence is never read.
+// CW columns of one head and `rows` rows, swizzled as Tile<D, *> lays it
+// out. Rows past S read as zeros; the next sequence is never read.
 template <int D>
 cudaError_t tensor_map(CUtensorMap* map, EncodeTiledFn encode, const void* ptr, int B, int S,
-                       int H) {
-  using T = Tile<D>;
+                       int H, int rows) {
+  using T = Tile<D, 2>;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
                                  (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)T::CW, 1, (cuuint32_t)kBK, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)T::CW, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle =
       T::ROW_B == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
@@ -710,19 +852,32 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   return cudaGetLastError();
 }
 
+template <int D, bool CAP, int NWG>
+cudaError_t launch_wgmma_nwg(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                             void* o, int B, int Sq, int Skv, int Hq, int Hkv, float mul,
+                             float cap2, int causal, int window, int prefix, cudaStream_t st) {
+  using T = Tile<D, NWG>;
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err = allow_smem(flash_wgmma_kernel<D, CAP, NWG>, (int)T::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * Hq, (Sq + T::BQ - 1) / T::BQ);
+  flash_wgmma_kernel<D, CAP, NWG><<<grid, T::THREADS, T::SMEM, st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hkv, mul, cap2, causal, window,
+      prefix);
+  return cudaGetLastError();
+}
+
 template <int D, bool CAP>
 cudaError_t launch_wgmma_cap(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                              void* o, int B, int Sq, int Skv, int Hq, int Hkv, float mul,
                              float cap2, int causal, int window, int prefix, cudaStream_t st) {
-  constexpr size_t smem = Tile<D>::SMEM;
-  static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = allow_smem(flash_wgmma_kernel<D, CAP>, (int)smem, smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
-  flash_wgmma_kernel<D, CAP><<<grid, kWgmmaThreads, smem, st>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hkv, mul, cap2, causal, window,
-      prefix);
-  return cudaGetLastError();
+  if constexpr (Plan<D>::NWG == 3) {
+    if (short_block<D>(Sq))
+      return launch_wgmma_nwg<D, CAP, 2>(tq, tk, tv, o, B, Sq, Skv, Hq, Hkv, mul, cap2, causal,
+                                         window, prefix, st);
+  }
+  return launch_wgmma_nwg<D, CAP, Plan<D>::NWG>(tq, tk, tv, o, B, Sq, Skv, Hq, Hkv, mul, cap2,
+                                                causal, window, prefix, st);
 }
 
 template <int D>
@@ -733,9 +888,10 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
   cudaError_t err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
-  if ((err = tensor_map<D>(&tq, encode, q, B, Sq, Hq)) != cudaSuccess) return err;
-  if ((err = tensor_map<D>(&tk, encode, k, B, Skv, Hkv)) != cudaSuccess) return err;
-  if ((err = tensor_map<D>(&tv, encode, v, B, Skv, Hkv)) != cudaSuccess) return err;
+  constexpr int kBK = Plan<D>::BK;
+  if ((err = tensor_map<D>(&tq, encode, q, B, Sq, Hq, kWgRows)) != cudaSuccess) return err;
+  if ((err = tensor_map<D>(&tk, encode, k, B, Skv, Hkv, kBK)) != cudaSuccess) return err;
+  if ((err = tensor_map<D>(&tv, encode, v, B, Skv, Hkv, kBK)) != cudaSuccess) return err;
   if (softcap != 0.f)
     return launch_wgmma_cap<D, true>(tq, tk, tv, o, B, Sq, Skv, Hq, Hkv,
                                      2.f * kLog2e * scale / softcap, softcap * kLog2e, causal,

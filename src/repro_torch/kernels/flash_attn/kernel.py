@@ -6,6 +6,7 @@ kernel; nothing else changes it.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -15,37 +16,72 @@ from repro_torch.kernels.flash_attn.ref import check_mask
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
-# The bf16 kernel's tiles: a block takes BLOCK_Q query rows, WG_ROWS to a
-# consumer warpgroup, and walks its keys in tiles of BLOCK_K.
-BLOCK_Q, WG_ROWS, BLOCK_K = 128, 64, 64
+WG_ROWS = 64      # query rows a consumer warpgroup
 
 
-def tile_plan(sq: int, skv: int, causal: bool = True, window: int = 0, prefix_len: int = 0):
-    """The bf16 kernel's schedule for one (batch, q head), as
-    ``flash_wgmma_kernel`` computes it on the card: blocks in launch order
-    (the last q-block first), and for each consumer warpgroup its first row
-    and its KV tiles in the order it runs them (the last tile first), each
-    as (first key, masked). A block reaches keys up to the end of its rows
-    or of the prefix, whichever is later. A tile is unmasked only when every
-    key in it is before ``skv``, at or below the diagonal of every row of
-    the warpgroup or wholly inside the prefix, and inside its window.
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The bf16 kernel's plan at one head dim (``Plan<D>`` in
+    ``flash_attn.cu``): keys a tile, consumer warpgroups of WG_ROWS query
+    rows, and the row maximum on the raw scores with the scale folded into
+    the exponent's FMA."""
+    block_k: int
+    warpgroups: int
+    fold: bool
+
+    @property
+    def block_q(self) -> int:
+        return WG_ROWS * self.warpgroups
+
+
+# D 32 and 256 share the plan tuned at D 256; D 64 and 128 have their own.
+_D256_PLAN = Plan(block_k=64, warpgroups=2, fold=False)
+PLANS = {32: _D256_PLAN, 64: Plan(block_k=128, warpgroups=3, fold=True),
+         128: Plan(block_k=128, warpgroups=2, fold=True), 256: _D256_PLAN}
+STAGES = 2        # K and V ring stages
+# D 256's tiles: a block takes BLOCK_Q query rows, WG_ROWS to a consumer
+# warpgroup, and walks its keys in tiles of BLOCK_K (``tile_plan``'s default)
+BLOCK_Q, BLOCK_K = _D256_PLAN.block_q, _D256_PLAN.block_k
+
+
+def block_warpgroups(head_dim: int, sq: int) -> int:
+    """Consumer warpgroups of a block at ``head_dim`` for ``sq`` query rows:
+    the plan's, but two where the plan has three and the sequence fits one
+    block of two (``short_block`` in ``flash_attn.cu``)."""
+    wgs = PLANS[head_dim].warpgroups
+    return 2 if wgs == 3 and sq <= 2 * WG_ROWS else wgs
+
+
+def tile_plan(sq: int, skv: int, causal: bool = True, window: int = 0, prefix_len: int = 0,
+              head_dim: int = 256):
+    """The bf16 kernel's schedule for one (batch, q head) at ``head_dim``'s
+    plan (``PLANS``, ``block_warpgroups``), as ``flash_wgmma_kernel``
+    computes it on the card: blocks in launch order (the last q-block
+    first), and for each consumer warpgroup its first row and its KV tiles
+    in the order it runs them (the last tile first), each as (first key,
+    masked). A block reaches keys up to the end of its rows or of the
+    prefix, whichever is later. A tile is unmasked only when every key in it
+    is before ``skv``, at or below the diagonal of every row of the
+    warpgroup or wholly inside the prefix, and inside its window.
     Returns ``[(q0, [(row0, [(k0, masked), ...]), ...]), ...]``."""
+    block_q = WG_ROWS * block_warpgroups(head_dim, sq)
+    block_k = PLANS[head_dim].block_k
     window = window if causal else 0
     prefix = prefix_len if causal else 0
     plan = []
-    for q0 in reversed(range(0, sq, BLOCK_Q)):
+    for q0 in reversed(range(0, sq, block_q)):
         lo, hi = 0, skv
         if causal:
-            hi = min(skv, max(min(q0 + BLOCK_Q, sq), prefix))
+            hi = min(skv, max(min(q0 + block_q, sq), prefix))
             if window > 0:
                 lo = max(0, q0 - window + 1)
-        lo -= lo % BLOCK_K
-        starts = list(reversed(range(lo, hi, BLOCK_K)))
+        lo -= lo % block_k
+        starts = list(reversed(range(lo, hi, block_k)))
         wgs = []
-        for row0 in (q0, q0 + WG_ROWS):
+        for row0 in range(q0, q0 + block_q, WG_ROWS):
             def masked(k0):
-                return (k0 + BLOCK_K > skv or causal and (
-                    k0 + BLOCK_K - 1 > row0 and k0 + BLOCK_K > prefix
+                return (k0 + block_k > skv or causal and (
+                    k0 + block_k - 1 > row0 and k0 + block_k > prefix
                     or window > 0 and row0 + WG_ROWS - 1 - k0 >= window))
             wgs.append((row0, [(k0, masked(k0)) for k0 in starts]))
         plan.append((q0, wgs))

@@ -2,15 +2,25 @@
 
 The schedule must reach every (q, k) pair the mask allows exactly once, skip
 the mask only on tiles where it allows every pair, and count as many pairs
-as the bound in ``chip_smoke.py``. The kernel itself runs only on the card.
+as the bound in ``chip_smoke.py``, at each head dim's own plan
+(``kernel.PLANS``, which must equal ``Plan<D>`` in ``flash_attn.cu``).
+Walked in numpy in the kernel's order and arithmetic (raw-score maxima with
+the scale folded into the exponent, masks from two row bounds, the lazy
+rescale, p rounded to bf16), it must equal the reference's
+``attention_ref``. The kernel itself runs only on the card.
 """
 import importlib.util
+import math
+import re
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attn.ref import attention_ref as ref_attention
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn import kernel as FK
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -34,10 +44,10 @@ def _allowed(sq, skv, causal, window, prefix=0):
     return ok
 
 
-def _coverage(sq, skv, causal, window, prefix=0):
+def _coverage(sq, skv, causal, window, prefix=0, head_dim=256):
     """How many times the schedule reaches each pair, and whether a pair
     the mask refuses ever lands in an unmasked tile."""
-    plan = FK.tile_plan(sq, skv, causal, window, prefix)
+    plan = FK.tile_plan(sq, skv, causal, window, prefix, head_dim)
     allowed = _allowed(sq, skv, causal, window, prefix)
     cover = np.zeros((sq, skv), np.int16)
     unmasked_bad = 0
@@ -45,7 +55,7 @@ def _coverage(sq, skv, causal, window, prefix=0):
         for row0, tiles in wgs:
             rows = slice(row0, min(row0 + FK.WG_ROWS, sq))
             for k0, masked in tiles:
-                keys = slice(k0, min(k0 + FK.BLOCK_K, skv))
+                keys = slice(k0, min(k0 + FK.PLANS[head_dim].block_k, skv))
                 cover[rows, keys] += 1
                 if not masked:
                     unmasked_bad += int((~allowed[rows, keys]).sum())
@@ -115,3 +125,174 @@ def test_plan_pairs_match_the_bound_with_a_prefix_or_none(sq, skv, causal, prefi
         first_block = next(wgs for q0, wgs in plan if q0 == 0)
         row0, tiles = first_block[0]
         assert (0, False) in tiles and any(k0 > row0 for k0, _ in tiles)
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("sq,skv,causal,window,prefix",
+                         [c + (0,) for c in CASES] + [(s, s, True, 0, p) for s, p in PREFIX_CASES])
+def test_plan_at_each_head_dim_reaches_each_allowed_pair_once(sq, skv, causal, window, prefix,
+                                                              head_dim):
+    """As above at D 32, 64 and 128's own block and tile sizes (D 64:
+    128-key tiles), with the ragged lengths, windows and prefixes."""
+    block_q = FK.WG_ROWS * FK.block_warpgroups(head_dim, sq)
+    plan, allowed, cover, unmasked_bad = _coverage(sq, skv, causal, window, prefix, head_dim)
+    assert (cover[allowed] == 1).all()
+    assert unmasked_bad == 0
+    assert sorted(q0 for q0, _ in plan) == list(range(0, sq, block_q))
+    assert all([r for r, _ in wgs] == list(range(q0, q0 + block_q, FK.WG_ROWS))
+               for q0, wgs in plan)
+    assert all(k0 % FK.PLANS[head_dim].block_k == 0
+               for _, wgs in plan for _, ts in wgs for k0, _ in ts)
+
+
+@pytest.mark.parametrize("head_dim,sq,want", [(64, 1, 2), (64, 64, 2), (64, 128, 2),
+                                              (64, 129, 3), (64, 4608, 3), (128, 64, 2),
+                                              (256, 4608, 2), (32, 1, 2)])
+def test_short_sequences_take_two_warpgroups(head_dim, sq, want):
+    """A plan of three consumer warpgroups runs two for Sq <= 128 (one block
+    of two covers it), as ``short_block`` in ``flash_attn.cu`` chooses."""
+    assert FK.block_warpgroups(head_dim, sq) == want
+    src = _build.source("flash_attn").read_text()
+    assert "return Plan<D>::NWG == 3 && Sq <= 2 * kWgRows;" in src
+
+
+# reduced lengths of the D 64 and D 128 main-path prefills: granite-moe's
+# causal prefill, seamless's encoder (non-causal, Sq = Skv) and its
+# cross-attention (Sq 64 against the encoder's keys), the 4c archs' causal
+# prefill at its own 1024 tokens
+ZOO_REDUCED = [(64, 1000, 1000, True), (64, 700, 700, False), (64, 64, 900, False),
+               (128, 1024, 1024, True)]
+
+
+@pytest.mark.parametrize("head_dim,sq,skv,causal", ZOO_REDUCED)
+def test_plan_pairs_match_the_bound_at_reduced_zoo_shapes(head_dim, sq, skv, causal):
+    """Every allowed pair once, the mask skipped only where it allows every
+    pair, and the pairs reached equal to ``flash_bound``'s count."""
+    plan, allowed, cover, unmasked_bad = _coverage(sq, skv, causal, 0, 0, head_dim)
+    assert (cover[allowed] == 1).all() and unmasked_bad == 0
+    q, k = torch.empty((1, sq, 1, 1)), torch.empty((1, skv, 1, 1))
+    ops, _ = _chip_smoke().flash_bound(q, k, k, 0, causal)
+    assert ops // 4 == int(allowed.sum())
+    flags = [m for _, wgs in plan for _, ts in wgs for _, m in ts]
+    assert sum(flags) < 0.5 * len(flags) or sq < 256
+
+
+def _source_plans():
+    """{head dim or "default": {field: value}} from flash_attn.cu's Plan."""
+    src = _build.source("flash_attn").read_text()
+    out = {}
+    for m in re.finditer(r"struct Plan(?:<(\d+)>)? \{(.*?)\};", src, re.S):
+        fields = dict(re.findall(r"(\w+) = (\w+)", m.group(2)))
+        out[int(m.group(1)) if m.group(1) else "default"] = fields
+    return out
+
+
+def test_plans_match_the_source():
+    """``kernel.PLANS`` is ``Plan<D>`` of ``flash_attn.cu`` at every head dim,
+    and ``kernel.STAGES`` its ring's depth."""
+    assert f"constexpr int kStages = {FK.STAGES};" in _build.source("flash_attn").read_text()
+    src = _source_plans()
+    for d in FK.HEAD_DIMS:
+        fields = src.get(d, src["default"])
+        p = FK.PLANS[d]
+        assert (int(fields["BK"]), int(fields["NWG"]), fields["FOLD"] == "true") == \
+            (p.block_k, p.warpgroups, p.fold), d
+        # shared memory: Q, the K and V rings and the mbarriers within 227 KB
+        st = FK.STAGES
+        smem = 1024 + p.block_q * d * 2 + 2 * st * p.block_k * d * 2 + 8 * (1 + 4 * st)
+        assert smem <= 232448 and p.block_k <= 256 and p.warpgroups in (2, 3)
+
+
+def _bf16(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _walk(q, k, v, scale, causal, window, softcap, head_dim):
+    """One head through ``tile_plan`` in the kernel's arithmetic: q (Sq, D),
+    k and v (Skv, D) as f32 arrays of bf16 values; returns (Sq, D) f32."""
+    plan_d = FK.PLANS[head_dim]
+    bk, sq, skv = plan_d.block_k, q.shape[0], k.shape[0]
+    log2e = 1.4426950408889634
+    raw = plan_d.fold and not softcap
+    mul = np.float32(2 * log2e * scale / softcap if softcap else scale * log2e)
+    cap2 = np.float32(softcap * log2e)
+    u = mul if raw else np.float32(1)
+    rows_in = np.arange(FK.WG_ROWS)
+    kk = np.arange(bk)
+    out = np.zeros_like(q)
+    for _, wgs in FK.tile_plan(sq, skv, causal, window, 0, head_dim):
+        for row0, tiles in wgs:
+            rows = row0 + rows_in
+            qr = np.where((rows < sq)[:, None], q[np.minimum(rows, sq - 1)], 0)
+            hi = np.full(FK.WG_ROWS, skv - 1)
+            lo = np.full(FK.WG_ROWS, -2 ** 30)
+            if causal:
+                hi = np.minimum(hi, rows)
+                if window:
+                    lo = rows - window + 1
+            m = np.full(FK.WG_ROWS, -1e30, np.float32)
+            l = np.zeros(FK.WG_ROWS, np.float32)
+            acc = np.zeros((FK.WG_ROWS, q.shape[1]), np.float32)
+            for k0, masked in tiles:
+                keys = k0 + kk
+                inside = (keys < skv)[:, None]
+                kt = np.where(inside, k[np.minimum(keys, skv - 1)], 0)
+                vt = np.where(inside, v[np.minimum(keys, skv - 1)], 0)
+                x = (qr.astype(np.float64) @ kt.T).astype(np.float32)
+                if softcap:
+                    x = (cap2 - 2 * cap2 / (np.exp2(x * mul) + 1)).astype(np.float32)
+                elif not raw:
+                    x = x * mul
+                if masked:
+                    ok = (keys[None] >= lo[:, None]) & (keys[None] <= hi[:, None])
+                    x = np.where(ok, x, np.float32(-1e30))
+                mx = np.maximum(m, x.max(1))
+                grow = (mx - m) * u > 8
+                corr = np.where(grow, np.exp2((m - mx) * u), np.float32(1)).astype(np.float32)
+                m = np.where(grow, mx, m)
+                if masked:
+                    e = ((x - m[:, None]) * u).astype(np.float32)
+                else:
+                    e = (x.astype(np.float64) * u - (m * u)[:, None]).astype(np.float32)
+                p = np.exp2(e).astype(np.float32)
+                acc = acc * corr[:, None] + (_bf16(p).astype(np.float64) @ vt).astype(np.float32)
+                l = l * corr + p.sum(1)
+            keep = rows < sq
+            out[rows[keep]] = (acc / np.maximum(l, 1e-30)[:, None])[keep]
+    return out
+
+
+# (head_dim, sq, skv, causal, window, softcap, input scale): D 64's plan at
+# the tiling's edges (Sq and Skv no multiple of the 128-key tile or the
+# block, Sq 1, Skv shorter than a tile, a wholly masked first tile: rows
+# 192-255 of the block at 192 whose last tile starts at 256), non-causal Sq
+# != Skv, a window, a softcap, and scores large enough to grow the row
+# maxima by more than 2^8; D 128's plan; the shared plan at D 32 and 256
+WALK_CASES = [(64, 300, 300, True, 0, 0.0, 1.0), (64, 77, 301, False, 0, 0.0, 1.0),
+              (64, 300, 190, False, 0, 0.0, 1.0), (64, 1, 1, True, 0, 0.0, 1.0),
+              (64, 40, 40, True, 0, 0.0, 1.0), (64, 200, 200, True, 0, 0.0, 1.0),
+              (64, 300, 300, True, 100, 0.0, 1.0), (64, 150, 150, True, 0, 30.0, 1.0),
+              (64, 384, 384, True, 0, 0.0, 1.0), (128, 300, 300, True, 100, 0.0, 4.0),
+              (64, 256, 256, True, 0, 0.0, 4.0), (32, 150, 150, True, 0, 30.0, 1.0),
+              (128, 200, 200, True, 0, 0.0, 1.0), (256, 130, 130, True, 0, 50.0, 1.0)]
+
+
+@pytest.mark.parametrize("head_dim,sq,skv,causal,window,softcap,amp", WALK_CASES)
+def test_walk_matches_repro_attention_ref(head_dim, sq, skv, causal, window, softcap, amp):
+    """The schedule walked in the kernel's arithmetic against ``repro``'s
+    ``attention_ref`` on the same bf16 inputs, within chip_smoke's
+    TOL["bfloat16"] for K3: 1e-4 + 2^-7 |ref| + 2^-8 (|p| @ |v|)."""
+    rng = np.random.default_rng(head_dim * 1000 + sq + skv)
+    q = _bf16(rng.standard_normal((2, sq, head_dim)) * amp)
+    k = _bf16(rng.standard_normal((2, skv, head_dim)) * amp)
+    v = _bf16(rng.standard_normal((2, skv, head_dim)))
+    scale = 1.0 / math.sqrt(head_dim)
+    args = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    ref = np.asarray(ref_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **args))
+    pv = np.asarray(ref_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(np.abs(v)),
+                                  **args))
+    got = np.stack([_bf16(_walk(q[h], k[h], v[h], scale, causal, window, softcap, head_dim))
+                    for h in range(2)])
+    limit = 1e-4 + 2 ** -7 * np.abs(ref) + 2 ** -8 * pv
+    assert np.isfinite(got).all()
+    assert (np.abs(got - ref) <= limit).all(), (np.abs(got - ref) / limit).max()

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Check and time the CIAO gather (K1) and decode attention (K2) kernels on the card.
 
-    python3 tools/kernel_probe.py [--check] [--broken] [--variants] [--parent DIR]
+    python3 tools/kernel_probe.py [--check] [--broken [KERNEL ...]] [--variants] [--parent DIR]
                                   [--source KERNEL:NAME=PATH ...] [--decode [ARCH ...]]
                                   [--scaling] [--build-times DIR] [--split-blocks N [N ...]]
 
 --check     build the kernels and run phase 2 of chip_smoke.py (each kernel
             against its plain version at its grid and edge cases);
---broken    build broken copies of K1, K2 and K3 (text edits of the sources,
+--broken [KERNEL ...]
+            build broken copies of K1, K2 and K3, or of the kernels named
+            (ciao_gather, decode_attn, flash_attn) (text edits of the sources,
             under build/probe/) and run phase 2's checks of that kernel with
-            each, printing which checks fail (K3's copy without the K stage
+            each, printing which checks fail (K3's copies reading every K
+            tile from the ring's first stage and folding the exponent with
+            the stale row maximum; without the K stage
             wait also with a slowed producer, and the slowed producer alone;
             K2's ring kernel without a stage's keys at D 64 and without one
             lane group's partials at D 128);
@@ -95,6 +99,15 @@ K3_SLOW_PRODUCER = (
     "          load(&tm_k, sK, full_k((i + 1) % kStages), empty_k((i + 1) % kStages), i + 1);\n"
     "        }\n")
 BROKEN = [
+    # the consumers read every K tile from the ring's first stage (the
+    # 128-key tiles of the D 64 and 128 plans, and the rest)
+    ("flash_attn", "k_ring_one_stage", [(
+        "        gemm_qk<D>(s, sQw, sK + sk * T::KV_BYTES);\n", "        gemm_qk<D>(s, sQw, sK);\n")]),
+    # the folded exponent x u - m u taken with the row maximum before this
+    # tile's update (D 64's and D 128's unmasked tiles)
+    ("flash_attn", "fold_stale_max", [(
+        "    m[r] = grow ? t : m[r];\n    nm[r] = -m[r] * u;\n",
+        "    nm[r] = -m[r] * u;\n    m[r] = grow ? t : m[r];\n")]),
     ("flash_attn", "skip_k_stage_wait", [K3_SKIP_K_WAIT]),
     ("flash_attn", "skip_k_stage_wait_slow_producer", [K3_SKIP_K_WAIT, K3_SLOW_PRODUCER]),
     ("flash_attn", "slow_producer_alone_right", [K3_SLOW_PRODUCER]),
@@ -186,17 +199,19 @@ def wrappers():
     return {"decode_attn": DK, "ciao_gather": CK, "flash_attn": FK}
 
 
-def run_broken():
-    """Each broken copy in a process of its own: a copy may fail its launch
-    (the card's context is lost then), which counts as failing phase 2."""
+def run_broken(kernels=()):
+    """Each broken copy (of ``kernels``, or of every kernel) in a process of
+    its own: a copy may fail its launch (the card's context is lost then),
+    which counts as failing phase 2."""
     from repro_torch.kernels import _build
+    broken = [b for b in BROKEN if not kernels or b[0] in kernels]
     sources = {}
-    for kernel, name, edits in BROKEN:
+    for kernel, name, edits in broken:
         path = OUT / f"{kernel}_{name}.cu"
         path.write_text(edited(_build.source(kernel).read_text(), edits))
         sources[f"{kernel}_{name}"] = path
     built = build_all(sources)
-    for kernel, name, _ in BROKEN:
+    for kernel, name, _ in broken:
         proc = subprocess.run([sys.executable, __file__, "--broken-one", kernel,
                                str(built[f"{kernel}_{name}"])], capture_output=True, text=True)
         lines = (proc.stdout + proc.stderr).strip().splitlines()
@@ -569,7 +584,7 @@ def time_split_blocks(values, card):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--check", action="store_true")
-    ap.add_argument("--broken", action="store_true")
+    ap.add_argument("--broken", nargs="*", metavar="KERNEL")
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--parent", type=Path)
     ap.add_argument("--source", action="append", default=[], metavar="KERNEL:NAME=PATH")
@@ -595,8 +610,8 @@ def main() -> None:
         C.build_kernels()
         _, failed = C.check_kernels()
         C.log(f"phase 2: {len(failed)} checks fail: {failed}")
-    if args.broken:
-        run_broken()
+    if args.broken is not None:
+        run_broken(args.broken)
     if args.build_times:
         build_times(args.build_times)
     if args.split_blocks:
