@@ -129,10 +129,13 @@ Phases, each of which exits non-zero on failure:
     of a one-rank NCCL group under the decode rules: tokens equal to phase
     4's, logits within phase 3's bf16 tolerance, K3 26 and K2 832
     launches, prefill ms, decode ms a step and the idle share beside phase
-    4's; 10d, the dry run's gemma2-2b decode_32k and train_4k cells
-    (``launch/dryrun.run_cell``: a fake group of 256 ranks, the meta
-    device) on this machine's torch: per-rank FLOPs, bytes, collective
-    bytes by kind, the peak and the seconds.
+    4's; 10d, the dry run's six gemma2-2b cells (train_4k, prefill_32k
+    and decode_32k on the (16, 16) and (2, 16, 16) meshes;
+    ``launch/dryrun.run_cell``: a fake group of 256/512 ranks, the meta
+    device) on this machine's torch, every figure (per-rank FLOPs, bytes,
+    collective bytes by kind, the memory analysis) within 1% of the port's
+    record in ``launch/reference_cells.json`` (written on a CPU build of torch), with
+    the port's share of the reference's compiled figures and the seconds.
 11. the runner, the run ledger, the runs CLI and the examples: 11a,
     benchmarks/run.py's fig8 grid (12 apps x 7 policies at scale 0.5, seed
     0, best-swl and statpcal swept over their limits) through
@@ -2595,23 +2598,64 @@ def sharded_serve(card, phase4):
     return result
 
 
+# 10d: gemma2-2b's six dry-run cells, each held to the port's record on the
+# torch that wrote reference_cells.json within DRY_TOL on every figure
+DRY_CELLS = [(shape, mesh) for shape in ("train_4k", "prefill_32k", "decode_32k")
+             for mesh in ("single", "multi")]
+DRY_TOL = 0.01
+
+
+def dry_figures(rec):
+    """Every figure of a dry-run record (``run_cell``'s, or a cell's side in
+    reference_cells.json), flat: FLOPs, bytes, the effective collective
+    bytes by kind and in all, the collectives' count and the memory
+    analysis."""
+    coll = rec.get("collectives", rec)
+    out = {"flops": rec["flops_per_device"], "bytes": rec["bytes_per_device"],
+           "collective_total_effective": coll["collective_total_effective"],
+           "collective_num_ops": coll["collective_num_ops"]}
+    out.update({f"collective {k}": v for k, v in coll["collective_bytes_effective"].items()})
+    out.update({f"memory {k}": v for k, v in rec["memory_analysis"].items()})
+    return out
+
+
 def dry_run_cells():
-    """10d: the dry run's gemma2-2b decode_32k and train_4k cells on the
-    single-pod mesh (a fake group of 256 ranks, the meta device: the card
-    is not touched), on this machine's torch."""
+    """10d: gemma2-2b's train_4k, prefill_32k and decode_32k cells on the
+    (16, 16) and (2, 16, 16) meshes (``launch/dryrun.run_cell``: a fake
+    group of 256/512 ranks, the meta device; the card is not touched) on
+    this machine's torch. Each figure must be within DRY_TOL of the port's
+    record in ``reference_cells.json`` (its ``made_with`` torch); the port's
+    share of the reference's figures (XLA's compiled program, from the
+    same file) is printed beside it."""
+    import torch
     from repro_torch.launch import dryrun
-    out = {}
-    for shape in ("decode_32k", "train_4k"):
-        log(f"[10d] dry run gemma2-2b x {shape} x single (arithmetic on shapes, no device)")
+    book = json.loads(dryrun.REFERENCE_CELLS.read_text())
+    log(f"[10d] dry run on torch {torch.__version__} against the records of torch "
+        f"{book['made_with']['torch']} (arithmetic on shapes, no device)")
+    out, misses = {}, []
+    for shape, mesh in DRY_CELLS:
+        key = f"gemma2-2b__{shape}__{mesh}"
         t0 = time.perf_counter()
-        rec = dryrun.run_cell("gemma2-2b", shape, "single", save=False)
-        out[shape] = {"seconds": time.perf_counter() - t0,
-                      "flops_per_device": rec["flops_per_device"],
-                      "bytes_per_device": rec["bytes_per_device"],
-                      "collective_bytes_effective":
-                          rec["collectives"]["collective_bytes_effective"],
-                      "peak_bytes": rec["memory_analysis"]["peak_bytes"]}
-        log(f"  {json.dumps(out[shape])}")
+        rec = dryrun.run_cell("gemma2-2b", shape, mesh, save=False, verbose=False)
+        mine, theirs = dry_figures(rec), dry_figures(book["cells"][key]["port"])
+        worst = 0.0
+        for name in sorted(set(mine) | set(theirs)):
+            a, b = mine.get(name, 0.0), theirs.get(name, 0.0)
+            err = abs(a - b) / max(abs(b), 1e-30) if a != b else 0.0
+            worst = max(worst, err)
+            if err > DRY_TOL:
+                misses.append(f"{key} {name}: {a} here, {b} in the file")
+        ratios = rec["reference"]["port_over_reference"]
+        out[key] = {"seconds": time.perf_counter() - t0, "worst_rel_diff": worst,
+                    "figures": mine, "port_over_reference": ratios}
+        log(f"  {key}: {time.perf_counter() - t0:.1f} s, every figure within {worst:.2e} of "
+            f"the file's; flops {mine['flops']:.4e}, collectives "
+            f"{mine['collective_total_effective']:.4e} B, peak {mine['memory peak_bytes']:.4e} B")
+        log("    port / reference: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(ratios.items())
+                                                 if v is not None))
+    if misses:
+        fail(f"{len(misses)} dry-run figures differ from reference_cells.json by more than "
+             f"{DRY_TOL:.0%}: {misses}")
     return out
 
 

@@ -16,9 +16,11 @@ of the production mesh:
      tensor is rank 0's shard;
   3. one train step, prefill or decode step run eagerly under
      ``op_analysis.OpCounter`` (rank 0's FLOPs, bytes and collectives) and
-     ``MemTracker`` (its peak device memory);
+     ``op_analysis.MemoryTracker`` (its peak device memory);
   4. a record with the reference's keys written to
-     ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>[__tag].json``.
+     ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>[__tag].json``, with a
+     ``reference`` block (the reference's compiled figures and the port's
+     share of each) for a cell that ``reference_cells.json`` holds.
 
 The numbers are arithmetic on shapes, not measurements: nothing runs on a
 device. ``lower_s`` is the host seconds of the traced step (the reference's
@@ -50,13 +52,17 @@ from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.shapes import ALL_SHAPES, shapes_for
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.op_analysis import OpCounter
+from repro_torch.launch.op_analysis import MemoryTracker, OpCounter
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.parallel.sharding import distribute_tree, make_env, tree_shardings
 from repro_torch.train import train_step as TS
 from repro_torch.train.tree import tree_leaves
 
 ARTIFACTS = pathlib.Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
+# the reference's figures for some cells (and the port's beside them), from
+# tools/dryrun_vs_ref.py: the card's machine has no JAX to compile them
+REFERENCE_CELLS = pathlib.Path(__file__).resolve().with_name("reference_cells.json")
 H100_BYTES = 80e9          # one NVIDIA H100 SXM's device memory
 LONG_DECODE_TOKENS = 100_000
 
@@ -122,24 +128,57 @@ def count_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, run: RunConfig,
     """One step of the cell on ``mesh`` under the op counter and the memory
     tracker: this rank's counts (``op_analysis`` keys), ``memory_analysis``
     and the step's host seconds."""
-    from torch.distributed._tools.mem_tracker import MemTracker
     step, _, args = lower_cell(cfg, shape, mesh, run, rule_overrides)
-    arg_bytes = local_bytes(args)
-    tracker = MemTracker()
-    tracker.track_external(*[t for t in tree_leaves(args) if isinstance(t, torch.Tensor)])
+    L.rope_freq.cache_clear()      # each cell counts its own RoPE frequencies
+    tracker = MemoryTracker()
+    tracker.track(*[t for t in tree_leaves(args) if isinstance(t, torch.Tensor)])
     t0 = time.perf_counter()
     with torch.no_grad() if shape.mode != "train" else contextlib.nullcontext():
         with tracker, OpCounter() as counter:
             out = step()
     lower_s = time.perf_counter() - t0
-    out_bytes = local_bytes(out)
-    alias = local_bytes(args) + out_bytes - local_bytes((args, out))
-    peak = sum(v for dev in tracker.get_tracker_snapshot("peak").values()
-               for k, v in dev.items() if k == "Total")
-    mem = {"argument_size_in_bytes": arg_bytes, "output_size_in_bytes": out_bytes,
-           "alias_size_in_bytes": alias, "temp_size_in_bytes": max(peak - arg_bytes, 0),
-           "peak_bytes": peak, "total_hbm_bytes": max(peak, arg_bytes + out_bytes - alias)}
+    mem = memory_analysis(args, out, tracker.peak)
     return {"analysis": counter.summary(), "memory_analysis": mem, "lower_s": lower_s}
+
+
+def memory_analysis(args, out, peak: int) -> Dict[str, int]:
+    """XLA's memory-analysis keys for a step's arguments and outputs (this
+    rank's shards) and the tracker's ``peak``."""
+    arg_bytes, out_bytes = local_bytes(args), local_bytes(out)
+    alias = arg_bytes + out_bytes - local_bytes((args, out))
+    return {"argument_size_in_bytes": arg_bytes, "output_size_in_bytes": out_bytes,
+            "alias_size_in_bytes": alias, "temp_size_in_bytes": max(peak - arg_bytes, 0),
+            "peak_bytes": peak, "total_hbm_bytes": max(peak, arg_bytes + out_bytes - alias)}
+
+
+def reference_block(arch: str, shape_name: str, mesh_kind: str,
+                    result: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+    """The reference's figures for the cell from ``reference_cells.json``
+    (None where the file does not hold it), and this record's share of
+    each: FLOPs, bytes, the effective collective bytes by kind and in all,
+    the peak against XLA's total_hbm_bytes."""
+    if not REFERENCE_CELLS.exists():
+        return None
+    ref = json.loads(REFERENCE_CELLS.read_text())["cells"].get(
+        f"{arch}__{shape_name}__{mesh_kind}")
+    if ref is None:
+        return None
+    ref = ref["reference"]
+    coll = result["collectives"]
+
+    def share(mine, theirs):
+        return mine / theirs if theirs else None
+
+    ratios = {"flops": share(result["flops_per_device"], ref["flops_per_device"]),
+              "bytes": share(result["bytes_per_device"], ref["bytes_per_device"]),
+              "collective_total_effective": share(coll["collective_total_effective"],
+                                                  ref["collective_total_effective"]),
+              "peak_to_total_hbm": share(result["memory_analysis"]["peak_bytes"],
+                                         ref["memory_analysis"]["total_hbm_bytes"])}
+    for kind in set(coll["collective_bytes_effective"]) | set(ref["collective_bytes_effective"]):
+        ratios[f"collective {kind}"] = share(coll["collective_bytes_effective"].get(kind, 0.0),
+                                             ref["collective_bytes_effective"].get(kind, 0.0))
+    return {**ref, "port_over_reference": ratios}
 
 
 def card_name() -> str:
@@ -160,6 +199,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, run: Optional[RunConfig
     size. ``cfg``, ``shape`` and ``mesh_shape`` (a MeshShape) replace the
     arch's config, the named shape and the production mesh (reduced cells
     in tests)."""
+    # a production cell: the reference's figures apply
+    production = (cfg is None and shape is None and mesh_shape is None and not tag
+                  and not rule_overrides and (run is None or run == RunConfig()))
     cfg = cfg or get_config(arch)
     shape = shape or ALL_SHAPES[shape_name]
     run = run or RunConfig()
@@ -188,6 +230,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, run: Optional[RunConfig
         "lower_s": round(counted["lower_s"], 2),
         "run_config": dataclasses.asdict(run),
     }
+    reference = reference_block(arch, shape_name, mesh_kind, result) if production else None
+    if reference is not None:
+        result["reference"] = reference
     if verbose:
         peak = counted["memory_analysis"]["peak_bytes"]
         print(f"== {arch} x {shape_name} x {mesh_kind}" + (f" [{tag}]" if tag else ""))
@@ -198,6 +243,16 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, run: Optional[RunConfig
         print(f"   memory/dev: peak {peak / 1e9:.2f} GB of one {card_name()}'s "
               f"{H100_BYTES / 1e9:.0f} GB ({peak / H100_BYTES:.1%}); "
               f"{counted['memory_analysis']}")
+        if reference is not None:
+            mem = reference["memory_analysis"]
+            print(f"   reference (XLA's compiled program, {REFERENCE_CELLS.name}): flops/dev "
+                  f"{reference['flops_per_device']:.3e} | coll_eff "
+                  f"{reference['collective_total_effective']:.3e}B "
+                  f"{reference['collective_bytes_effective']} | total_hbm "
+                  f"{mem['total_hbm_bytes'] / 1e9:.2f} GB")
+            print("   port / reference: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sorted(reference["port_over_reference"].items())
+                if v is not None))
     if save:
         ARTIFACTS.mkdir(parents=True, exist_ok=True)
         name = f"{arch}__{shape_name}__{mesh_kind}" + (f"__{tag}" if tag else "")

@@ -32,9 +32,16 @@ by its trip count with nothing else to do: the reference's
 ``num_computations``, ``num_executable`` and ``loop_multipliers`` (the HLO's
 computations and while-loop multipliers) have no counterpart and are left
 out, and so is ``cost_analysis_dict`` (XLA's own cost analysis).
+
+``MemoryTracker`` is the counterpart of XLA's memory analysis: the bytes of
+one rank's live storages, each added when an op creates it (its local
+tensors only, never the sharding propagator's FakeTensors of the global
+shapes) and taken off when it is freed (a weakref finalizer on the
+storage), and their peak.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Any, Dict
 
 import torch
@@ -74,6 +81,11 @@ _NO_TRAFFIC = ("detach", "alias", "lift_fresh", "empty", "empty_like", "empty_st
                "new_empty", "new_empty_strided", "_local_scalar_dense", "sym_size",
                "sym_stride", "sym_numel", "sym_storage_offset", "wait_tensor",
                "_wrap_tensor_autograd", "set_", "resize_")
+
+
+# ops whose result is their input's storage in an eager run (a collective's
+# result waited for, or wrapped for autograd; their meta kernels allocate)
+_ALIASING = ("wait_tensor", "_wrap_tensor_autograd")
 
 
 def _nbytes(tree) -> int:
@@ -159,3 +171,60 @@ def analyze(fn, *args, **kwargs) -> Dict[str, Any]:
     with OpCounter() as counter:
         fn(*args, **kwargs)
     return counter.summary()
+
+
+class MemoryTracker(TorchDispatchMode):
+    """One rank's live storage bytes while active, and their peak. Each
+    storage counts once, from the op that creates it (views and in-place
+    ops add nothing) until it is freed; ``track`` adds tensors made before
+    the tracker started (a step's arguments), DTensors by their local
+    shard."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self._held: Dict[int, int] = {}
+
+    def track(self, *tensors) -> None:
+        for t in tensors:
+            self._add(t.to_local() if isinstance(t, DTensor) else t)
+
+    def _add(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._held:
+            return
+        n = st.nbytes()
+        self._held[key] = n
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._free, key)
+
+    def _free(self, key: int) -> None:
+        self.live -= self._held.pop(key)
+
+    def _alias(self, st) -> None:
+        """Count nothing for ``st`` (it stands for a storage already
+        counted) until it is freed."""
+        key = st._cdata
+        self._held[key] = 0
+        weakref.finalize(st, self._free, key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **kwargs)
+        if any(isinstance(t, FakeTensor) for t in tree_leaves((args, kwargs, out))):
+            return out          # the sharding propagator's shape inference
+        if func._overloadpacket.__name__ in _ALIASING:
+            # the collective's result, already counted; on the meta device
+            # the wrap's kernel makes a new storage, which views then share
+            if isinstance(out, torch.Tensor) and out.untyped_storage()._cdata not in self._held:
+                self._alias(out.untyped_storage())
+            return out
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self._add(t)
+        return out

@@ -44,7 +44,7 @@ from torch.distributed.tensor.experimental import local_map
 from repro_torch.kernels.decode_attn.ops import decode_attention_op
 from repro_torch.kernels.flash_attn.ops import flash_attention_op
 from repro_torch.models.layers import rms_headnorm, rope, softcap
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, fsdp_gathered
 
 
 NEG_INF = -1e30
@@ -56,7 +56,8 @@ def _scale(cfg) -> float:
 
 class _GradPlacedLike(torch.autograd.Function):
     """The identity on a DTensor, whose gradient comes back in the input's
-    placements."""
+    placements; a sum still pending over a mesh dimension stays pending
+    (the FSDP gather's backward reduce-scatters it)."""
 
     @staticmethod
     def forward(ctx, x):
@@ -65,14 +66,17 @@ class _GradPlacedLike(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return g.redistribute(ctx.mesh, ctx.placements)
+        return g.redistribute(ctx.mesh, [q if q.is_partial() else p
+                                         for q, p in zip(g.placements, ctx.placements)])
 
 
 def _flat_weight(w, shape, heads_dim: int):
-    """``w.reshape(shape)``. On a mesh where a dimension of size n does not
+    """``w.reshape(shape)``, gathered over its FSDP split first
+    (``fsdp_gathered``). On a mesh where a dimension of size n does not
     divide w's heads, DTensor may split the product's gradient over the
     flattened heads n ways, which the reshape's backward cannot unflatten;
     the gradient then comes back in the weight's placements first."""
+    w = fsdp_gathered(w)
     flat = w.reshape(shape)
     if isinstance(w, DTensor) and any(
             p == Replicate() and w.shape[heads_dim] % n
@@ -81,12 +85,19 @@ def _flat_weight(w, shape, heads_dim: int):
     return flat
 
 
+def _rows_times(x, w):
+    """x (..., k) times w (k, n) as one 2-D product over x's rows, whatever
+    x's strides: ``matmul`` may otherwise take a batched product against w
+    expanded over the rows (on a mesh, a copy of w a row)."""
+    return (x.reshape(-1, x.shape[-1]) @ w).unflatten(0, x.shape[:-1])
+
+
 def _heads(x, w):
     """x (B, S, d) times w (d, H, Dh) -> (B, S, H, Dh), as one 2-D product.
     On a mesh, DTensor may split the product's H·Dh columns over more ranks
     than divide H (2 kv heads over a ``model`` of 4); those columns are
     gathered before they are split into heads."""
-    y = x @ _flat_weight(w, (w.shape[0], -1), 1)
+    y = _rows_times(x, _flat_weight(w, (w.shape[0], -1), 1))
     if isinstance(y, DTensor):
         col = Shard(y.dim() - 1)
         ways = math.prod(n for p, n in zip(y.placements, y.device_mesh.shape) if p == col)
@@ -129,7 +140,7 @@ def cross_query(cfg, params, x_t):
 def output_proj(cfg, params, o, env=None):
     """o (B, S, Hq, Dh) times wo (Hq, Dh, d) -> (B, S, d), one 2-D product."""
     wo = params["wo"]
-    out = o.flatten(-2) @ _flat_weight(wo, (-1, wo.shape[-1]), 0)
+    out = _rows_times(o.flatten(-2), _flat_weight(wo, (-1, wo.shape[-1]), 0))
     out = out + params["bo"] if cfg.attn_bias else out
     return constrain(env, out, "act_batch", "act_seq", "act_embed")
 

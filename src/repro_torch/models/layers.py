@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, fsdp_gathered
 
 
 # The largest f32 temporary nd_init makes: 2.5 GiB, just above gemma2-2b's
@@ -59,7 +59,7 @@ def rmsnorm(params, x, eps: float = 1e-6):
 
 
 @functools.lru_cache(maxsize=16)
-def _rope_freq(d: int, theta: float, device: torch.device):
+def rope_freq(d: int, theta: float, device: torch.device):
     """The reference's f32 frequencies, computed by numpy as it does, and
     kept on the device so a step copies nothing from the host."""
     return torch.from_numpy(
@@ -80,7 +80,7 @@ def rope(x, positions, theta: float):
     (..., S) broadcast against x's sequence dims, taken as f32."""
     d = x.shape[-1]
     half = d // 2
-    angles = positions.float()[..., None, None] * _rope_freq(d, theta, x.device)
+    angles = positions.float()[..., None, None] * rope_freq(d, theta, x.device)
     sin, cos = torch.sin(angles), torch.cos(angles)   # angles: (..., S, 1, half)
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -107,12 +107,13 @@ def mlp_activate(activation: str, h, g=None):
 def mlp_apply(params, x, activation: str, env=None):
     """Input projection (and the gate's, for the gated kinds), the
     activation, then the output projection; the hidden and the output
-    constrained as the reference's (``env``: ``parallel.sharding``)."""
-    h = x @ params["w_in"]
-    g = x @ params["w_gate"] if activation in GATED else None
+    constrained as the reference's (``env``: ``parallel.sharding``); each
+    weight gathered over its FSDP split first (``fsdp_gathered``)."""
+    h = x @ fsdp_gathered(params["w_in"])
+    g = x @ fsdp_gathered(params["w_gate"]) if activation in GATED else None
     h = constrain(env, h, "act_batch", "act_seq", "act_mlp")
-    out = mlp_activate(activation, h, g) @ params["w_out"]
-    return constrain(env, out, "act_batch", "act_seq", "act_embed")
+    out = mlp_activate(activation, h, g) @ fsdp_gathered(params["w_out"])
+    return constrain(env, out, "act_batch", "act_seq", "act_embed", grad=True)
 
 
 def embed_lookup(params, tokens, scale: bool, env=None):
@@ -154,7 +155,7 @@ def _sharded_rows(table, tokens):
 def unembed(params_embed, x, tie: bool = True, head=None, cap: float = 0.0, env=None):
     """Logits through the tied embedding table, or through the untied head
     ``head["w"]`` of shape (d, V), then the final softcap."""
-    logits = x @ params_embed["table"].T if tie else x @ head["w"]
+    logits = x @ (fsdp_gathered(params_embed["table"]).T if tie else fsdp_gathered(head["w"]))
     return constrain(env, softcap(logits, cap), "act_batch", "act_seq", "act_vocab")
 
 
@@ -165,7 +166,7 @@ def conv1d_apply(params, x):
     the bias, cast back to x's dtype."""
     width, s = params["w"].shape[0], x.shape[1]
     w = params["w"].float()
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    out = torch.zeros_like(x, dtype=torch.float32)     # on a mesh, placed as x
     for j in range(width):
         shifted = x if j == 0 else F.pad(x, (0, 0, j, 0))[:, :s]
         out = out + shifted.float() * w[width - 1 - j]

@@ -187,6 +187,32 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
 
 
 # =================================================================== cache
+def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int, kv_dtype, cross_len: int):
+    """(shape, dtype) of every cache leaf, in the cache's tree."""
+    out = []
+    for kind in cfg.layer_kinds():
+        if kind == BLOCK_RGLRU:
+            rw = cfg.rglru_width or cfg.d_model
+            out.append({"h": ((batch, rw), torch.float32),
+                        "conv": ((batch, cfg.conv_width - 1, rw), torch.float32)})
+            continue
+        if kind == BLOCK_SSD:
+            out.append({"h": ((batch, cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state_dim),
+                              torch.float32),
+                        "conv": ((batch, cfg.conv_width - 1, cfg.d_inner + 2 * cfg.ssm_state_dim),
+                                 torch.float32)})
+            continue
+        length = (min(cfg.local_window or max_len, max_len)
+                  if kind == BLOCK_LOCAL_ATTN else max_len)
+        kv = (batch, length, cfg.num_kv_heads, cfg.head_dim)
+        entry = {"k": (kv, kv_dtype), "v": (kv, kv_dtype)}
+        if cfg.is_encoder_decoder:
+            ckv = (batch, cross_len or max_len, cfg.num_kv_heads, cfg.head_dim)
+            entry["ck"], entry["cv"] = (ckv, kv_dtype), (ckv, kv_dtype)
+        out.append(entry)
+    return out
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                kv_dtype=torch.bfloat16, device=None, cross_len: int = 0,
                env=None) -> List[Dict[str, Any]]:
@@ -196,38 +222,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     recurrent state in f32. With ``env`` on a DeviceMesh, DTensors placed by
     ``cache_specs`` under its rules, each rank allocating its shard only."""
     device = resolve_device(device)
+    shapes = _cache_shapes(cfg, batch, max_len, kv_dtype, cross_len)
     if SH.on_devices(env):
-        struct = init_cache(cfg, batch, max_len, kv_dtype, "meta", cross_len)
-        shardings = SH.tree_shardings(env, cache_specs(cfg), struct)
-        return [{k: SH.zeros(t.shape, t.dtype, device, shardings[i][k]) for k, t in e.items()}
-                for i, e in enumerate(struct)]
-
-    def f32(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=device)
-
-    cache = []
-    for kind in cfg.layer_kinds():
-        if kind == BLOCK_RGLRU:
-            rw = cfg.rglru_width or cfg.d_model
-            cache.append({"h": f32(batch, rw), "conv": f32(batch, cfg.conv_width - 1, rw)})
-            continue
-        if kind == BLOCK_SSD:
-            cache.append({"h": f32(batch, cfg.ssm_num_heads, cfg.ssm_head_dim,
-                                   cfg.ssm_state_dim),
-                          "conv": f32(batch, cfg.conv_width - 1,
-                                      cfg.d_inner + 2 * cfg.ssm_state_dim)})
-            continue
-        length = (min(cfg.local_window or max_len, max_len)
-                  if kind == BLOCK_LOCAL_ATTN else max_len)
-        def kv(slots):
-            return torch.zeros((batch, slots, cfg.num_kv_heads, cfg.head_dim), dtype=kv_dtype,
-                               device=device)
-
-        entry = {"k": kv(length), "v": kv(length)}
-        if cfg.is_encoder_decoder:
-            entry["ck"], entry["cv"] = kv(cross_len or max_len), kv(cross_len or max_len)
-        cache.append(entry)
-    return cache
+        specs = cache_specs(cfg)
+        return [{k: SH.zeros(shape, dt, device,
+                             env.sharding(*SH.fit_rank(specs[i][k], len(shape)), shape=shape))
+                 for k, (shape, dt) in e.items()} for i, e in enumerate(shapes)]
+    return [{k: torch.zeros(shape, dtype=dt, device=device) for k, (shape, dt) in e.items()}
+            for e in shapes]
 
 
 # =================================================================== specs
@@ -652,12 +654,24 @@ def _gold(logits, targets):
                      device_mesh=logits.device_mesh)(logits, idx)
 
 
+def _logsumexp(logits):
+    """``logsumexp`` over the last (vocab) dimension. A DTensor split over
+    the vocab stays split, as the reference's under GSPMD: the row maximum
+    and the sum of exponents are all-reduced (both (B, S)), where DTensor's
+    own ``logsumexp`` would gather the (B, S, V) logits whole."""
+    if not isinstance(logits, DTensor):
+        return torch.logsumexp(logits, dim=-1)
+    m = SH.reduced(logits.detach().amax(dim=-1, keepdim=True))
+    return m[..., 0] + torch.log(SH.reduced(torch.exp(logits - m).sum(dim=-1)))
+
+
 def _ce(logits, targets, weights):
     """Summed cross-entropy of ``targets`` (clamped at 0) weighted by
     ``weights``, and the summed weights; in f32."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    return ((lse - _gold(logits, targets)) * weights).sum(), weights.sum()
+    lse = _logsumexp(logits)
+    gold = SH.reduced(_gold(logits, targets))     # summed over the vocab's split, as GSPMD's
+    return ((lse - gold) * weights).sum(), weights.sum()
 
 
 def loss_fn(cfg: ModelConfig, params, batch, run, env=None) -> torch.Tensor:

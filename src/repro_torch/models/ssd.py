@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import conv1d_apply, conv1d_step, conv1d_tail
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, fsdp_gathered
 
 
 def chunk_len(cfg, s: int) -> int:
@@ -54,7 +54,7 @@ def ssd_forward(cfg, params, x, *, state=None, conv_state=None,
     q = chunk_len(cfg, s)
     nc = s // q
 
-    proj = constrain(env, x @ params["w_in"], "act_batch", "act_seq", "act_mlp")
+    proj = constrain(env, x @ fsdp_gathered(params["w_in"]), "act_batch", "act_seq", "act_mlp")
     z, xbc, dt = _split_proj(cfg, proj)
     if conv_state is not None:
         hist = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
@@ -109,7 +109,7 @@ def ssd_forward(cfg, params, x, *, state=None, conv_state=None,
     y = y + params["d_skip"][:, None] * xs.float()
     y = y.reshape(bsz, s, di)
     y = _gated_norm(params, y, z, cfg.norm_eps).to(x.dtype)
-    out = constrain(env, y @ params["w_out"], "act_batch", "act_seq", "act_embed")
+    out = constrain(env, y @ fsdp_gathered(params["w_out"]), "act_batch", "act_seq", "act_embed")
     if return_state:
         return out, (h, new_conv.float())
     return out
@@ -121,7 +121,7 @@ def ssd_step(cfg, params, x_t, state, env=None):
     ``env`` constrains the projection and the output as ``ssd_forward``."""
     h, conv_state = state
     di, n, nh, p_dim = cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_num_heads, cfg.ssm_head_dim
-    proj = constrain(env, x_t[:, 0] @ params["w_in"], "act_batch", "act_mlp")
+    proj = constrain(env, x_t[:, 0] @ fsdp_gathered(params["w_in"]), "act_batch", "act_mlp")
     z, xbc, dt = _split_proj(cfg, proj)
     xbc_c, new_conv = conv1d_step(params["conv"], xbc, conv_state.to(xbc.dtype))
     xbc_c = F.silu(xbc_c)
@@ -135,5 +135,5 @@ def ssd_step(cfg, params, x_t, state, env=None):
     y = y + params["d_skip"][:, None] * xs
     y = y.reshape(-1, di)
     y = _gated_norm(params, y, z, cfg.norm_eps).to(x_t.dtype)
-    out = constrain(env, y @ params["w_out"], "act_batch", "act_embed")
+    out = constrain(env, y @ fsdp_gathered(params["w_out"]), "act_batch", "act_embed")
     return out[:, None, :], (h_new, new_conv.float())

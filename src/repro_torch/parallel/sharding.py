@@ -203,15 +203,29 @@ class ShardEnv:
     def placements(self, *logical: Optional[str], shape=None):
         return self.sharding(*logical, shape=shape).placements
 
-    def constrain(self, x, *logical: Optional[str]):
+    def constrain(self, x, *logical: Optional[str], grad: bool = False):
         """``x`` redistributed to the logical spec ('' / None = replicated
         dim); a plain tensor unchanged. A DTensor is redistributed on a mesh
         of one device too, where it moves nothing: its placements (a
-        product's ``Partial``) then say what the next ops expect."""
+        product's ``Partial``) then say what the next ops expect. With
+        ``grad``, its gradient is redistributed to the same spec too
+        (``_Constrained``), as the transpose of the reference's
+        ``with_sharding_constraint`` constrains the cotangent. Only the
+        MLP's output passes it (``layers.mlp_apply``): there a gradient
+        still pending a sum over ``model`` is reduced at the residual
+        stream, not left to the product's backward. Elsewhere DTensor's
+        own backward gives the same collectives (gemma2-2b's records are
+        equal with every constraint passing it), or the extra
+        redistributions cost more than they pin (at the SSD's
+        constraints they change mamba2's collectives and slow its
+        backward's sharding propagation many times over)."""
         if not isinstance(x, DTensor):
             return x
         names = [n if n else None for n in logical]
-        return x.redistribute(x.device_mesh, self.placements(*names, shape=x.shape))
+        placements = tuple(self.placements(*names, shape=x.shape))
+        if grad:
+            return _Constrained.apply(x, placements)
+        return x.redistribute(x.device_mesh, placements)
 
     # -- axis sizes ---------------------------------------------------------
     def axis_size(self, *axes: str) -> int:
@@ -245,6 +259,22 @@ class ShardEnv:
         return dataclasses.replace(
             self, rules={k: _untup(tuple(a for a in _tup(v) if a not in drop))
                          for k, v in self.rules.items()})
+
+
+class _Constrained(torch.autograd.Function):
+    """A DTensor redistributed to ``placements``, and its gradient too.
+    DTensor's own redistribute hands the gradient back in the input's
+    placements (a pending sum stays pending), which leaves the backward's
+    collectives to its sharding propagation."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements), None
 
 
 # The keys whose rules differ between the two serving phases: heads over
@@ -343,7 +373,18 @@ def zeros(shape, dtype, device, sharding: Sharding):
             local[p.dim] //= n
     return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device), sharding.mesh,
                               sharding.placements, shape=torch.Size(shape),
-                              stride=torch.empty(shape, device="meta").stride())
+                              stride=contiguous_stride(shape))
+
+
+def contiguous_stride(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``, reckoned without
+    making one (a global-shape tensor would count as this rank's memory in
+    the dry run)."""
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= max(d, 1)
+    return tuple(reversed(out))
 
 
 def distribute_tree(tree, shardings):
@@ -355,10 +396,40 @@ def distribute_tree(tree, shardings):
     return type(shardings)(distribute_tree(t, v) for t, v in zip(tree, shardings))
 
 
-def constrain(env: Optional[ShardEnv], x, *logical: Optional[str]):
-    """``env.constrain(x, *logical)``, or ``x`` when there is no env: the
-    model's constraint points with ``env=None`` are the single-device path."""
-    return x if env is None else env.constrain(x, *logical)
+def fsdp_gathered(w):
+    """A weight as a product against it reads it: whole over every mesh
+    dimension but ``model`` (the FSDP gather: the rules split "p_embed" and
+    "p_ff_in" over ``data``, the axis of the activations' batch), still
+    split over ``model`` (TP). Its gradient comes back reduce-scattered to
+    the weight's placements. GSPMD gathers the reference's weights alike;
+    pinned here, DTensor's sharding propagation cannot gather the
+    activations' batch instead (a choice that moved between torch
+    versions). A plain tensor passes unchanged."""
+    if not isinstance(w, DTensor):
+        return w
+    mesh = w.device_mesh
+    if all(p == Replicate() or n == "model" or size == 1
+           for n, p, size in zip(mesh.mesh_dim_names, w.placements, mesh.shape)):
+        return w            # nothing to gather (a mesh of one rank a dimension too)
+    pl = [p if n == "model" else Replicate() for n, p in zip(mesh.mesh_dim_names, w.placements)]
+    return w.redistribute(mesh, pl)
+
+
+def reduced(x):
+    """A DTensor's pending reductions (``Partial`` placements, such as a max
+    or a sum over a split dimension) carried out, one all-reduce a mesh
+    dimension; anything else as it is."""
+    if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+        return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                              for p in x.placements])
+    return x
+
+
+def constrain(env: Optional[ShardEnv], x, *logical: Optional[str], grad: bool = False):
+    """``env.constrain(x, *logical, grad=grad)``, or ``x`` when there is no
+    env: the model's constraint points with ``env=None`` are the
+    single-device path."""
+    return x if env is None else env.constrain(x, *logical, grad=grad)
 
 
 def placed_like(x, p):

@@ -70,8 +70,24 @@ def _square_sum(x):
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of their squares, in f32."""
-    return torch.sqrt(sum(_square_sum(x) for x in tree_leaves(tree)))
+    """sqrt of the sum over leaves of their squares, in f32. DTensor leaves
+    are summed locally by their placements, and each group's sum is
+    all-reduced once, so the reductions do not depend on how DTensor would
+    add sums pending over different mesh dimensions."""
+    groups: dict = {}
+    for x in tree_leaves(tree):
+        sq = _square_sum(x)
+        key = (sq.device_mesh, tuple(sq.placements)) if isinstance(sq, DTensor) else None
+        groups[key] = groups.get(key, 0.0) + (_local(sq) if key is not None else sq)
+    total = 0.0
+    for key, local in groups.items():
+        if key is None:
+            total = total + local
+            continue
+        mesh, placements = key
+        total = total + DTensor.from_local(local, mesh, placements).redistribute(
+            mesh, [Replicate()] * mesh.ndim)
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(tree, max_norm: float):

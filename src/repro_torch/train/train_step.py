@@ -36,7 +36,7 @@ from repro_torch.convert import reference_leaf
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.parallel import compression as C
-from repro_torch.parallel.sharding import placed_like, spec_map
+from repro_torch.parallel.sharding import contiguous_stride, placed_like, spec_map
 from repro_torch.train import optim as O
 from repro_torch.train.tree import flatten_with_paths, tree_leaves, tree_map
 
@@ -190,7 +190,7 @@ def _pod_view(x, pod_mesh):
         shape[x.placements[i].dim] //= pods
     placements = x.placements[:i] + x.placements[i + 1:]
     return DTensor.from_local(x.to_local(), pod_mesh, placements, shape=torch.Size(shape),
-                              stride=torch.empty(shape, device="meta").stride())
+                              stride=contiguous_stride(shape))
 
 
 def _pod_stack(x, mesh):
@@ -202,7 +202,7 @@ def _pod_stack(x, mesh):
     shape = (mesh.shape[i],) + tuple(x.shape)
     return DTensor.from_local(x.to_local().unsqueeze(0), mesh, placements,
                               shape=torch.Size(shape),
-                              stride=torch.empty(shape, device="meta").stride())
+                              stride=contiguous_stride(shape))
 
 
 def init_train_state(cfg: ModelConfig, run: RunConfig, generator: torch.Generator,
