@@ -124,13 +124,15 @@ Phases, each of which exits non-zero on failure:
     each of those caches cut into 2 and 16 slices along S, K2 on each slice
     at its local lengths and ``merge_stacked`` (the arithmetic the ranks
     run) against K2 on the whole cache within TOL["bfloat16"], with empty
-    slices, and one slice's K2 and the merge timed beside the whole; 10c,
+    slices, and one slice's K2 and the merge timed beside the whole, the
+    slice's plain version and flex_attention with the lse beside it; 10c,
     phase 4's weights and prompts through ``generate`` on a (1, 1, 1) mesh
     of a one-rank NCCL group under the decode rules: tokens equal to phase
     4's, logits within phase 3's bf16 tolerance, K3 26 and K2 832
     launches, prefill ms, decode ms a step and the idle share beside phase
     4's; 10d, the dry run's six gemma2-2b cells (train_4k, prefill_32k
-    and decode_32k on the (16, 16) and (2, 16, 16) meshes;
+    and decode_32k on the (16, 16) and (2, 16, 16) meshes) and the zoo's
+    twelve (granite-moe, mamba2, recurrentgemma, seamless on (16, 16);
     ``launch/dryrun.run_cell``: a fake group of 256/512 ranks, the meta
     device) on this machine's torch, every figure (per-rank FLOPs, bytes,
     collective bytes by kind, the memory analysis) within 1% of the port's
@@ -1417,11 +1419,12 @@ def bound_ms(ops, nbytes):
 
 
 def library_flash(q, k, v, window, lengths=None, scale=SCALE, cap=50.0, causal=True,
-                  prefix=0):
+                  prefix=0, lse=False):
     """One PyTorch call computing the same function: flex_attention with the
     softcap (when ``cap``) as score_mod and the mask as a block mask (K3's:
     causal with the window or the prefix, or none; K2's: ``lengths``),
-    compiled. Timed as a yardstick only; the port never calls it. Each new
+    compiled (with ``lse``, returning the log-sum-exp too). Timed as a
+    yardstick only; the port never calls it. Each new
     shape or mask compiles anew; past dynamo's recompile limit (8) a call
     would run flex_attention unfused, which materialises the scores, so
     the limit is raised to cover every shape the script times."""
@@ -1450,8 +1453,9 @@ def library_flash(q, k, v, window, lengths=None, scale=SCALE, cap=50.0, causal=T
 
     block = create_block_mask(mask, b, None, sq, skv, device="cuda")
     fn = torch.compile(flex_attention)
+    extra = {"return_lse": True} if lse else {}
     return lambda: fn(qt, kt, vt, score_mod=softcap if cap else None, block_mask=block,
-                      scale=scale, enable_gqa=True), lambda out: out.transpose(1, 2)
+                      scale=scale, enable_gqa=True, **extra), lambda out: out.transpose(1, 2)
 
 
 def gather_bound(table, idx, streams, iso):
@@ -2395,7 +2399,7 @@ def sharded_full_width(card, plain):
 # version's; 10b: K2 over slices of one cache merged by ``merge_stacked``
 # (the arithmetic the ranks run, ``attention.merge_shards``) against K2 on
 # the whole cache; 10c: phase 4 through the DTensor path on a (1, 1, 1)
-# mesh; 10d: the dry run's gemma2 cells on the meta device.
+# mesh; 10d: the dry run's gemma2-2b and zoo cells on the meta device.
 MERGE_WAYS = (2, 16)
 
 
@@ -2460,9 +2464,11 @@ def check_merge(card):
     K2 on the whole cache within TOL["bfloat16"], at ragged lengths that
     leave slices empty. Times, at gemma2's shape, one slice's K2 (a rank's
     launch) and the merge's arithmetic beside the whole cache's K2 (events
-    around back-to-back calls)."""
+    around back-to-back calls), and the slice's plain version with the lse
+    and flex_attention with ``return_lse`` (the library's call) beside it."""
     import torch
     from repro_torch.kernels.decode_attn import kernel as DK
+    from repro_torch.kernels.decode_attn.ops import decode_attention_plain
     from repro_torch.models.attention import merge_stacked
     gen = torch.Generator(device="cuda").manual_seed(11)
     atol, rtol, _ = TOL["bfloat16"]["decode_attn"]
@@ -2500,7 +2506,17 @@ def check_merge(card):
                         q, k0, v0, mine0, return_lse=True, **args), 50),
                     "merge_ms": cuda_ms(lambda: merge_stacked(*stacked), 50),
                     "whole_ms": cuda_ms(lambda: DK.decode_attention_cuda(q, ck, cv, lens, **args),
-                                        50)}
+                                        50),
+                    "slice_plain_ms": cuda_ms(lambda: decode_attention_plain(
+                        q, k0, v0, mine0, return_lse=True, **args), 20)}
+                try:
+                    call, _ = library_flash(q, k0, v0, 0, lengths=mine0, scale=d ** -0.5,
+                                            cap=cap, causal=False, lse=True)
+                    call()
+                    timing[m]["slice_library_ms"] = cuda_ms(call, 50)
+                except Exception as e:  # noqa: BLE001 - the yardstick only
+                    log(f"  flex_attention with the lse unavailable ({type(e).__name__}: {e})")
+                    timing[m]["slice_library_ms"] = None
             del parts, outs, lses
     log(f"  gemma2's last step, ms (events, back-to-back calls; on {card}): {json.dumps(timing)}")
     if bad:
@@ -2598,10 +2614,15 @@ def sharded_serve(card, phase4):
     return result
 
 
-# 10d: gemma2-2b's six dry-run cells, each held to the port's record on the
-# torch that wrote reference_cells.json within DRY_TOL on every figure
-DRY_CELLS = [(shape, mesh) for shape in ("train_4k", "prefill_32k", "decode_32k")
-             for mesh in ("single", "multi")]
+# 10d: gemma2-2b's six dry-run cells and the zoo's twelve (granite-moe,
+# mamba2, recurrentgemma and seamless on (16, 16)), each held to the port's
+# record on the torch that wrote reference_cells.json within DRY_TOL on
+# every figure
+DRY_CELLS = ([("gemma2-2b", shape, mesh) for shape in ("train_4k", "prefill_32k", "decode_32k")
+              for mesh in ("single", "multi")]
+             + [(arch, shape, "single") for arch in ("granite-moe-3b-a800m", "mamba2-2.7b",
+                                                     "recurrentgemma-9b", "seamless-m4t-medium")
+                for shape in ("train_4k", "prefill_32k", "decode_32k")])
 DRY_TOL = 0.01
 
 
@@ -2621,7 +2642,8 @@ def dry_figures(rec):
 
 def dry_run_cells():
     """10d: gemma2-2b's train_4k, prefill_32k and decode_32k cells on the
-    (16, 16) and (2, 16, 16) meshes (``launch/dryrun.run_cell``: a fake
+    (16, 16) and (2, 16, 16) meshes, and the zoo's on (16, 16)
+    (``launch/dryrun.run_cell``: a fake
     group of 256/512 ranks, the meta device; the card is not touched) on
     this machine's torch. Each figure must be within DRY_TOL of the port's
     record in ``reference_cells.json`` (its ``made_with`` torch); the port's
@@ -2632,11 +2654,11 @@ def dry_run_cells():
     book = json.loads(dryrun.REFERENCE_CELLS.read_text())
     log(f"[10d] dry run on torch {torch.__version__} against the records of torch "
         f"{book['made_with']['torch']} (arithmetic on shapes, no device)")
-    out, misses = {}, []
-    for shape, mesh in DRY_CELLS:
-        key = f"gemma2-2b__{shape}__{mesh}"
+    out, misses, start = {}, [], time.perf_counter()
+    for arch, shape, mesh in DRY_CELLS:
+        key = f"{arch}__{shape}__{mesh}"
         t0 = time.perf_counter()
-        rec = dryrun.run_cell("gemma2-2b", shape, mesh, save=False, verbose=False)
+        rec = dryrun.run_cell(arch, shape, mesh, save=False, verbose=False)
         mine, theirs = dry_figures(rec), dry_figures(book["cells"][key]["port"])
         worst = 0.0
         for name in sorted(set(mine) | set(theirs)):
@@ -2653,6 +2675,7 @@ def dry_run_cells():
             f"{mine['collective_total_effective']:.4e} B, peak {mine['memory peak_bytes']:.4e} B")
         log("    port / reference: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(ratios.items())
                                                  if v is not None))
+    log(f"[10d] {len(DRY_CELLS)} cells in {time.perf_counter() - start:.1f} s")
     if misses:
         fail(f"{len(misses)} dry-run figures differ from reference_cells.json by more than "
              f"{DRY_TOL:.0%}: {misses}")

@@ -342,11 +342,24 @@ class RunLedger:
     def read_lease(self, key: str) -> Optional[Dict[str, Any]]:
         """Current lease doc for ``key``, or ``None`` when absent or
         unreadable (a torn/corrupt lease counts as abandoned)."""
+        return self._lease_file(key)[1]
+
+    def _lease_file(self, key: str):
+        """(whether ``key``'s lease file exists, its doc or ``None`` when
+        it does not parse), from one open: whether a missing doc is an
+        absent lease or a corrupt one is never asked of the disk twice,
+        where a rival's lease could appear in between."""
         try:
-            doc = json.loads(self.lease_path(key).read_text())
-        except (OSError, ValueError):
-            return None
-        return doc if isinstance(doc, dict) and doc.get("nonce") else None
+            text = self.lease_path(key).read_text()
+        except FileNotFoundError:
+            return False, None
+        except OSError:
+            return True, None
+        try:
+            doc = json.loads(text)
+        except ValueError:
+            return True, None
+        return True, (doc if isinstance(doc, dict) and doc.get("nonce") else None)
 
     def claim_lease(self, key: str, worker: str,
                     ttl: Optional[float] = None) -> Optional[Dict[str, Any]]:
@@ -369,13 +382,10 @@ class RunLedger:
         nonce = (f"{worker}.{os.getpid()}.{threading.get_ident()}"
                  f".{time.monotonic_ns()}")
         takeover_of = None
-        cur = self.read_lease(key)
-        if cur is None and path.exists():
-            # a rival may have published its lease between the read and
-            # exists(): read once more. Only a lease that still does not
-            # parse is corrupt (a published lease is always whole).
-            cur = self.read_lease(key)
-        if cur is not None or path.exists():
+        # a published lease is always whole: a file that does not parse is
+        # corrupt, and one that is absent is claimed fresh
+        present, cur = self._lease_file(key)
+        if present:
             age = now - float(cur.get("ts", 0.0)) if cur else float("inf")
             cur_ttl = float(cur.get("ttl", ttl)) if cur else 0.0
             if cur is not None and age <= cur_ttl \

@@ -44,7 +44,8 @@ from torch.distributed.tensor.experimental import local_map
 from repro_torch.kernels.decode_attn.ops import decode_attention_op
 from repro_torch.kernels.flash_attn.ops import flash_attention_op
 from repro_torch.models.layers import rms_headnorm, rope, softcap
-from repro_torch.parallel.sharding import constrain, fsdp_gathered
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.sharding import constrain
 
 
 NEG_INF = -1e30
@@ -71,12 +72,10 @@ class _GradPlacedLike(torch.autograd.Function):
 
 
 def _flat_weight(w, shape, heads_dim: int):
-    """``w.reshape(shape)``, gathered over its FSDP split first
-    (``fsdp_gathered``). On a mesh where a dimension of size n does not
+    """``w.reshape(shape)``. On a mesh where a dimension of size n does not
     divide w's heads, DTensor may split the product's gradient over the
     flattened heads n ways, which the reshape's backward cannot unflatten;
     the gradient then comes back in the weight's placements first."""
-    w = fsdp_gathered(w)
     flat = w.reshape(shape)
     if isinstance(w, DTensor) and any(
             p == Replicate() and w.shape[heads_dim] % n
@@ -85,19 +84,23 @@ def _flat_weight(w, shape, heads_dim: int):
     return flat
 
 
-def _rows_times(x, w):
-    """x (..., k) times w (k, n) as one 2-D product over x's rows, whatever
-    x's strides: ``matmul`` may otherwise take a batched product against w
-    expanded over the rows (on a mesh, a copy of w a row)."""
-    return (x.reshape(-1, x.shape[-1]) @ w).unflatten(0, x.shape[:-1])
+def _rows_times(x, w, shape, heads_dim: int, env=None):
+    """x (..., k) times w reshaped to ``shape`` (k, n) as one 2-D product
+    over x's rows, whatever x's strides: ``matmul`` may otherwise take a
+    batched product against w expanded over the rows (on a mesh, a copy of
+    w a row). On a mesh the product gathers w over its FSDP split or brings
+    x's rows to it (``sharding.product``)."""
+    y = SH.product(x.reshape(-1, x.shape[-1]), w, env,
+                   view=lambda t: _flat_weight(t, shape, heads_dim))
+    return y.unflatten(0, x.shape[:-1])
 
 
-def _heads(x, w):
+def _heads(x, w, env=None):
     """x (B, S, d) times w (d, H, Dh) -> (B, S, H, Dh), as one 2-D product.
     On a mesh, DTensor may split the product's H·Dh columns over more ranks
     than divide H (2 kv heads over a ``model`` of 4); those columns are
     gathered before they are split into heads."""
-    y = _rows_times(x, _flat_weight(w, (w.shape[0], -1), 1))
+    y = _rows_times(x, w, (w.shape[0], -1), 1, env)
     if isinstance(y, DTensor):
         col = Shard(y.dim() - 1)
         ways = math.prod(n for p, n in zip(y.placements, y.device_mesh.shape) if p == col)
@@ -107,6 +110,15 @@ def _heads(x, w):
     return y.unflatten(-1, w.shape[1:])
 
 
+def _split_apart(params) -> bool:
+    """Whether a mesh dimension splits wq's heads and not wk's (or the
+    reverse)."""
+    wq, wk = params["wq"], params["wk"]
+    return isinstance(wq, DTensor) and any(
+        (p == Shard(1)) != (q == Shard(1)) and n > 1
+        for p, q, n in zip(wq.placements, wk.placements, wq.device_mesh.shape))
+
+
 def project_qkv(cfg, params, x, kv_x=None, *, positions=None, kv_positions=None,
                 use_rope: bool = True, env=None):
     """x (B, S, d) -> q (B, S, Hq, Dh); k, v (B, Skv, Hkv, Dh) from ``kv_x``
@@ -114,8 +126,13 @@ def project_qkv(cfg, params, x, kv_x=None, *, positions=None, kv_positions=None,
     The biases (when the config has them), qk-norm on q and k, then RoPE at
     absolute positions (k at ``kv_positions`` when given), so cached K never
     needs re-rotation; cross-attention passes ``use_rope=False``."""
+    if kv_x is None and _split_apart(params):
+        # x's gradient sums a product's partial over ``model`` and another's
+        # whole there: reduced here, where DTensor's choice moved with the
+        # torch version (recurrentgemma's split wq beside MQA's whole wk, wv)
+        x = constrain(env, x, "act_batch", "act_seq", "act_embed", grad=True)
     kv_x = x if kv_x is None else kv_x
-    q, k, v = _heads(x, params["wq"]), _heads(kv_x, params["wk"]), _heads(kv_x, params["wv"])
+    q, k, v = (_heads(t, params[w], env) for t, w in ((x, "wq"), (kv_x, "wk"), (kv_x, "wv")))
     if cfg.attn_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     if cfg.use_qk_norm:
@@ -130,19 +147,19 @@ def project_qkv(cfg, params, x, kv_x=None, *, positions=None, kv_positions=None,
     return q, k, v
 
 
-def cross_query(cfg, params, x_t):
+def cross_query(cfg, params, x_t, env=None):
     """A decode step's cross-attention query: ``wq`` and the bias only (no
     qk-norm, no RoPE), as the reference's decode step projects it."""
-    q = _heads(x_t, params["wq"])
+    q = _heads(x_t, params["wq"], env)
     return q + params["bq"] if cfg.attn_bias else q
 
 
 def output_proj(cfg, params, o, env=None):
     """o (B, S, Hq, Dh) times wo (Hq, Dh, d) -> (B, S, d), one 2-D product."""
     wo = params["wo"]
-    out = _rows_times(o.flatten(-2), _flat_weight(wo, (-1, wo.shape[-1]), 0))
+    out = _rows_times(o.flatten(-2), wo, (-1, wo.shape[-1]), 0, env)
     out = out + params["bo"] if cfg.attn_bias else out
-    return constrain(env, out, "act_batch", "act_seq", "act_embed")
+    return constrain(env, out, "act_batch", "act_seq", "act_embed", grad=True)
 
 
 def attention_core(cfg, q, k, v, *, mask_kind: str, prefix_len: int = 0):

@@ -11,11 +11,13 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.parallel.sharding import constrain, fsdp_gathered
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.sharding import constrain, product
 
 
 # The largest f32 temporary nd_init makes: 2.5 GiB, just above gemma2-2b's
@@ -108,18 +110,27 @@ def mlp_apply(params, x, activation: str, env=None):
     """Input projection (and the gate's, for the gated kinds), the
     activation, then the output projection; the hidden and the output
     constrained as the reference's (``env``: ``parallel.sharding``); each
-    weight gathered over its FSDP split first (``fsdp_gathered``)."""
-    h = x @ fsdp_gathered(params["w_in"])
-    g = x @ fsdp_gathered(params["w_gate"]) if activation in GATED else None
+    product gathers its weight over its FSDP split or brings its rows to
+    it (``sharding.product``)."""
+    h = product(x, params["w_in"], env)
+    g = product(x, params["w_gate"], env) if activation in GATED else None
     h = constrain(env, h, "act_batch", "act_seq", "act_mlp")
-    out = mlp_activate(activation, h, g) @ fsdp_gathered(params["w_out"])
+    out = product(mlp_activate(activation, h, g), params["w_out"], env)
     return constrain(env, out, "act_batch", "act_seq", "act_embed", grad=True)
 
 
 def embed_lookup(params, tokens, scale: bool, env=None):
-    """Row gather, times sqrt(d) rounded to the activation dtype."""
+    """Row gather, times sqrt(d) rounded to the activation dtype. On a mesh
+    the table's d is gathered (``_sharded_rows``), or, where the step's
+    tokens are fewer than the table's rows (``sharding.moves_rows``), the
+    tokens come to the table (``_rows_at_table``)."""
     table = params["table"]
-    x = _sharded_rows(table, tokens) if isinstance(table, DTensor) else table[tokens]
+    if not isinstance(table, DTensor):
+        x = table[tokens]
+    elif SH.moves_rows(table, env, table.shape[0]):
+        x = _rows_at_table(table, tokens)
+    else:
+        x = _sharded_rows(table, tokens)
     if scale:
         x = x * torch.tensor(math.sqrt(table.shape[1]), dtype=x.dtype).item()
     return constrain(env, x, "act_batch", "act_seq", "act_embed")
@@ -152,10 +163,54 @@ def _sharded_rows(table, tokens):
                      in_grad_placements=(grad, tokens.placements), device_mesh=mesh)(table, tokens)
 
 
+def _rows_at_table(table, tokens):
+    """``table[tokens]`` of a DTensor table (V, d) split over the vocab on
+    one mesh dimension and over d (FSDP) on others, without gathering it
+    (no gradient): the tokens come whole over each dimension that splits
+    d (an all-gather), each rank looks up its vocab slice's rows (zeros
+    for tokens outside it) in its d slice, the rows sum over the vocab's
+    dimension (one row nonzero: exact), and each rank hands its d slice of
+    the other ranks' rows back (an all-to-all)."""
+    mesh = table.device_mesh
+    tl, table_l = tokens.to_local(), table.to_local()
+    out, back = [], []
+    for i, (pt, pw) in enumerate(zip(tokens.placements, table.placements)):
+        size = mesh.size(i)
+        rows = pt == Shard(0) and size > 1
+        if pw == Shard(1) and size > 1:                 # d split (FSDP)
+            if rows:
+                tl = funcol.all_gather_tensor(tl, 0, (mesh, i))
+                back.append(i)
+            out.append(Shard(0) if rows else Shard(tokens.dim()))
+        else:
+            out.append(Shard(0) if rows else Replicate())
+    vocab = [i for i, p in enumerate(table.placements) if p == Shard(0) and mesh.size(i) > 1]
+    v = table_l.shape[0]
+    v0 = mesh.get_local_rank(vocab[0]) * v if vocab else 0
+    mine = (tl >= v0) & (tl < v0 + v)
+    x = torch.where(mine[..., None], table_l[(tl - v0).clamp(0, v - 1)], 0)
+    for i in vocab:
+        x = funcol.all_reduce(x, "sum", (mesh, i))
+    lead = x.shape[:-1]
+    x = x.reshape(-1, x.shape[-1])
+    for i in reversed(back):
+        x = SH.slices_to_rows(x, mesh.size(i), (mesh, i))
+    x = funcol.wait_tensor(x)
+    shape = (*tokens.shape, table.shape[1])
+    x = x.reshape(-1, *lead[1:], x.shape[-1])
+    return DTensor.from_local(x, mesh, out, shape=torch.Size(shape),
+                              stride=SH.contiguous_stride(shape))
+
+
 def unembed(params_embed, x, tie: bool = True, head=None, cap: float = 0.0, env=None):
     """Logits through the tied embedding table, or through the untied head
-    ``head["w"]`` of shape (d, V), then the final softcap."""
-    logits = x @ (fsdp_gathered(params_embed["table"]).T if tie else fsdp_gathered(head["w"]))
+    ``head["w"]`` of shape (d, V), then the final softcap. On a mesh the
+    product gathers the weight over its FSDP split or brings its rows to it
+    (``sharding.product``)."""
+    if tie:
+        logits = product(x, params_embed["table"], env, view=lambda t: t.T)
+    else:
+        logits = product(x, head["w"], env)
     return constrain(env, softcap(logits, cap), "act_batch", "act_seq", "act_vocab")
 
 
@@ -163,21 +218,41 @@ def conv1d_apply(params, x):
     """Causal depthwise conv over (B, S, C) with ``params["w"]`` (width, C)
     and ``params["b"]`` (C,): output t sums inputs t-width+1..t, each times
     its tap, in f32 in the reference's order (the newest input first), plus
-    the bias, cast back to x's dtype."""
-    width, s = params["w"].shape[0], x.shape[1]
-    w = params["w"].float()
-    out = torch.zeros_like(x, dtype=torch.float32)     # on a mesh, placed as x
+    the bias, cast back to x's dtype. On a mesh (a DTensor x, split by its
+    rows and channels) it runs on each rank's shard under ``local_map``,
+    the weights split as x's channels."""
+    if not isinstance(x, DTensor):
+        return _conv1d(params["w"], params["b"], x)
+    mesh, last = x.device_mesh, x.dim() - 1
+    if any(p.is_shard() and p.dim not in (0, last) for p in x.placements):
+        raise NotImplementedError(f"a conv over inputs placed {x.placements}")
+    w_pl = [Shard(1) if p == Shard(last) else Replicate() for p in x.placements]
+    b_pl = [Shard(0) if p == Shard(last) else Replicate() for p in x.placements]
+    w, b = params["w"].redistribute(mesh, w_pl), params["b"].redistribute(mesh, b_pl)
+    summed = [Partial() if p == Shard(0) else None for p in x.placements]
+    x_pl = list(x.placements)
+    grads = ([s or q for s, q in zip(summed, w_pl)], [s or q for s, q in zip(summed, b_pl)], x_pl)
+    return local_map(_conv1d, out_placements=x_pl, in_placements=(w_pl, b_pl, x_pl),
+                     in_grad_placements=grads, device_mesh=mesh)(w, b, x)
+
+
+def _conv1d(w, b, x):
+    width, s = w.shape[0], x.shape[1]
+    w = w.float()
+    out = torch.zeros_like(x, dtype=torch.float32)
     for j in range(width):
         shifted = x if j == 0 else F.pad(x, (0, 0, j, 0))[:, :s]
         out = out + shifted.float() * w[width - 1 - j]
-    return (out + params["b"].float()).to(x.dtype)
+    return (out + b.float()).to(x.dtype)
 
 
 def conv1d_tail(hist, width: int):
     """The last width-1 inputs of ``hist`` (B, T, C), zero-padded on the
     left when T is shorter: the conv state a decode step continues from."""
     keep = width - 1
-    return F.pad(hist, (0, 0, max(keep - hist.shape[1], 0), 0))[:, -keep:]
+    if hist.shape[1] >= keep:
+        return hist[:, -keep:]
+    return F.pad(hist, (0, 0, keep - hist.shape[1], 0))
 
 
 def conv1d_step(params, x_t, state):

@@ -404,7 +404,7 @@ def _cross_prefill(cfg, lp, x, entry, enc_out, env=None):
 def _cross_decode(cfg, lp, x_t, entry, env=None):
     """A step's cross-attention against the stored ``ck``/``cv``."""
     h = L.rmsnorm(lp["ln_cross"], x_t, cfg.norm_eps)
-    q = attn.cross_query(cfg, lp["cross"], h)
+    q = attn.cross_query(cfg, lp["cross"], h, env)
     o = attn.decode_attend(cfg, q, entry["ck"], entry["cv"], None, ring=False, cross=True)
     return attn.output_proj(cfg, lp["cross"], o, env)
 
@@ -525,6 +525,7 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int = 0,
     and pos are placed under ``cache_env``, by default ``env`` with the
     decode rules (``sharding.phase_env``)."""
     cache_env = cache_env or SH.phase_env(env, "decode")
+    env = SH.step_env(env, sum(t.shape[0] * t.shape[1] for t in batch.values()))
     with SH.sharded(env):
         enc_out = (_encode(cfg, params, batch["src_embeds"], env=env)
                    if cfg.is_encoder_decoder else None)
@@ -545,7 +546,10 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int = 0,
 def decode_step(cfg: ModelConfig, params, token, pos, cache, env=None):
     """One decode step. token: (B, 1) int; pos: (B,) absolute position of
     the new token. Updates ``cache`` in place; returns (logits (B, V),
-    cache). ``env``: the decode rules on a mesh, as the cache was placed."""
+    cache). ``env``: the decode rules on a mesh, as the cache was placed;
+    the step's products bring its B rows to the weights
+    (``sharding.moves_rows``)."""
+    env = SH.step_env(env, token.numel())
     with SH.sharded(env):
         x = L.embed_lookup(params["embed"], token, cfg.embed_scale, env)
         for kind, lp, entry in zip(cfg.layer_kinds(), params["layers"], cache):

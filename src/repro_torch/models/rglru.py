@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import conv1d_apply, conv1d_step, conv1d_tail
-from repro_torch.parallel.sharding import constrain, fsdp_gathered
+from repro_torch.parallel.sharding import constrain, product
 
 RGLRU_C = 8.0
 
@@ -75,8 +75,8 @@ def rglru_forward(cfg, params, x, *, chunk: int = 256, h0=None, conv_state=None,
     (h (B, W) f32, conv state (B, width-1, W) f32)."""
     bsz = x.shape[0]
     rw = params["w_out"].shape[0]
-    ga = F.gelu(x @ fsdp_gathered(params["w_a"]), approximate="tanh")
-    u = constrain(env, x @ fsdp_gathered(params["w_b"]), "act_batch", "act_seq", "act_mlp")
+    ga = F.gelu(product(x, params["w_a"], env), approximate="tanh")
+    u = constrain(env, product(x, params["w_b"], env), "act_batch", "act_seq", "act_mlp")
     if conv_state is not None:
         hist = torch.cat([conv_state.to(u.dtype), u], dim=1)
         u_conv = conv1d_apply(params["conv"], hist)[:, conv_state.shape[1]:]
@@ -88,8 +88,8 @@ def rglru_forward(cfg, params, x, *, chunk: int = 256, h0=None, conv_state=None,
     if h0 is None:
         h0 = torch.zeros(bsz, rw, dtype=torch.float32, device=x.device)
     h_seq, h_last = _linear_scan(a, b, h0, chunk)
-    out = (ga.float() * h_seq).to(x.dtype) @ fsdp_gathered(params["w_out"])
-    out = constrain(env, out, "act_batch", "act_seq", "act_embed")
+    out = product((ga.float() * h_seq).to(x.dtype), params["w_out"], env)
+    out = constrain(env, out, "act_batch", "act_seq", "act_embed", grad=True)
     if return_state:
         return out, (h_last, new_conv.float())
     return out
@@ -100,10 +100,10 @@ def rglru_step(cfg, params, x_t, state, env=None):
     (B, width-1, W) f32). Returns (out (B, 1, d), new state); ``env``
     constrains the recurrent input and the output as ``rglru_forward``."""
     h, conv_state = state
-    ga = F.gelu(x_t[:, 0] @ fsdp_gathered(params["w_a"]), approximate="tanh")
-    u = constrain(env, x_t[:, 0] @ fsdp_gathered(params["w_b"]), "act_batch", "act_mlp")
+    ga = F.gelu(product(x_t[:, 0], params["w_a"], env), approximate="tanh")
+    u = constrain(env, product(x_t[:, 0], params["w_b"], env), "act_batch", "act_mlp")
     u_conv, new_conv = conv1d_step(params["conv"], u, conv_state.to(u.dtype))
     a, b = _gates(params, u_conv)
     h_new = a * h + b
-    out = (ga.float() * h_new).to(x_t.dtype) @ fsdp_gathered(params["w_out"])
+    out = product((ga.float() * h_new).to(x_t.dtype), params["w_out"], env)
     return constrain(env, out, "act_batch", "act_embed")[:, None, :], (h_new, new_conv.float())

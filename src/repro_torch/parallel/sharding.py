@@ -27,10 +27,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
@@ -149,6 +151,9 @@ class ShardEnv:
 
     mesh: Any                     # MeshShape or DeviceMesh
     rules: Mapping[str, Axes]
+    # the running step's tokens (0: not given); a product against a weight
+    # of more rows moves the tokens' rows to it (``moves_rows``)
+    tokens: int = 0
 
     @property
     def axes(self) -> Dict[str, int]:
@@ -210,15 +215,21 @@ class ShardEnv:
         product's ``Partial``) then say what the next ops expect. With
         ``grad``, its gradient is redistributed to the same spec too
         (``_Constrained``), as the transpose of the reference's
-        ``with_sharding_constraint`` constrains the cotangent. Only the
-        MLP's output passes it (``layers.mlp_apply``): there a gradient
-        still pending a sum over ``model`` is reduced at the residual
-        stream, not left to the product's backward. Elsewhere DTensor's
-        own backward gives the same collectives (gemma2-2b's records are
-        equal with every constraint passing it), or the extra
-        redistributions cost more than they pin (at the SSD's
-        constraints they change mamba2's collectives and slow its
-        backward's sharding propagation many times over)."""
+        ``with_sharding_constraint`` constrains the cotangent. Five
+        constraints pass it, each where a gradient still pending a sum
+        over ``model`` would otherwise be left to the next product's
+        backward, whose choice moved with the torch version: the outputs
+        of the MLP (``layers.mlp_apply``), the attention
+        (``attention.output_proj``), the RG-LRU (``rglru.rglru_forward``)
+        and the SSD (``ssd.ssd_forward``), each reduced at the residual
+        stream, and the attention's input where wq and wk split
+        differently (``attention.project_qkv``). The SSD's scan runs under
+        ``local_map``, so its output's constraint no longer slows the
+        backward's sharding propagation (reduced mamba2's train cell on a
+        (2, 2, 2) mesh counts in seconds either way). The others (a
+        block's inner activations, B‖C, the SSD's parts, the decode
+        path) stay without it: DTensor's own backward gives the
+        collectives the reference's transpose gives there."""
         if not isinstance(x, DTensor):
             return x
         names = [n if n else None for n in logical]
@@ -413,6 +424,263 @@ def fsdp_gathered(w):
         return w            # nothing to gather (a mesh of one rank a dimension too)
     pl = [p if n == "model" else Replicate() for n, p in zip(mesh.mesh_dim_names, w.placements)]
     return w.redistribute(mesh, pl)
+
+
+def step_env(env: Optional[ShardEnv], tokens: int) -> Optional[ShardEnv]:
+    """``env`` for a step of ``tokens`` tokens (rows, all ranks'); None
+    stays None."""
+    return None if env is None else dataclasses.replace(env, tokens=int(tokens))
+
+
+def moves_rows(w, env: Optional[ShardEnv], k: int) -> bool:
+    """Whether a product against the weight ``w`` of ``k`` rows (its
+    contraction; a table's vocab for a lookup) brings its rows to w
+    (``rows_product``) rather than gathering w over its FSDP split
+    (``fsdp_gathered``): whichever moves less. The rows move when the
+    step's tokens (``env.tokens``, every rank's) are fewer than w's rows,
+    no gradient is taken, and a mesh dimension of more than one rank other
+    than ``model`` splits w. A decode step moves its rows (128 at
+    decode_32k, against K >= 1,024); a training or prefill step, of more
+    tokens than any weight has rows, gathers the weight, and so does any
+    step that takes gradients: a weight's gradient is reduce-scattered to
+    its split anyway."""
+    if not (isinstance(w, DTensor) and env is not None and 0 < env.tokens < k):
+        return False
+    mesh = w.device_mesh
+    return not torch.is_grad_enabled() and any(
+        p.is_shard() and n != "model" and size > 1
+        for n, p, size in zip(mesh.mesh_dim_names, w.placements, mesh.shape))
+
+
+def product(x, w, env: Optional[ShardEnv] = None, view=None):
+    """``x @ view(w)``, ``view`` turning the stored weight into the (K, N)
+    matrix the product reads (the tied table's transpose, a flattening of
+    heads; by default w itself): on a mesh, ``rows_product`` against
+    ``view(w)`` where ``moves_rows`` says so, else against the view of w
+    gathered over its FSDP split (``fsdp_gathered``). The one place that
+    chooses between moving the rows and gathering the weight."""
+    view = view or (lambda t: t)
+    if moves_rows(w, env, x.shape[-1]):
+        return rows_product(x, view(w))
+    return x @ view(fsdp_gathered(w))
+
+
+def rows_product(x, w):
+    """x (..., K) @ w (K, N), DTensors, with x's rows brought to the weight's
+    split, pinned collective by collective on the local shards (torch's
+    functional collectives; no gradient). Mesh dimension by dimension:
+
+    * where w's K is split (FSDP over ``data``; TP over ``model``), x's K
+      is split alike: rows split there go to the ranks by K slice (an
+      all-to-all); the product's partial sums over that dimension are
+      reduced in f32, reduce-scattered back to the rows' split, or
+      all-reduced;
+    * where w's N is split, x's rows come whole (an all-gather, where they
+      were split), and each rank hands its columns of the other ranks'
+      rows back after the sums (an all-to-all, in x's dtype);
+    * where neither is, x's rows stay as they are; the first such
+      dimension that splits nothing else (``model`` where the heads or the
+      vocab do not divide it) splits w's N for the product, as GSPMD moves
+      a decode batch onto that otherwise idle axis, and the output keeps
+      the split (the next constraint gathers it where the model's rules
+      say so).
+
+    The product's partial sums come out in f32 (its operands read in their
+    own dtype where the device has the mixed product: CUDA, and meta
+    tensors in the dry run), are reduced in f32, and the output is rounded
+    to x's dtype once."""
+    mesh, dtype = w.device_mesh, x.dtype
+    lead, k = x.shape[:-1], x.shape[-1]
+    x = x.reshape(-1, k)
+    xl, wl = x.to_local(), w.to_local()
+    free = not any(p == Shard(1) and n > 1 for p, n in zip(w.placements, mesh.shape))
+    out, reduce, expand = [], [], []    # output placements; all-reduces; row moves in order
+    for i, (px, pw) in enumerate(zip(x.placements, w.placements)):
+        size, group, rank = mesh.size(i), (mesh, i), mesh.get_local_rank(i)
+        rows = px == Shard(0) and size > 1
+        if px.is_partial() or (px == Shard(1) and pw != Shard(0) and size > 1):
+            raise NotImplementedError(f"a product of rows placed {x.placements} "
+                                      f"against a weight placed {w.placements}")
+        if size == 1:
+            out.append(Replicate())
+        elif pw == Shard(0):                            # K split
+            if rows:
+                xl = rows_to_slices(xl, size, group)
+                expand.append((i, "sum"))
+                out.append(Shard(0))
+            else:
+                if px != Shard(1):
+                    xl = _chunk(xl, 1, size, rank)
+                reduce.append(i)
+                out.append(Replicate())
+        elif pw == Shard(1):                            # N split
+            if rows:
+                xl = funcol.all_gather_tensor(xl, 0, group)
+                expand.append((i, "back"))
+            out.append(Shard(0) if rows else Shard(1))
+        elif rows:
+            out.append(Shard(0))
+        elif free:
+            wl = _chunk(wl, 1, size, rank)
+            free = False
+            out.append(Shard(1))
+        else:
+            out.append(Replicate())
+    if dtype == torch.float32 or xl.device.type == "cpu" or \
+            "dtype" not in torch.ops.aten.mm.overloads():
+        yl = xl.float() @ wl.float()                    # the CPU has no mixed product
+    else:                                               # the operands read in their dtype
+        yl = torch.mm(xl, wl, out_dtype=torch.float32)
+    for i in reduce:
+        yl = funcol.all_reduce(yl, "sum", (mesh, i))
+    for n, (i, how) in enumerate(reversed(expand)):
+        if how == "sum":
+            yl = funcol.reduce_scatter_tensor(yl, "sum", 0, (mesh, i))
+        else:
+            if not any(h == "sum" for _, h in expand[:len(expand) - n]):
+                yl = yl.to(dtype)
+            yl = slices_to_rows(yl, mesh.size(i), (mesh, i))
+    yl = funcol.wait_tensor(yl.to(dtype))
+    y = DTensor.from_local(yl, mesh, out, shape=torch.Size((x.shape[0], w.shape[1])),
+                           stride=(w.shape[1], 1))
+    return y.reshape(*lead, w.shape[1])
+
+
+def _chunk(t, dim: int, n: int, rank: int):
+    """Rank ``rank``'s slice of t's dimension ``dim`` split n ways as a
+    DTensor ``Shard`` splits it: slices of ceil(size / n), the last ones
+    shorter or empty."""
+    step = -(-t.shape[dim] // n)
+    start = min(rank * step, t.shape[dim])
+    return t.narrow(dim, start, min(step, t.shape[dim] - start))
+
+
+def rows_to_slices(xl, n: int, group):
+    """Rows (r, K) of this rank of a group of n to every rank's rows of
+    this rank's K slice (n·r, K/n), the group's rows in rank order."""
+    r, k = xl.shape
+    send = xl.reshape(r, n, k // n).transpose(0, 1).reshape(n * r, k // n)
+    return funcol.all_to_all_single(send, None, None, group)
+
+
+def slices_to_rows(yl, n: int, group):
+    """Every rank's rows of this rank's column slice (n·r, c) to this
+    rank's rows of every slice (r, n·c): ``rows_to_slices`` reversed."""
+    c = yl.shape[1]
+    got = funcol.all_to_all_single(yl.contiguous(), None, None, group)
+    return got.reshape(n, -1, c).transpose(0, 1).reshape(-1, n * c)
+
+
+def column_parts(t, sizes: Sequence[int]):
+    """The parts of t's last dimension, of ``sizes``, each split over
+    ``model`` on its own: a fused projection's columns (z, x, B‖C, dt of
+    the SSD's ``w_in``), split over ``model`` in slices that straddle the
+    parts' ends, regrouped so that each rank holds its slice of every part
+    (one all-to-all over ``model``; the split must divide every part). A
+    plain tensor, or one whose last dimension ``model`` does not split, is
+    sliced."""
+    mesh_dim = _last_dim_split(t)
+    if mesh_dim is None:
+        return list(torch.split(t, list(sizes), dim=-1))
+    mesh, i = t.device_mesh, mesh_dim
+    n, rank = mesh.size(i), mesh.get_local_rank(i)
+    if any(size % n for size in sizes):
+        raise NotImplementedError(f"parts {tuple(sizes)} split {n} ways")
+    width = t.shape[-1] // n
+    have = [[(r * width, (r + 1) * width)] for r in range(n)]
+    want = [_part_ranges(sizes, n, r) for r in range(n)]
+    local = _move_columns(t.to_local(), have, want, rank, (mesh, i))
+    pl = list(t.placements)
+    pl[i] = Shard(t.dim() - 1)
+    out = []
+    for size, part in zip(sizes, local.split([size // n for size in sizes], dim=-1)):
+        shape = (*t.shape[:-1], size)
+        out.append(DTensor.from_local(part, mesh, pl, shape=torch.Size(shape),
+                                      stride=contiguous_stride(shape)))
+    return out
+
+
+def joined_columns(parts):
+    """``column_parts`` reversed: the parts, placed as ``column_parts``
+    gives them, joined on the last dimension and split over ``model`` in
+    even slices (one all-to-all). Plain tensors are concatenated."""
+    mesh_dim = _last_dim_split(parts[0])
+    if mesh_dim is None:
+        return torch.cat(parts, dim=-1)
+    mesh, i = parts[0].device_mesh, mesh_dim
+    n, rank = mesh.size(i), mesh.get_local_rank(i)
+    sizes = [p.shape[-1] for p in parts]
+    shape = (*parts[0].shape[:-1], sum(sizes))
+    pl = list(parts[0].placements)
+    width = sum(sizes) // n
+    have = [_part_ranges(sizes, n, r) for r in range(n)]
+    want = [[(r * width, (r + 1) * width)] for r in range(n)]
+    local = torch.cat([p.to_local() for p in parts], dim=-1)
+    local = _move_columns(local, have, want, rank, (mesh, i))
+    pl[i] = Shard(len(shape) - 1)
+    return DTensor.from_local(local, mesh, pl, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def _last_dim_split(t):
+    """The mesh dimension of more than one rank that splits t's last
+    dimension, or None (a plain tensor too)."""
+    if not isinstance(t, DTensor):
+        return None
+    last = Shard(t.dim() - 1)
+    dims = [i for i, (p, n) in enumerate(zip(t.placements, t.device_mesh.shape))
+            if n > 1 and (p == last or p == Shard(-1))]
+    if len(dims) > 1:
+        raise NotImplementedError(f"a last dimension split over {len(dims)} mesh dimensions")
+    return dims[0] if dims else None
+
+
+def _part_ranges(sizes, n: int, rank: int):
+    """The global column ranges [a, b) of each part's slice that ``rank``
+    of n holds."""
+    out, off = [], 0
+    for size in sizes:
+        w = size // n
+        out.append((off + rank * w, off + (rank + 1) * w))
+        off += size
+    return out
+
+
+def _move_columns(local, have, want, rank: int, group):
+    """Columns of a tensor spread over a group: rank r holds the global
+    columns of the ranges ``have[r]`` (in order) and wants those of
+    ``want[r]`` (in order). One all-to-all on the last dimension; each
+    rank sends every other rank the columns it wants and holds."""
+    plan = _column_plan(tuple(map(tuple, have)), tuple(map(tuple, want)), rank)
+    send_idx, send_n, recv_n, order = plan
+    moved = local.index_select(-1, torch.tensor(send_idx, device=local.device))
+    moved = moved.movedim(-1, 0).contiguous()
+    got = funcol.all_to_all_single_autograd(moved, list(recv_n), list(send_n), group)
+    got = got.movedim(0, -1)
+    return got.index_select(-1, torch.tensor(order, device=local.device))
+
+
+@functools.lru_cache(maxsize=256)
+def _column_plan(have, want, rank: int):
+    """(local indices to send in order, counts sent to each rank, counts
+    received from each, the received columns' order in ``want[rank]``)."""
+    def cols(ranges):
+        return [c for a, b in ranges for c in range(a, b)]
+    owner = {c: src for src, ranges in enumerate(have) for c in cols(ranges)}
+    mine = {c: j for j, c in enumerate(cols(have[rank]))}
+    send_idx, send_n = [], []
+    for dest in range(len(want)):
+        sent = [mine[c] for c in cols(want[dest]) if owner[c] == rank]
+        send_idx += sent
+        send_n.append(len(sent))
+    wanted = cols(want[rank])
+    received, recv_n = [], []
+    for src in range(len(have)):
+        got = [c for c in wanted if owner[c] == src]
+        received += got
+        recv_n.append(len(got))
+    pos = {c: j for j, c in enumerate(received)}
+    return tuple(send_idx), tuple(send_n), tuple(recv_n), tuple(pos[c] for c in wanted)
 
 
 def reduced(x):

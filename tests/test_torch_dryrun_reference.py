@@ -14,12 +14,15 @@ program, through ``launch/reference_cells.json`` (written by
   reference's, effective collective bytes within 0.8-1.25x and the peak
   within 0.5-1.25x of XLA's total_hbm_bytes, or else the figure's terms sum
   to both totals with no remainder ("rest"), and each term's relation holds
-  exactly (``tools/dryrun_vs_ref.py`` TERMS: "f32", the reference moving in
-  f32 what the port moves in bf16; "split:model", a product the reference
-  splits over ``model`` and every model rank of the port repeats; ...).
-* Closed forms from the config: the largest FLOPs terms on both sides, and
+  exactly (``tools/dryrun_vs_ref.py`` ``terms_for``: "f32", the reference
+  moving in f32 what the port moves in bf16; "split:model", a product the
+  reference splits over ``model`` and every model rank of the port
+  repeats; ...).
+* Closed forms from the config: the largest FLOPs terms on both sides,
   every peak term on the port's side (the port's storages live at its
-  peak: arguments, the KV cache, gathered weights, attention, activations).
+  peak: arguments, the KV cache, gathered weights, attention, activations)
+  and decode's "plan" collective terms on the port's side (the zoo's
+  ``_port_closed``).
 * ``MemoryTracker``: the peak of three DTensor programs on a fake 8-rank
   group, reckoned by hand in local bytes.
 """
@@ -40,6 +43,7 @@ import dryrun_vs_ref as T  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.shapes import ALL_SHAPES  # noqa: E402
 from repro_torch.launch.dryrun import REFERENCE_CELLS  # noqa: E402
+from test_torch_dryrun_zoo import BF, RING, _port_closed  # noqa: E402
 
 BOOK = json.loads(REFERENCE_CELLS.read_text())
 CELLS = [T.cell_key(*c) for c in T.GEMMA2_CELLS]
@@ -80,8 +84,8 @@ def recomputed():
     refs = [json.loads(line) for line in out["reference"].splitlines() if line.startswith("{")]
     out["reference"] = {rec.pop("cell"): rec for rec in refs}
     out["port"] = json.loads(out["port"].strip().splitlines()[-1])
-    out["terms"] = {cell: T.named(ALL_SHAPES[cell.split("__")[1]].mode, out["reference"][cell],
-                                  out["port"][cell]) for cell in CELLS}
+    out["terms"] = {cell: T.named("gemma2-2b", ALL_SHAPES[cell.split("__")[1]].mode,
+                                  out["reference"][cell], out["port"][cell]) for cell in CELLS}
     return out
 
 
@@ -192,8 +196,10 @@ def _term(terms, metric, start):
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])
 def test_named_flops_terms_have_their_closed_forms(recomputed, mesh):
-    """Decode: the port's q/k/v products are every model rank's own
-    2·(B/dp)·d·(Hq+2Hkv)·Dh a layer, the reference's a sixteenth. Train: the
+    """Decode: the q/k/v products are 2·(B/dp)·d·(Hq+2Hkv)·Dh / model a
+    layer on both sides (GSPMD moves the batch onto ``model``; the port
+    brings the step's rows to the weights and splits their columns over
+    it, the heads not dividing it). Train: the
     q/k/v and o weight gradients are 2·(B·S/dp)·d·(Hq+2Hkv)·Dh and
     2·(B·S/dp)·Hq·Dh·d a layer on the port, a sixteenth on the reference, and
     the reference recomputes one w_out product, 2·(B·S/dp)·(ff/16)·d, a repeat
@@ -205,7 +211,7 @@ def test_named_flops_terms_have_their_closed_forms(recomputed, mesh):
     qkv = d * (hq + 2 * hkv) * dh
     terms = recomputed["terms"]
     ref, port = _term(terms[f"gemma2-2b__decode_32k__{mesh}"], "flops", "q/k/v projections")[2:]
-    assert port == 2 * (128 // dp) * qkv * layers and ref * MODEL == port
+    assert port == 2 * (128 // dp) * qkv * layers // MODEL and ref == port
     tokens = 256 * 4096 // dp
     cell = terms[f"gemma2-2b__train_4k__{mesh}"]
     ref, port = _term(cell, "flops", "q/k/v weight gradients")[2:]
@@ -241,9 +247,12 @@ def _port_peak(cell: str, memory) -> dict:
     cache = 2 * b * hkv * dh * 2 * (layers // 2) * (s + min(cfg.local_window, s)) // MODEL
     args = memory["argument_size_in_bytes"]
     if shape.mode == "decode":
+        # the logits' product over the rows brought to the table (F6): the
+        # pod's rows' f32 partial logits against the table's (d/data, V/model)
+        # slice (the operands read in bf16) and their sum reduce-scattered back
+        rows = shape.global_batch // (2 if mesh == "multi" else 1)
         return {"arguments": args - cache, "the KV cache": cache,
-                # the all-gather's flat (V/model·d) buffer and its concatenation
-                "the unembedding table": 2 * (v // MODEL) * d * 2,
+                "the unembedding": 4 * rows * (v // MODEL) + 4 * (rows // 16) * (v // MODEL),
                 "attention": f * 4,                 # the RoPE frequencies (K2 keeps the rest)
                 "activations": b * d * 2}           # the final norm's output
     if shape.mode == "prefill":
@@ -288,6 +297,31 @@ def test_port_peak_terms_have_their_closed_forms(recomputed, cell):
             got[key] = port_amount
     assert got == want
     assert sum(want.values()) == port["memory_analysis"]["peak_bytes"]
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_decode_collective_terms_have_their_closed_forms(recomputed, mesh):
+    """decode_32k's "plan" collective terms, the port's side, equal the
+    closed forms the zoo's cells are held to (``_port_closed``: the step's
+    rows brought to each weight, the attention's merges, the tokens brought
+    to the table), a pod's B rows; gemma2-2b's terms count the gathers of
+    q/k/v's heads (8 and 4 heads do not divide ``model``) and the lookup's
+    rows handed back among the decode products."""
+    cell = f"gemma2-2b__decode_32k__{mesh}"
+    cfg = get_config("gemma2-2b")
+    rows = 128 // (2 if mesh == "multi" else 1)
+    heads = cfg.num_layers * rows * (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim \
+        // MODEL * BF * RING
+    back = rows * (cfg.d_model // 16) * BF * RING
+    want = _port_closed(cell, 0)
+    want = {"products of a decode step": want["products of a decode step"] + heads + back,
+            "attention over the slots": want["attention over the slots"] - heads,
+            "embedding lookup": want["embedding lookup"] - back}
+    plans = [t for t in recomputed["terms"][cell]["collectives"] if t[1] == "plan"]
+    assert len(plans) == 3
+    for name, rel, ref_amount, port_amount in plans:
+        key = next(k for k in want if name.startswith(k))
+        assert math.isclose(port_amount, want[key], rel_tol=1e-12), (name, port_amount, want[key])
 
 
 # ------------------------------------------------------ the memory tracker

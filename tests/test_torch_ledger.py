@@ -206,6 +206,38 @@ def test_racing_claims_exactly_one_winner():
         assert led.claim_lease(key, loser, ttl=30.0) is None
 
 
+def test_many_racing_claims_exactly_one_winner():
+    """The same guarantee over 200 rounds of 8 threads. A claimer whose
+    read finds no lease must not take for corrupt a rival's lease published
+    just after it: the claim asks the disk once whether the lease is
+    absent or does not parse (``_lease_file``); asking twice, as a read and
+    then ``exists()``, let such a claimer move the rival's live lease aside
+    and win beside it (about one round in ten of this shape)."""
+    led = RunLedger("race8")
+    led.open({"grid_hash": "h"})
+    doubled = []
+    for rnd in range(200):
+        key, nthreads = f"c{rnd}", 8
+        barrier = threading.Barrier(nthreads)
+        results = {}
+
+        def claim(w):
+            barrier.wait()
+            results[w] = led.claim_lease(key, w, ttl=30.0)
+
+        threads = [threading.Thread(target=claim, args=(f"w{k}",))
+                   for k in range(nthreads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        winners = [w for w, doc in results.items() if doc is not None]
+        if len(winners) != 1:
+            doubled.append((key, winners))
+        assert led.read_lease(key)["worker"] in winners
+    assert not doubled
+
+
 def test_worker_exit_fault_leaves_lease_then_takeover():
     """A worker that dies right after claiming (the ``worker.exit``
     site) leaves its lease behind; a later worker takes it over once
