@@ -17,9 +17,11 @@ Phases, each of which exits non-zero on failure:
     isolating the sweeping stream must cut the others' misses by more than
     3x; K3 and K2 also at the heads of the zoo's decoder archs (G 3 at D 64,
     G 4, 6, 7 and 8 at D 128), K2 at random and ragged lengths, and K2's
-    bf16 ring kernel at G 16 (recurrentgemma's MQA, D 256) at random and
-    ragged lengths, at length S, at S shorter than a tile and with a zero
-    length; K3 with a prefix-LM prefix (1, 100, 200, 300, = Sq and > Sq
+    bf16 tensor-core consumer at G 16 and 8 (recurrentgemma's MQA and
+    paligemma's 8 query heads on one KV head, D 256) at random and ragged
+    lengths, at length S, at S shorter than a tile, with a zero length and
+    at a long row, with and without a softcap and with
+    ``return_lse``; K3 with a prefix-LM prefix (1, 100, 200, 300, = Sq and > Sq
     at a ragged Sq) at paligemma's heads (G 8, D 256) and at D 32, and
     non-causal at seamless's (G 1, D 64) with Sq != Skv, both ragged; K2 at
     seamless's heads with every length = S; and both at the shapes of
@@ -80,8 +82,10 @@ Phases, each of which exits non-zero on failure:
     prefill; K3 at seamless's encoder and cross prefill and paligemma's
     prefill (a prefix mask_mod for flex_attention), K2 at seamless's cross
     step and paligemma's last step; each K2 row with the CUDA path its 5
-    profiled calls took (``k2_path``: "ring" or "split"), which must be the
-    ring kernel wherever ``kernel.uses_ring`` routes there;
+    profiled calls took (``k2_path``: "ring mma", "ring" or "split"),
+    profiled in one fresh process after the timing, which must be the ring
+    kernel wherever ``kernel.uses_ring`` routes there, with its tensor-core
+    consumer (``decode_ring_mma_kernel``) wherever ``kernel.uses_mma`` does;
  7. the simulator path: the port's C stepper builds; the 7 single-SM golden
     cells through ``run_batched(cells)`` (the torch stepper, on the card by
     default) equal the golden records field by field; the fig8 grid (12
@@ -137,7 +141,9 @@ Phases, each of which exits non-zero on failure:
     device) on this machine's torch, every figure (per-rank FLOPs, bytes,
     collective bytes by kind, the memory analysis) within 1% of the port's
     record in ``launch/reference_cells.json`` (written on a CPU build of torch), with
-    the port's share of the reference's compiled figures and the seconds.
+    the port's share of the reference's compiled figures and the seconds;
+    it needs no card, so it runs in a process of its own from phase 8 on,
+    beside phases 8-10c, and phase 10 waits for it.
 11. the runner, the run ledger, the runs CLI and the examples: 11a,
     benchmarks/run.py's fig8 grid (12 apps x 7 policies at scale 0.5, seed
     0, best-swl and statpcal swept over their limits) through
@@ -376,15 +382,19 @@ DECODE_GRID += [case for hq, hkv, d in ZOO_HEADS
 # length = S, as its cross-attention step reads the whole encoder cache
 SEAMLESS_HEADS = (16, 16, 64)
 DECODE_GRID += [(2, 700, *SEAMLESS_HEADS, [700, 700]), (3, 333, *SEAMLESS_HEADS, [333] * 3)]
-# the bf16 ring kernel at G 16 (recurrentgemma's 16 query heads on one KV
-# head of 256), bf16 only (the split kernel takes no G 16), with and without
-# a softcap: recurrentgemma's last decode step (B 4, its 2,048-slot ring
-# wrapped, every slot valid) at random lengths, ragged ones (a row that
-# ends inside a split, one of a few keys, one of one key), at length S, at
-# S shorter than one 32-key tile, and with a lengths == 0 row
+# the bf16 ring kernel's tensor-core consumer at G 16 (recurrentgemma's 16
+# query heads on one KV head of 256), bf16 only (the split kernel takes no
+# G 16), with and without a softcap and with the lse: recurrentgemma's last
+# decode step (B 4, its 2,048-slot ring wrapped, every slot valid) at
+# random lengths, ragged ones (a row that ends inside a split, one of a few
+# keys, one of one key), at length S, at S shorter than one 32-key tile,
+# with a lengths == 0 row, and one long row (16 splits of 25-26 tiles)
 RING16_GRID = [(4, 2048, 16, 1, 256, None), (4, 2048, 16, 1, 256, [2048, 1500, 37, 1]),
                (4, 2048, 16, 1, 256, [2048] * 4), (4, 20, 16, 1, 256, [20, 7, 1, 13]),
-               (2, 300, 16, 1, 256, [0, 300])]
+               (2, 300, 16, 1, 256, [0, 300]), (1, 20000, 16, 1, 256, [13001])]
+# the same grid at G 8 (paligemma's 8 query heads on one KV head of 256):
+# with G 16, the shapes of the ring kernel's tensor-core consumer
+RING8_GRID = [(b, s, 8, hkv, d, lengths) for b, s, _, hkv, d, lengths in RING16_GRID]
 SCALE = 256 ** -0.5
 
 
@@ -656,7 +666,7 @@ def check_kernels(only=KERNELS):
                      lambda w: DO.decode_attention_plain(q, ck, w, lens, **args), cv)
                 if DK.uses_ring(dtype, kv_dtype, d) and d != 256:
                     hold_ring_lse(hold, case, q, ck, cv, lens, args)
-        for (b, s, hq, hkv, d, lengths) in (RING16_GRID if "decode_attn" in only
+        for (b, s, hq, hkv, d, lengths) in (RING16_GRID + RING8_GRID if "decode_attn" in only
                                             and dtype == torch.bfloat16 else ()):
             for cap in (0.0, 50.0):
                 q = torch.randn(b, 1, hq, d, generator=gen, device="cuda").to(dtype)
@@ -666,10 +676,10 @@ def check_kernels(only=KERNELS):
                                      dtype=torch.int32) if lengths is None else \
                     torch.tensor(lengths, dtype=torch.int32, device="cuda")
                 args = dict(scale=d ** -0.5, softcap=cap)
-                hold("decode_attn", f"{dtype} ring G 16 softcap {cap:g} "
-                     f"{(b, s, hq, hkv, d, lengths)}",
-                     DK.decode_attention_cuda(q, ck, cv, lens, **args),
+                case = f"{dtype} ring G {hq // hkv} softcap {cap:g} {(b, s, hq, hkv, d, lengths)}"
+                hold("decode_attn", case, DK.decode_attention_cuda(q, ck, cv, lens, **args),
                      lambda w: DO.decode_attention_plain(q, ck, w, lens, **args), cv)
+                hold_ring_lse(hold, case, q, ck, cv, lens, args)
         for (b, s, hq, hkv, d, lengths) in (ring_edge_grid() if "decode_attn" in only
                                             and dtype == torch.bfloat16 else ()):
             for cap in (0.0, 50.0):
@@ -1514,24 +1524,82 @@ PROFILE_TRIES = 4
 
 def k2_path(prof):
     """Which CUDA path K2's launches under the profiler took, from the
-    kernels' names: "ring" (decode_ring_kernel alone), "split"
-    (decode_split_kernel + decode_combine_kernel), or None if neither ran."""
-    names = " ".join(name for name, _, _ in prof["top"])
-    if "decode_ring_kernel" in names and "decode_split_kernel" not in names \
-            and "decode_combine_kernel" not in names:
-        return "ring"
-    if "decode_split_kernel" in names and "decode_ring_kernel" not in names:
+    kernels' names: "ring mma" (decode_ring_mma_kernel alone: the ring
+    kernel's tensor-core consumer), "ring" (decode_ring_kernel alone),
+    "split" (decode_split_kernel + decode_combine_kernel), or None if no
+    one of them ran alone."""
+    names = [name for name, _, _ in prof["top"] if "decode_" in name]
+    kinds = {kind for kind in ("decode_ring_mma_kernel", "decode_ring_kernel",
+                               "decode_split_kernel", "decode_combine_kernel")
+             if any(f"::{kind}<" in name for name in names)}
+    return {frozenset({"decode_ring_mma_kernel"}): "ring mma",
+            frozenset({"decode_ring_kernel"}): "ring",
+            frozenset({"decode_split_kernel", "decode_combine_kernel"}): "split"}.get(
+                frozenset(kinds))
+
+
+def k2_want(q_dtype, kv_dtype, hq, hkv, d):
+    """The path ``k2_path`` must see for a K2 call of these heads."""
+    from repro_torch.kernels.decode_attn import kernel as DK
+    if not DK.uses_ring(q_dtype, kv_dtype, d):
         return "split"
-    return None
+    return "ring mma" if DK.uses_mma(d, hq // hkv) else "ring"
+
+
+def profile_k2_rows(rows):
+    """Phase 6's K2 rows ({label: (b, s, hq, hkv, d, scale, softcap)}, bf16,
+    every slot valid) each profiled in one process of its own, started
+    fresh: a spin kernel, then 5 calls, inside 50 ms of host time on each
+    side, up to PROFILE_TRIES windows until one shows a K2 kernel. In a
+    fresh process every such window saw its kernels (80 of 80 at four of
+    these shapes, ``tools/kernel_probe.py --profile-windows``), while after
+    phases 2-5 whole windows came back empty (the profiler saw no device
+    work at all, not even the spin kernel) at 3 of the 8 rows, in all 4
+    tries. Returns {label: {"path", "top", "windows"}}."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--profile-k2",
+                          json.dumps(rows)], capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"phase 6: the K2 profiling process failed: {out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def profile_k2_main(rows):
+    """The process of ``profile_k2_rows``."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.decode_attn import kernel as DK   # built by phase 1
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    result = {}
+    for label, (b, s, hq, hkv, d, scale, cap) in rows.items():
+        dq = torch.randn(b, 1, hq, d, generator=gen, device="cuda").to(torch.bfloat16)
+        ck, cv = (torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+
+        def window():
+            time.sleep(0.05)
+            torch.cuda._sleep(1_000_000)
+            for _ in range(5):
+                DK.decode_attention_cuda(dq, ck, cv, lens, scale=scale, softcap=cap)
+            sync()
+            time.sleep(0.05)
+
+        window()
+        for tries in range(1, PROFILE_TRIES + 1):
+            prof = device_profile(window)
+            if k2_path(prof) is not None:
+                break
+        result[label] = {"path": k2_path(prof), "top": prof["top"], "windows": tries}
+        del dq, ck, cv
+    print(json.dumps(result), flush=True)
 
 
 def time_decode(label, dq, ck, cv, lens, scale, cap):
     """K2 at one shape: events around 50 back-to-back calls, a CUDA graph of
-    100, the plain version, flex_attention and the bound; five calls under
-    the profiler behind a spin kernel, and the path they took
-    (``k2_path``; a window in which the profiler saw no K2 launch is taken
-    again), which must be the ring kernel wherever ``kernel.uses_ring`` says
-    so. Returns (ms, plain, library, bound, bound_by, extra)."""
+    100, the plain version, flex_attention and the bound. Returns (ms,
+    plain, library, bound, bound_by, extra); ``extra["profile"]`` is the
+    row for ``profile_k2_rows``, which ``observe_k2_paths`` runs after all
+    of phase 6's rows."""
     import torch
     from repro_torch.kernels.decode_attn import kernel as DK, ops as DO
     args = dict(scale=scale, softcap=cap)
@@ -1550,41 +1618,36 @@ def time_decode(label, dq, ck, cv, lens, scale, cap):
     except Exception as e:  # the yardstick only; the port does not depend on it
         log(f"  flex_attention unavailable ({type(e).__name__}: {e}); library_ms null")
     b_ms, by = bound_ms(*decode_bound(dq, ck, lens))
-    # The profiler can drop every launch of a short window (on an H100 it
-    # showed no kernel at all, not even a spin kernel, for phase 6's first
-    # K2 rows, while its 40-200 ms windows of phases 4-4e were whole), so
-    # the five calls queue behind a ~0.5 ms spin kernel inside 50 ms of host
-    # time on each side, and a window that shows no K2 kernel is profiled
-    # again, up to PROFILE_TRIES times.
-    def window():
-        time.sleep(0.05)
-        torch.cuda._sleep(1_000_000)
-        for _ in range(5):
-            k2()
-        sync()
-        time.sleep(0.05)
-
-    for tries in range(1, PROFILE_TRIES + 1):
-        prof = device_profile(window)
-        path = k2_path(prof)
-        if path is not None:
-            break
     log(f"  {label}: kernel {ms:.4f} ms (events, 50 calls), {device:.4f} ms "
         f"(CUDA graph of 100 calls), plain {plain:.4f} ms, flex_attention {lib} ms "
-        f"(max|diff| {lib_err}), bound {b_ms:.4f} ms ({by}); path {path}; 5 calls under the "
-        f"profiler (window {tries} of {PROFILE_TRIES}), device ms a launch:")
-    for name, k_ms, calls in prof["top"]:
-        log(f"    {k_ms / calls:9.4f} ms ({calls:2d} launches)  {name}")
-    want = "ring" if DK.uses_ring(dq.dtype, ck.dtype, dq.shape[-1]) else "split"
-    if path is None and not prof["top"]:
-        # a profiler that saw no device work at all says nothing of the path
-        log(f"  {label}: the profiler saw no device activity in {tries} windows; path "
-            f"not observed")
-    elif path != want:
-        fail(f"phase 6: K2 at {label} took the path {path}, not the {want} kernel "
-             f"(profiled kernels: {[n for n, _, _ in prof['top']]})")
-    return ms, plain, lib, b_ms, by, {"device_ms": device, "path": path,
-                                      "profile_5_calls": prof, "profile_windows": tries}
+        f"(max|diff| {lib_err}), bound {b_ms:.4f} ms ({by})")
+    b, s, hkv, d = dq.shape[0], ck.shape[1], ck.shape[2], dq.shape[-1]
+    return ms, plain, lib, b_ms, by, {"device_ms": device,
+                                      "profile": (b, s, dq.shape[2], hkv, d, scale, cap)}
+
+
+def observe_k2_paths(rows):
+    """``profile_k2_rows`` over phase 6's K2 rows ({label: time_decode's
+    extra}): logs each row's profiled launches and fails unless each took
+    ``k2_want``'s path; sets each row's "path" and "profile_5_calls"."""
+    import torch
+    shapes = {label: extra.pop("profile") for label, extra in rows.items()}
+    seen = profile_k2_rows(shapes)
+    log(f"  K2's paths, profiled in a fresh process ({PROFILE_TRIES} windows at most a row):")
+    for label, extra in rows.items():
+        got = seen[label]
+        _, _, hq, hkv, d, _, _ = shapes[label]
+        want = k2_want(torch.bfloat16, torch.bfloat16, hq, hkv, d)
+        log(f"  {label}: path {got['path']} (window {got['windows']} of {PROFILE_TRIES}), "
+            f"device ms a launch:")
+        for name, k_ms, calls in got["top"]:
+            log(f"    {k_ms / calls:9.4f} ms ({calls:2d} launches)  {name}")
+        if got["path"] != want:
+            fail(f"phase 6: K2 at {label} {shapes[label]} took the path {got['path']}, not "
+                 f"{want} (profiled kernels: {[n for n, _, _ in got['top']]})")
+        extra.update(path=got["path"], profile_5_calls=got["top"],
+                     profile_windows=got["windows"])
+
 
 
 def time_kernels(errs, launches, card, gather, paths):
@@ -1612,9 +1675,11 @@ def time_kernels(errs, launches, card, gather, paths):
         log(f"  flash_attn {kind}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"flex_attention {lib} ms (max|diff| {lib_err}), bound {b_ms:.4f} ms ({by})")
     del q, k, v
+    k2_rows, k2_targets = {}, []     # K2's rows for observe_k2_paths, where each path goes
     for kind in ("local", "global"):
         rows["decode_attn"].append(time_decode(f"decode_attn {kind}", *decode[kind],
                                                SCALE, 50.0))
+        k2_rows[f"decode_attn {kind}"] = rows["decode_attn"][-1][5]
     # K3 at the zoo's prefill shapes (ZOO_PREFILL), no softcap, by events
     # and over a CUDA graph of 20 calls; the plain version a batch row at a
     # time (granite's (24, 4608, 4608) f32 scores are 2 GB a row)
@@ -1662,13 +1727,14 @@ def time_kernels(errs, launches, card, gather, paths):
         ck, cv = (torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
                   for _ in range(2))
         lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
-        ms, plain, lib, b_ms, by, extra = time_decode(
-            f"decode_attn {name} (B {b}, S {s}, {hq}/{hkv} heads of {d})", dq, ck, cv, lens,
-            scale, 0.0)
+        label = f"decode_attn {name} (B {b}, S {s}, {hq}/{hkv} heads of {d})"
+        ms, plain, lib, b_ms, by, extra = time_decode(label, dq, ck, cv, lens, scale, 0.0)
         zoo[name] = {"shape": {"batch": b, "slots": s, "hq": hq, "hkv": hkv, "d": d},
                      "launches": paths[name]["decode_attn"], "ms": ms, "plain_ms": plain,
                      "library_ms": lib, "bound_ms": b_ms, "bound_by": by,
-                     "device_ms": extra["device_ms"], "path": extra["path"]}
+                     "device_ms": extra["device_ms"]}
+        k2_rows[label] = extra
+        k2_targets.append((zoo[name], extra))
         del dq, ck, cv
     # K3 and K2 at phase 4e's shapes (FRONTEND_TIMED), no softcap, each
     # beside its kernel's launches over that path's run (seamless's K3
@@ -1680,9 +1746,10 @@ def time_kernels(errs, launches, card, gather, paths):
         label = f"{name} {call}"
         if kernel == "decode_attn":
             dq, ck, cv, lens, args = frontend_inputs(kernel, shape, scale, torch.bfloat16, gen)
-            ms, plain, lib, b_ms, by, extra = time_decode(
-                f"decode_attn {label} (B {shape[0]}, S {shape[1]}, {shape[2]}/{shape[3]} heads "
-                f"of {shape[4]})", dq, ck, cv, lens, scale, 0.0)
+            row = (f"decode_attn {label} (B {shape[0]}, S {shape[1]}, {shape[2]}/{shape[3]} "
+                   f"heads of {shape[4]})")
+            ms, plain, lib, b_ms, by, extra = time_decode(row, dq, ck, cv, lens, scale, 0.0)
+            k2_rows[row] = extra
             del dq, ck, cv
         else:
             q, k, v, args = frontend_inputs(kernel, shape, scale, torch.bfloat16, gen)
@@ -1705,9 +1772,14 @@ def time_kernels(errs, launches, card, gather, paths):
                 f"{lib_err}), bound {b_ms:.4f} ms ({by})")
             del q, k, v
         frontend[kernel][label] = {
-            "shape": list(shape), "path_launches": paths[name][kernel], "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms, "bound_by": by,
-            **({"device_ms": extra["device_ms"], "path": extra["path"]}
-               if "device_ms" in extra else {})}
+            "shape": list(shape), "path_launches": paths[name][kernel], "ms": ms,
+            "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms, "bound_by": by,
+            **({"device_ms": extra["device_ms"]} if "device_ms" in extra else {})}
+        if kernel == "decode_attn":
+            k2_targets.append((frontend[kernel][label], extra))
+    observe_k2_paths(k2_rows)
+    for target, extra in k2_targets:
+        target["path"] = extra["path"]
 
     def mean(xs):   # over the two layer kinds, each half of the serving path's layers
         return None if None in xs else sum(xs) / len(xs)
@@ -2682,14 +2754,42 @@ def dry_run_cells():
     return out
 
 
-def sharded_phase(card, phase4):
-    """Phase 10, in order."""
+DRY_OUT = ROOT / "build" / "dry_run"
+
+
+def start_dry_run():
+    """10d in a process of its own (``--dry-run-cells``), started before
+    phase 8: it needs no card, and beside phases 8-10c it takes none of the
+    script's time limit but what is left of it at 10d. Its output goes to
+    files under build/dry_run (DTensor's warnings would fill a pipe)."""
+    DRY_OUT.mkdir(parents=True, exist_ok=True)
+    with open(DRY_OUT / "out.log", "w") as out, open(DRY_OUT / "err.log", "w") as err:
+        return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dry-run-cells"],
+                                stdout=out, stderr=err)
+
+
+def finish_dry_run(proc):
+    """10d's output, relayed, and its records (``dry_run_cells``'s)."""
+    t0 = time.perf_counter()
+    code = proc.wait(timeout=900)
+    lines = (DRY_OUT / "out.log").read_text().strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if code != 0:
+        err = (DRY_OUT / "err.log").read_text().strip().splitlines()
+        fail(f"10d: {err[-1] if err else f'exit {code}'}")
+    log(f"[10d] waited {time.perf_counter() - t0:.1f} s for its process")
+    return json.loads(lines[-1])
+
+
+def sharded_phase(card, phase4, dry):
+    """Phase 10, in order; ``dry`` is 10d's process (``start_dry_run``)."""
     import torch
     check_lse()
     merge = check_merge(card)
     torch.cuda.empty_cache()
     serve_mesh = sharded_serve(card, phase4)
-    return {"merge_ms": merge, "serve": serve_mesh, "dry_run": dry_run_cells()}
+    return {"merge_ms": merge, "serve": serve_mesh, "dry_run": finish_dry_run(dry)}
 
 
 # ----------------------------------------------------------------- phase 11
@@ -3066,11 +3166,12 @@ def main() -> None:
     took("6")
     stepper = simulator_path(card)
     took("7")
+    dry = start_dry_run()
     train, train_launches = train_phase(card)
     took("8")
     train["sharded"] = {"full_width": sharded_full_width(card, train["full_width"])}
     took("9")
-    sharded = sharded_phase(card, phase4)
+    sharded = sharded_phase(card, phase4, dry)
     took("10")
     runner = runner_phase(card)
     took("11")
@@ -3097,4 +3198,10 @@ if __name__ == "__main__":
     os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "inductor"))
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
-    main()
+    if sys.argv[1:2] == ["--profile-k2"]:     # phase 6's profiling process
+        profile_k2_main(json.loads(sys.argv[2]))
+    elif sys.argv[1:2] == ["--dry-run-cells"]:    # 10d's process
+        sys.path.insert(0, str(ROOT / "src"))
+        print(json.dumps(dry_run_cells()), flush=True)
+    else:
+        main()

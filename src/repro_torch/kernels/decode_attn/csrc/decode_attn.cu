@@ -17,7 +17,7 @@
 // length of 0 reproduces the TPU kernel's all-masked row: every score is
 // -1e30, so the softmax is uniform over the S slots.
 //
-// Two kernels:
+// Three kernels:
 //  * bf16 q and cache at D = 64, 128 and 256, the serving path:
 //    decode_ring_kernel, one launch a call. The grid is one wave
 //    (kernel.split_plan: one block an SM). In a block, one producer warp
@@ -34,11 +34,9 @@
 //    for PV each lane takes 8 columns of V, so a row spans D / 8 lanes and
 //    the warp's 256 / D lane groups each take a key of the pass at once,
 //    each group keeping its own partial accumulator until the block merge
-//    sums them. It serves G = 1, 2, 4 and 8 query rows a KV head at every
-//    head dim, 3, 6 and 7 at D 64 and 128 (granite-moe, nemotron, arctic),
-//    and 16 at D 256; at G 16 (recurrentgemma's MQA) a warp holds 8 of the
-//    rows and owns 8 keys, walked 4 at a time (kRingRows), so its registers
-//    stay those of G 8. The softcap's tanh is 1 - 2/(e^{2y}+1): one ex2 and
+//    sums them. It serves G = 1, 2 and 4 query rows a KV head at every
+//    head dim, 8 at D 64 and 128, and 3, 6 and 7 at D 64 and 128
+//    (granite-moe, nemotron, arctic). The softcap's tanh is 1 - 2/(e^{2y}+1): one ex2 and
 //    one rcp, with scale*log2e folded in, and the softmax runs in base 2.
 //    The block merges its warps in shared memory; the last block of a (b,
 //    kv head) to finish (an atomic ticket after a __threadfence) merges the
@@ -46,7 +44,12 @@
 //    is reset by that block, so the counters are zero between launches (one
 //    set a stream: kernel._scratch). The host's work a launch is kept to the
 //    launch itself: the tensor maps are encoded once a cache tensor and head
-//    dim, and the shared-memory limit raised once a device.
+//    dim, and the shared-memory limit raised once a device. At D 256 with
+//    G 8 and 16 (paligemma's and recurrentgemma's query heads on one KV
+//    head) the same producer and ring feed decode_ring_mma_kernel instead,
+//    whose consumer warps run S = Q K^T and O += P V on tensor cores
+//    (mma.sync) and whose splits merge by thread-block cluster in
+//    distributed shared memory (described at the kernel).
 //  * f32 queries (with an f32 or a bf16 cache) at every head dim, and bf16
 //    at D = 32 (the reduced models): decode_split_kernel, where a warp loads
 //    4 keys of K and V into registers per step, and a second launch,
@@ -69,12 +72,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include <mutex>
 #include <type_traits>
 
 #include "hopper.cuh"   // mbarriers, TMA, ex2/rcp, the tensor-map encoder
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.693147180559945f;
@@ -310,19 +317,6 @@ struct RingShape {
   static_assert(kTileKeys % (kConsumers * kPassKeys) == 0, "a stage's keys split evenly");
 };
 
-// Query rows a consumer warp holds: all G up to 8. The 288-thread block is
-// allocated registers as 12 warps, which caps a thread at 168, and G 8
-// takes 164-167 of them (phase 1's -Xptxas -v), so at G 16 (recurrentgemma's
-// MQA, 16 query heads on one KV head) the warps split the rows instead:
-// warp w holds R = 8 rows, (w % H) * R .. + R of the H = G / R groups, and
-// walks 4 H keys of each stage in H passes of 4 keys out of shared memory,
-// reading each K and V row in H warps instead of one; a lane holds what it
-// holds at G 8. The passes are not unrolled: unrolled, ptxas spills 1.3 KB
-// a thread (4 rows a warp unrolled: 0.3-0.4 KB), which cost 0.0506 against
-// 0.0335 ms at recurrentgemma's decode step on an H100 (PERF.md).
-template <int G>
-constexpr int kRingRows = G > 8 ? 8 : G;
-
 template <int D, int G>
 constexpr size_t ring_smem_bytes() {
   // the ring, q as f32, 2 * kStages mbarriers, the last-block flag
@@ -341,6 +335,138 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 __device__ __forceinline__ void unpack8(const uint4 t, float (&f)[8]) {
   f[0] = bf16_lo(t.x); f[1] = bf16_hi(t.x); f[2] = bf16_lo(t.y); f[3] = bf16_hi(t.y);
   f[4] = bf16_lo(t.z); f[5] = bf16_hi(t.z); f[6] = bf16_lo(t.w); f[7] = bf16_hi(t.w);
+}
+
+// One merged element (query row qrow + g, column d) of a block's work:
+// with one part the output (and, with an lse buffer, each row's lse at
+// d 0), else part `part` of `nparts` partials (A, and M and L at d 0).
+template <int D>
+__device__ __forceinline__ void put_part(int g, int d, float M, float L, float A,
+                                         bool all_masked, size_t qrow, int part, int nparts,
+                                         __nv_bfloat16* __restrict__ out,
+                                         float* __restrict__ lse, float* __restrict__ part_acc,
+                                         float* __restrict__ part_ml) {
+  if (nparts == 1) {
+    const float o = A / fmaxf(L, 1e-30f);
+    if (lse == nullptr) {
+      out[(qrow + g) * D + d] = __float2bfloat16_rn(o);
+    } else {
+      reinterpret_cast<float*>(out)[(qrow + g) * D + d] = o;
+      // M is in base 2 (log2e times the score); an all-masked row's is the
+      // fill itself, which stays -1e30 as the f32 path's does
+      if (d == 0) lse[qrow + g] = all_masked ? kNegInf : (M + log2f(L)) * kLn2;
+    }
+    return;
+  }
+  const size_t row = (qrow + g) * nparts + part;
+  part_acc[row * D + d] = A;
+  if (d == 0) {
+    part_ml[row * 2] = M;
+    part_ml[row * 2 + 1] = L;
+  }
+}
+
+// After each of the (b, kv head)'s `nparts` blocks wrote its partial, the
+// last of them to finish (an atomic ticket after a __threadfence) merges
+// the partials and writes the output. The ticket is reset by that block, so
+// the counters are zero between launches.
+template <int D, int G>
+__device__ __forceinline__ void merge_parts(unsigned char* smem, int* last_flag, bool all_masked,
+                                            size_t qrow, int nparts,
+                                            __nv_bfloat16* __restrict__ out,
+                                            float* __restrict__ lse,
+                                            float* __restrict__ part_acc,
+                                            float* __restrict__ part_ml, int* ticket) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *last_flag = atomicAdd(ticket, 1) == nparts - 1;
+  __syncthreads();
+  if (!*last_flag) return;
+  __threadfence();
+  if (threadIdx.x == 0) *ticket = 0;   // ready for the next launch
+  // Each query row's parts are weighted once, a warp a row: 2^(m_s - M) / L
+  // into shared memory. Then each thread sums 4 columns' partial
+  // accumulators over the parts with those weights, so the merge reads each
+  // partial once (at G 16 and 32 parts, 512 KB; 16 loads in flight a thread
+  // instead of 4 were slower on an H100, PERF.md).
+  float* s_w = reinterpret_cast<float*>(smem);   // [G][nparts]
+  for (int g = warp; g < G; g += blockDim.x / 32) {
+    const float* ml = part_ml + (qrow + g) * nparts * 2;
+    float M = kNegInf;
+    for (int s = lane; s < nparts; s += 32) M = fmaxf(M, __ldcg(ml + 2 * s));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
+    float L = 0.f;
+    for (int s = lane; s < nparts; s += 32) {
+      const float c = ex2(__ldcg(ml + 2 * s) - M);
+      s_w[g * nparts + s] = c;
+      L += __ldcg(ml + 2 * s + 1) * c;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) L += __shfl_xor_sync(0xffffffffu, L, o);
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+    if (lse != nullptr && lane == 0) lse[qrow + g] = all_masked ? kNegInf : (M + log2f(L)) * kLn2;
+    for (int s = lane; s < nparts; s += 32) s_w[g * nparts + s] *= inv;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < G * D / 4; idx += blockDim.x) {
+    const int g = idx / (D / 4), c4 = idx % (D / 4);
+    const float4* acc4 = reinterpret_cast<const float4*>(part_acc + (qrow + g) * nparts * D) + c4;
+    const float* w = s_w + g * nparts;
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int s = 0; s < nparts; ++s) {
+      const float4 a = __ldcg(acc4 + s * (D / 4));
+      A.x = fmaf(a.x, w[s], A.x);
+      A.y = fmaf(a.y, w[s], A.y);
+      A.z = fmaf(a.z, w[s], A.z);
+      A.w = fmaf(a.w, w[s], A.w);
+    }
+    if (lse != nullptr) {
+      reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + (qrow + g) * D)[c4] = A;
+      continue;
+    }
+    __nv_bfloat16* o = out + (qrow + g) * D + 4 * c4;
+    o[0] = __float2bfloat16_rn(A.x);
+    o[1] = __float2bfloat16_rn(A.y);
+    o[2] = __float2bfloat16_rn(A.z);
+    o[3] = __float2bfloat16_rn(A.w);
+  }
+}
+
+// The block's end, after its slots (the consumer warps of
+// decode_ring_kernel) wrote their m, l and unnormalised accumulators of
+// every query row to shared memory as [kSlots][G][D], [kSlots][G] and
+// [kSlots][G]: the slots merged into the output (one split) or this
+// split's partial, and the splits' merge.
+template <int D, int G, int kSlots>
+__device__ __forceinline__ void ring_epilogue(unsigned char* smem, int* last_flag, bool all_masked,
+                                              size_t qrow, int split, int nsplit,
+                                              __nv_bfloat16* __restrict__ out,
+                                              float* __restrict__ lse,
+                                              float* __restrict__ part_acc,
+                                              float* __restrict__ part_ml, int* ticket) {
+  const float* s_acc = reinterpret_cast<const float*>(smem);
+  const float* s_m = s_acc + kSlots * G * D;
+  const float* s_l = s_m + kSlots * G;
+  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
+    const int g = idx / D, d = idx % D;
+    float M = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kSlots; ++w) M = fmaxf(M, s_m[w * G + g]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSlots; ++w) {
+      const float c = ex2(s_m[w * G + g] - M);
+      L += s_l[w * G + g] * c;
+      A += s_acc[(w * G + g) * D + d] * c;
+    }
+    put_part<D>(g, d, M, L, A, all_masked, qrow, split, nsplit, out, lse, part_acc, part_ml);
+  }
+  if (nsplit > 1)
+    merge_parts<D, G>(smem, last_flag, all_masked, qrow, nsplit, out, lse, part_acc, part_ml,
+                      ticket);
 }
 
 // One block per (split, kv head, batch row); warp kConsumers is the
@@ -392,15 +518,18 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
     asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 32) : "memory");
   }
 
-  constexpr int R = kRingRows<G>, H = G / R;
+  // Every consumer warp holds all G query rows: the 288-thread block is
+  // allocated registers as 12 warps, which caps a thread at 168, and G 8
+  // takes 164-167 of them (phase 1's -Xptxas -v); G 8 and 16 at D 256 take
+  // decode_ring_mma_kernel instead.
+  constexpr int R = G;
   // keys of a stage a consumer warp walks, in passes of kPassKeys; with at
   // most 4 rows a warp the passes are unrolled (granite-moe's G 3 at D 64:
   // 0.0262 -> 0.0208 ms on an H100), with more they are not (G 6-8 at D 128
-  // and G 16 lose 9-39%, PERF.md)
-  constexpr int kWarpKeys = kTileKeys * H / kConsumers;
+  // lost 9-39% unrolled, PERF.md)
+  constexpr int kWarpKeys = kTileKeys / kConsumers;
   constexpr int kPassUnroll = R <= 4 ? kWarpKeys / kPassKeys : 1;
-  static_assert(G % R == 0 && kConsumers % H == 0 && kWarpKeys % kPassKeys == 0,
-                "rows and keys must split evenly over the warps");
+  static_assert(G <= 8 && kWarpKeys % kPassKeys == 0, "keys must split evenly over the warps");
   float m[R], l[R], acc[R][8];
 #pragma unroll
   for (int g = 0; g < R; ++g) {
@@ -440,11 +569,11 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
       }
     }
   } else {
-    // this warp's rows (half * R .. + R) and keys (key0 .. + kWarpKeys of a
-    // stage); for PV, this lane's columns (8 col .. + 8) and lane group
-    const int half = warp % H, key0 = kWarpKeys * (warp / H), sub = lane & 7;
+    // this warp's keys (key0 .. + kWarpKeys of a stage); for PV, this
+    // lane's columns (8 col .. + 8) and lane group
+    const int key0 = kWarpKeys * warp, sub = lane & 7;
     const int col = lane % (D / 8), group = lane / (D / 8);
-    const float4* q4 = reinterpret_cast<const float4*>(sq + half * R * D);
+    const float4* q4 = reinterpret_cast<const float4*>(sq);
     for (int i = 0; i < ntiles; ++i) {
       const int st = i % kStages;
       const int n = min(kTileKeys, end - (start + i * kTileKeys));
@@ -554,138 +683,383 @@ decode_ring_kernel(const __grid_constant__ CUtensorMap tm_k,
     }
   }
   __syncthreads();
-  // query row (qrow + g) was held by the warps w = half, half + H, ... as
-  // their row g % R (half = g / R)
+  ring_epilogue<D, G, kConsumers>(ring_smem, last_flag, all_masked, qrow, split, nsplit, out, lse,
+                                  part_acc, part_ml, tickets + (size_t)b * Hkv + kvh);
+}
+
+// ------------------------------------------- bf16 at D 256 with G 8 and 16
+// The G query rows of one KV head are the M = 16 tile of mma.sync.m16n8k16
+// (G 8 pads it with zero rows, whose scores are never written): S = Q K^T
+// and O += P V run on tensor cores, where decode_ring_kernel's consumer
+// warps spend 16 x 64 x 256 FMAs a stage's key split on CUDA cores
+// (PERF.md). The producer warp, the 4-stage ring and its mbarriers
+// are decode_ring_kernel's; a stage holds 32 keys of K, then of V, each row
+// as four 64-column TMA boxes swizzled by 128 bytes, so that ldmatrix's 8
+// rows of one 16-byte column chunk fall in 8 different bank groups (rows
+// of 512 bytes, unswizzled, would all fall in one). A split is whole tiles
+// (split_range_tiles), so only a row's last tile is partial: its box reads
+// up to 31 slots past the valid ones (zero past S), whose scores are masked
+// and whose V rows the consumer zeroes before P V.
+//
+// Consumer warp w takes the keys 8 (w % 4) .. + 8 of each stage (its key
+// group) and the output columns 128 (w / 4) .. + 128 (its column half):
+// the two warps of a key group compute the same scores, 16 m16n8k16 steps
+// over D with Q's A fragments in registers for the whole call, K's B
+// fragments by ldmatrix; the online softmax runs in f32 and base 2 on the
+// accumulator fragment (a lane holds rows lane / 4 and lane / 4 + 8, two
+// keys each); P, as two bf16 terms in registers, is the A fragment of 2 x 16
+// m16n8k8 steps against V's B fragments by ldmatrix.trans. The key groups
+// merge in shared memory, then the (b, kv head)'s splits, one thread-block
+// cluster, in distributed shared memory (no partials through global memory,
+// no last-block merge), and write the output.
+constexpr int kMmaKeyGroups = 4;             // a stage's keys over the consumer warps
+constexpr int kMmaGroupKeys = 8;             // keys of a stage a key group takes
+constexpr int kMmaBoxCols = 64;              // columns of one swizzled TMA box (128 bytes)
+constexpr int kMmaMaxSplits = 16;            // a cluster's blocks, past the portable 8
+
+template <int D, int G>
+constexpr bool kMmaRing = D == 256 && (G == 8 || G == 16);
+
+template <int D>
+constexpr size_t ring_mma_smem_bytes() {
+  // the ring (holding the key groups' merge at the end), 2 * kStages
+  // mbarriers
+  return (size_t)kRingB + 16 * kStages;
+}
+
+// The keys [start, end) of split `split`: an equal share of the row's
+// tiles of `tile` keys (the last one partial), so every tile but a row's
+// last is whole.
+__device__ __forceinline__ void split_range_tiles(int length, int S, int split, int nsplit,
+                                                  int tile, int& start, int& end,
+                                                  bool& all_masked) {
+  all_masked = length <= 0;
+  const int n = all_masked ? S : min(length, S);
+  const int tiles = (n + tile - 1) / tile;
+  start = min(n, (int)((int64_t)split * tiles / nsplit) * tile);
+  end = min(n, (int)((int64_t)(split + 1) * tiles / nsplit) * tile);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                          uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_1688(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Byte offset of (row, 16-byte chunk `chunk` of column block `cb`) in a
+// tile of `tile` rows stored as D / 64 swizzled boxes of 128-byte rows.
+__device__ __forceinline__ uint32_t swizzled(int tile, int cb, int row, int chunk) {
+  return (uint32_t)(cb * tile * 128 + row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+template <int D, int G, bool CAP>
+__global__ void __launch_bounds__(kRingThreads, 1)
+decode_ring_mma_kernel(const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __nv_bfloat16* __restrict__ q, const int* __restrict__ lengths,
+                       __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S,
+                       int Hkv, float mul, float cap2) {
+  constexpr int kRowB = RingShape<D>::kRowB, T = RingShape<D>::kTileKeys;
+  constexpr int kCols = D / (kConsumers / kMmaKeyGroups);    // a column half: 128
+  static_assert(kMmaRing<D, G>, "the tensor-core consumer's shapes");
+  static_assert(T == kMmaKeyGroups * kMmaGroupKeys, "a stage's keys split over the key groups");
+  static_assert(D % kMmaBoxCols == 0 && kCols % 32 == 0, "whole boxes, whole ldmatrix.x4");
+  extern __shared__ __align__(1024) unsigned char mma_smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(mma_smem + kRingB);
+  const uint32_t ring = smem_u32(mma_smem), full0 = smem_u32(bars), empty0 = full0 + 8 * kStages;
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, nsplit = gridDim.x;
+  const int Hq = Hkv * G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int start, end;
+  bool all_masked;
+  split_range_tiles(lengths[b], S, split, nsplit, T, start, end, all_masked);
+  const int ntiles = end > start ? (end - start + T - 1) / T : 0;
+  const size_t qrow = (size_t)b * Hq + (size_t)kvh * G;   // first of the G query rows
+
+  if (threadIdx.x == 0) {
+    if (ring & 1023) __trap();   // the 128-byte swizzle repeats every 1024 bytes
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // this lane's rows of the accumulator fragments (gr, gr + 8) and keys
+  // (2 tq, 2 tq + 1 of its key group)
+  const int gr = lane >> 2, tq = lane & 3;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[kCols / 8][4];
+#pragma unroll
+  for (int j = 0; j < kCols / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  const int kg = warp % kMmaKeyGroups, ch = warp / kMmaKeyGroups;
+
+  if (warp == kConsumers) {
+    // producer: every tile, partial or whole, is D / 64 boxes of K and of
+    // V; the box of a row's partial last tile reads past its valid slots
+    for (int i = 0; i < ntiles; ++i) {
+      const int st = i % kStages, t0 = start + i * T;
+      mbar_wait(empty0 + 8 * st, ((i / kStages) & 1) ^ 1);
+      if (lane == 0) {
+        const uint32_t dst = ring + st * kStageB, bar = full0 + 8 * st;
+        mbar_expect_tx(bar, kStageB);
+#pragma unroll
+        for (int cb = 0; cb < D / kMmaBoxCols; ++cb) {
+          tma_load(dst + cb * T * 128, &tm_k, bar, cb * kMmaBoxCols, kvh, t0, b);
+          tma_load(dst + T * kRowB + cb * T * 128, &tm_v, bar, cb * kMmaBoxCols, kvh, t0, b);
+        }
+      }
+      __syncwarp();
+    }
+  } else {
+    // Q's A fragments: k-step kk covers columns 16 kk .. + 16; rows past G
+    // are zero
+    uint32_t qa[D / 16][4];
+    const __nv_bfloat16* q0 = q + qrow * D;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = 16 * kk + 2 * tq;
+      qa[kk][0] = *reinterpret_cast<const uint32_t*>(q0 + gr * D + c);
+      qa[kk][2] = *reinterpret_cast<const uint32_t*>(q0 + gr * D + c + 8);
+      qa[kk][1] = gr + 8 < G ? *reinterpret_cast<const uint32_t*>(q0 + (gr + 8) * D + c) : 0u;
+      qa[kk][3] = gr + 8 < G ? *reinterpret_cast<const uint32_t*>(q0 + (gr + 8) * D + c + 8) : 0u;
+    }
+    const int key0 = kMmaGroupKeys * kg;               // this key group's keys of a tile
+    const int lrow = key0 + (lane & 7), lmat = lane >> 3;   // ldmatrix: this lane's row, matrix
+    for (int i = 0; i < ntiles; ++i) {
+      const int st = i % kStages;
+      const int n = min(T, end - (start + i * T));
+      mbar_wait(full0 + 8 * st, (i / kStages) & 1);
+      const uint32_t kt = ring + st * kStageB, vt = kt + T * kRowB;
+      if (key0 < n) {
+        // S = Q K^T over this key group's 8 keys: each ldmatrix.x4 gives
+        // the B fragments of two k-steps, summed in two chains
+        float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < D / 32; ++kk) {
+          const int c = 32 * kk + 8 * lmat;
+          uint32_t b0, b1, b2, b3;
+          ldsm_x4(kt + swizzled(T, c / kMmaBoxCols, lrow, (c % kMmaBoxCols) / 8), b0, b1, b2, b3);
+          mma_16816(s0, qa[2 * kk], b0, b1);
+          mma_16816(s1, qa[2 * kk + 1], b2, b3);
+        }
+        // the online softmax: x[j] is row gr (j < 2) or gr + 8, key 2 tq + (j & 1)
+        float x[4], p[4];
+        const int kbase = key0 + 2 * tq;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float v = s0[j] + s1[j];
+          v = CAP ? fmaf(-2.f * cap2, rcp(ex2(v * mul) + 1.f), cap2) : v * mul;
+          if (all_masked) v = kNegInf;
+          x[j] = kbase + (j & 1) < n ? v : kNegInf;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mx = fmaxf(x[2 * h], x[2 * h + 1]);
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float mnew = fmaxf(m[h], mx);
+          const float corr = ex2(m[h] - mnew);
+          p[2 * h] = kbase < n ? ex2(x[2 * h] - mnew) : 0.f;
+          p[2 * h + 1] = kbase + 1 < n ? ex2(x[2 * h + 1] - mnew) : 0.f;
+          l[h] = l[h] * corr + p[2 * h] + p[2 * h + 1];   // this lane's keys; the quad sums at the end
+          m[h] = mnew;
+#pragma unroll
+          for (int j = 0; j < kCols / 8; ++j) {
+            o[j][2 * h] *= corr;
+            o[j][2 * h + 1] *= corr;
+          }
+        }
+        // a row's partial last tile: this warp's V rows past n (slots past
+        // the valid ones, or zeros past S) zeroed in its own columns, so
+        // that P = 0 meets no NaN there
+        if (key0 + kMmaGroupKeys > n) {
+          for (int e = lane; e < kMmaGroupKeys * (kCols / 8); e += 32) {
+            const int row = key0 + e / (kCols / 8), c = ch * kCols + 8 * (e % (kCols / 8));
+            if (row >= n) {
+              uint4* dst = reinterpret_cast<uint4*>(
+                  mma_smem + st * kStageB + T * kRowB +
+                  swizzled(T, c / kMmaBoxCols, row, (c % kMmaBoxCols) / 8));
+              *dst = make_uint4(0u, 0u, 0u, 0u);
+            }
+          }
+          // these generic writes come before the stage's next TMA write
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          __syncwarp();
+        }
+        // O += P V: P's accumulator fragment is m16n8k8's A fragment, as
+        // two bf16 terms (its rounding and the remainder, 2^-18 P apart from
+        // P), since P rounded once moves the output by up to 2^-9 (|P| @
+        // |V|), past TOL["bfloat16"]'s 2^-7 |out| where |out| is much
+        // smaller than |P| @ |V| (PERF.md)
+        const uint32_t a0 = pack_bf16(p[0], p[1]), a1 = pack_bf16(p[2], p[3]);
+        const uint32_t e0 = pack_bf16(p[0] - bf16_lo(a0), p[1] - bf16_hi(a0));
+        const uint32_t e1 = pack_bf16(p[2] - bf16_lo(a1), p[3] - bf16_hi(a1));
+#pragma unroll
+        for (int jj = 0; jj < kCols / 32; ++jj) {
+          const int c = ch * kCols + 32 * jj + 8 * lmat;
+          uint32_t v[4];
+          ldsm_x4_t(vt + swizzled(T, c / kMmaBoxCols, lrow, (c % kMmaBoxCols) / 8), v[0], v[1],
+                    v[2], v[3]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            mma_1688(o[4 * jj + j], a0, a1, v[j]);
+            mma_1688(o[4 * jj + j], e0, e1, v[j]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * st);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    }
+  }
+
+  // Every copy has landed, so the ring is free: the key groups' slots
+  // [kMmaKeyGroups][G][D] there, each warp writing its column half.
+  __syncthreads();
+  float* s_acc = reinterpret_cast<float*>(mma_smem);
+  float* s_m = s_acc + kMmaKeyGroups * G * D;
+  float* s_l = s_m + kMmaKeyGroups * G;
+  if (warp < kConsumers) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = gr + 8 * h;
+      if (row >= G) continue;
+#pragma unroll
+      for (int j = 0; j < kCols / 8; ++j)
+        *reinterpret_cast<float2*>(s_acc + (kg * G + row) * D + ch * kCols + 8 * j + 2 * tq) =
+            make_float2(o[j][2 * h], o[j][2 * h + 1]);
+      if (ch == 0 && tq == 0) {
+        s_m[kg * G + row] = m[h];
+        s_l[kg * G + row] = l[h];
+      }
+    }
+  }
+  __syncthreads();
+  // The key groups merged into this split's (M, L, A) in shared memory, for
+  // the cluster: [G][D], then M and L [G] each.
+  float* c_acc = s_l + kMmaKeyGroups * G;
+  float* c_m = c_acc + G * D;
+  float* c_l = c_m + G;
   for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
-    const int g = idx / D, d = idx % D, w0 = g / R, r = g % R;
+    const int g = idx / D, d = idx % D;
     float M = kNegInf;
 #pragma unroll
-    for (int w = w0; w < kConsumers; w += H) M = fmaxf(M, s_m[w * R + r]);
+    for (int w = 0; w < kMmaKeyGroups; ++w) M = fmaxf(M, s_m[w * G + g]);
     float L = 0.f, A = 0.f;
 #pragma unroll
-    for (int w = w0; w < kConsumers; w += H) {
-      const float c = ex2(s_m[w * R + r] - M);
-      L += s_l[w * R + r] * c;
-      A += s_acc[(w * R + r) * D + d] * c;
+    for (int w = 0; w < kMmaKeyGroups; ++w) {
+      const float c = ex2(s_m[w * G + g] - M);
+      L += s_l[w * G + g] * c;
+      A += s_acc[(w * G + g) * D + d] * c;
     }
-    if (nsplit == 1) {
-      const float o = A / fmaxf(L, 1e-30f);
-      if (lse == nullptr) {
-        out[(qrow + g) * D + d] = __float2bfloat16_rn(o);
-      } else {
-        reinterpret_cast<float*>(out)[(qrow + g) * D + d] = o;
-        // M is in base 2 (log2e times the score); an all-masked row's is
-        // the fill itself, which stays -1e30 as the f32 path's does
-        if (d == 0) lse[qrow + g] = all_masked ? kNegInf : (M + log2f(L)) * kLn2;
-      }
-    } else {
-      const size_t row = (qrow + g) * nsplit + split;
-      part_acc[row * D + d] = A;
-      if (d == 0) {
-        part_ml[row * 2] = M;
-        part_ml[row * 2 + 1] = L;
-      }
+    c_acc[idx] = A;
+    if (d == 0) {
+      c_m[g] = M;
+      c_l[g] = L;
     }
   }
-  if (nsplit == 1) return;
-
-  // The last split of this (b, kv head) to finish merges all of them.
-  __threadfence();
-  __syncthreads();
-  int* ticket = tickets + (size_t)b * Hkv + kvh;
-  if (threadIdx.x == 0) *last_flag = atomicAdd(ticket, 1) == nsplit - 1;
-  __syncthreads();
-  if (!*last_flag) return;
-  __threadfence();
-  if (threadIdx.x == 0) *ticket = 0;   // ready for the next launch
-  // Each query row's splits are weighted once, a warp a row: 2^(m_s - M) / L
-  // into the ring, which is free again. Then each thread sums 4 columns'
-  // partial accumulators over the splits with those weights, so the
-  // merge reads each partial once (at G 16 and 32 splits, 512 KB).
-  float* s_w = reinterpret_cast<float*>(ring_smem);   // [G][nsplit]
-  for (int g = warp; g < G; g += kRingThreads / 32) {
-    const float* ml = part_ml + (qrow + g) * nsplit * 2;
+  // The (b, kv head)'s splits, one cluster, merge in distributed shared
+  // memory, block `rank` taking every nsplit-th element, into the output.
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  cluster.sync();
+  for (int idx = rank * blockDim.x + threadIdx.x; idx < G * D; idx += nsplit * blockDim.x) {
+    const int g = idx / D, d = idx % D;
     float M = kNegInf;
-    for (int s = lane; s < nsplit; s += 32) M = fmaxf(M, __ldcg(ml + 2 * s));
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
-    float L = 0.f;
-    for (int s = lane; s < nsplit; s += 32) {
-      const float c = ex2(__ldcg(ml + 2 * s) - M);
-      s_w[g * nsplit + s] = c;
-      L += __ldcg(ml + 2 * s + 1) * c;
+    for (int r = 0; r < nsplit; ++r) M = fmaxf(M, *cluster.map_shared_rank(c_m + g, r));
+    float L = 0.f, A = 0.f;
+    for (int r = 0; r < nsplit; ++r) {
+      const float c = ex2(*cluster.map_shared_rank(c_m + g, r) - M);
+      L += *cluster.map_shared_rank(c_l + g, r) * c;
+      A += *cluster.map_shared_rank(c_acc + idx, r) * c;
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) L += __shfl_xor_sync(0xffffffffu, L, o);
-    const float inv = 1.f / fmaxf(L, 1e-30f);
-    if (lse != nullptr && lane == 0) lse[qrow + g] = all_masked ? kNegInf : (M + log2f(L)) * kLn2;
-    for (int s = lane; s < nsplit; s += 32) s_w[g * nsplit + s] *= inv;
+    put_part<D>(g, d, M, L, A, all_masked, qrow, 0, 1, out, lse, nullptr, nullptr);
   }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < G * D / 4; idx += blockDim.x) {
-    const int g = idx / (D / 4), c4 = idx % (D / 4);
-    const float4* acc4 = reinterpret_cast<const float4*>(part_acc + (qrow + g) * nsplit * D) + c4;
-    const float* w = s_w + g * nsplit;
-    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-    for (int s = 0; s < nsplit; ++s) {
-      const float4 a = __ldcg(acc4 + s * (D / 4));
-      A.x = fmaf(a.x, w[s], A.x);
-      A.y = fmaf(a.y, w[s], A.y);
-      A.z = fmaf(a.z, w[s], A.z);
-      A.w = fmaf(a.w, w[s], A.w);
-    }
-    if (lse != nullptr) {
-      reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + (qrow + g) * D)[c4] = A;
-      continue;
-    }
-    __nv_bfloat16* o = out + (qrow + g) * D + 4 * c4;
-    o[0] = __float2bfloat16_rn(A.x);
-    o[1] = __float2bfloat16_rn(A.y);
-    o[2] = __float2bfloat16_rn(A.z);
-    o[3] = __float2bfloat16_rn(A.w);
-  }
+  cluster.sync();   // no block leaves while another reads its shared memory
 }
 
 // A 4-D map over a (B, S, Hkv, D) bf16 cache, innermost first, with a box
-// of one head's D columns and a stage's 8192 / D rows (RingShape), unswizzled
-// (row r of the box at r * 2 D bytes).
+// of a stage's 8192 / D rows (RingShape): for decode_ring_kernel
+// (swizzled = false) of one head's D columns, unswizzled (row r of the box
+// at r * 2 D bytes); for decode_ring_mma_kernel of 64 columns, swizzled by
+// 128 bytes (row r at r * 128 bytes, its 16-byte chunk c at c ^ (r % 8)).
 cudaError_t cache_map(CUtensorMap* map, EncodeTiledFn encode, const void* ptr, int B, int S,
-                      int Hkv, int D) {
+                      int Hkv, int D, bool swizzled) {
   const cuuint64_t row = 2 * (cuuint64_t)D;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {row, Hkv * row, S * Hkv * row};
-  const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)(kStageB / (2 * row)), 1};
+  const cuuint32_t box[4] = {(cuuint32_t)(swizzled ? kMmaBoxCols : D), 1,
+                             (cuuint32_t)(kStageB / (2 * row)), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                            swizzled ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // The maps of the caches launched on so far, encoded once each: the serving
 // path passes the same cache tensors at every step, and a map depends only
-// on (pointer, B, S, Hkv, D), the head dim setting its box too. 256
-// entries, direct-mapped by the pointer; a collision, or a pointer reused at
-// another shape or head dim, encodes again. ctypes drops the GIL, hence the
-// lock.
+// on (pointer, B, S, Hkv, D, swizzled), the head dim and the layout setting
+// its box too. 256 entries, direct-mapped by the pointer and the layout; a
+// collision, or a pointer reused at another shape, head dim or layout,
+// encodes again. ctypes drops the GIL, hence the lock.
 struct MapEntry {
   CUtensorMap map;
   const void* ptr;
   int B, S, Hkv, D;
+  bool swizzled;
 };
 
-cudaError_t cached_cache_map(CUtensorMap* map, const void* ptr, int B, int S, int Hkv, int D) {
+cudaError_t cached_cache_map(CUtensorMap* map, const void* ptr, int B, int S, int Hkv, int D,
+                             bool swizzled) {
   static std::mutex mu;
   static MapEntry table[256];
-  const uint64_t h = (reinterpret_cast<uintptr_t>(ptr) * 0x9E3779B97F4A7C15ull) >> 56;
+  const uint64_t h = ((reinterpret_cast<uintptr_t>(ptr) + swizzled) * 0x9E3779B97F4A7C15ull) >> 56;
   std::lock_guard<std::mutex> lock(mu);
   MapEntry& e = table[h];
-  if (e.ptr != ptr || e.B != B || e.S != S || e.Hkv != Hkv || e.D != D) {
+  if (e.ptr != ptr || e.B != B || e.S != S || e.Hkv != Hkv || e.D != D ||
+      e.swizzled != swizzled) {
     EncodeTiledFn encode;
     cudaError_t err = encode_tiled(&encode);
-    if (err == cudaSuccess) err = cache_map(&e.map, encode, ptr, B, S, Hkv, D);
+    if (err == cudaSuccess) err = cache_map(&e.map, encode, ptr, B, S, Hkv, D, swizzled);
     if (err != cudaSuccess) {
       e.ptr = nullptr;
       return err;
@@ -695,29 +1069,72 @@ cudaError_t cached_cache_map(CUtensorMap* map, const void* ptr, int B, int S, in
     e.S = S;
     e.Hkv = Hkv;
     e.D = D;
+    e.swizzled = swizzled;
   }
   *map = e.map;
   return cudaSuccess;
+}
+
+// cudaFuncAttributeNonPortableClusterSizeAllowed for `kernel`, once a
+// device (as allow_smem): clusters of more than the portable 8 blocks.
+template <typename Kernel>
+cudaError_t allow_wide_clusters(Kernel kernel, std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
 }
 
 template <int D, int G, bool CAP>
 cudaError_t launch_ring_cap(const void* q, const void* k, const void* v, const int* lengths,
                             void* out, float* lse, float* pa, float* pm, int* tickets, int B, int S,
                             int Hkv, int nsplit, float mul, float cap2, cudaStream_t st) {
-  constexpr size_t smem = ring_smem_bytes<D, G>();
+  constexpr bool kMma = kMmaRing<D, G>;
+  constexpr size_t smem = kMma ? ring_mma_smem_bytes<D>() : ring_smem_bytes<D, G>();
   static_assert(smem <= 232448, "the ring, q and the barriers fit a block's 227 KB");
   static std::atomic<uint64_t> smem_set{0};
   CUtensorMap tk, tv;
   cudaError_t err;
-  if ((err = cached_cache_map(&tk, k, B, S, Hkv, D)) != cudaSuccess) return err;
-  if ((err = cached_cache_map(&tv, v, B, S, Hkv, D)) != cudaSuccess) return err;
-  if ((err = allow_smem(decode_ring_kernel<D, G, CAP>, (int)smem, smem_set)) != cudaSuccess)
-    return err;
-  decode_ring_kernel<D, G, CAP><<<dim3(nsplit, Hkv, B), kRingThreads, smem, st>>>(
-      tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out), lse, pa, pm,
-      tickets, S, Hkv, mul, cap2);
-  return cudaGetLastError();
+  if ((err = cached_cache_map(&tk, k, B, S, Hkv, D, kMma)) != cudaSuccess) return err;
+  if ((err = cached_cache_map(&tv, v, B, S, Hkv, D, kMma)) != cudaSuccess) return err;
+  if constexpr (kMma) {
+    if ((err = allow_smem(decode_ring_mma_kernel<D, G, CAP>, (int)smem, smem_set)) != cudaSuccess)
+      return err;
+    // one cluster of all the (b, kv head)'s splits (kernel.mma_split_plan)
+    if (nsplit > kMmaMaxSplits) return cudaErrorInvalidValue;
+    static std::atomic<uint64_t> wide_set{0};
+    if (nsplit > 8 && (err = allow_wide_clusters(decode_ring_mma_kernel<D, G, CAP>, wide_set)) !=
+                          cudaSuccess)
+      return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(nsplit, Hkv, B);
+    cfg.blockDim = dim3(kRingThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = nsplit;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, decode_ring_mma_kernel<D, G, CAP>, tk, tv,
+                             static_cast<const __nv_bfloat16*>(q), lengths,
+                             static_cast<__nv_bfloat16*>(out), lse, S, Hkv, mul, cap2);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  } else {
+    if ((err = allow_smem(decode_ring_kernel<D, G, CAP>, (int)smem, smem_set)) != cudaSuccess)
+      return err;
+    decode_ring_kernel<D, G, CAP><<<dim3(nsplit, Hkv, B), kRingThreads, smem, st>>>(
+        tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out), lse, pa,
+        pm, tickets, S, Hkv, mul, cap2);
+    return cudaGetLastError();
+  }
 }
 
 template <int D, int G>

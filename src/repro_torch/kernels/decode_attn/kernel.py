@@ -51,6 +51,22 @@ SPLIT_BLOCKS_PER_SM = 8
 # the H100 (227 KB).
 RING_STAGE_BYTES, RING_STAGES, RING_CONSUMERS, RING_PASS_KEYS = 32 * 1024, 4, 8, 4
 SMEM_PER_BLOCK = 232448
+# The ring kernel's tensor-core consumer (decode_ring_mma_kernel): bf16 at
+# D 256 with G 8 and 16 (paligemma's and recurrentgemma's query heads on
+# one KV head). The consumer warps split a stage's keys into MMA_KEY_GROUPS
+# groups of MMA_GROUP_KEYS and the output's columns into halves; each TMA
+# box is MMA_BOX_COLS columns (128 bytes), swizzled by 128 bytes.
+MMA_GROUPS, MMA_DIMS = (8, 16), (256,)
+MMA_KEY_GROUPS, MMA_GROUP_KEYS, MMA_BOX_COLS = 4, 8, 64
+# The tensor-core consumer's splits of a (row, kv head) are one thread-block
+# cluster and merge in its distributed shared memory, with no merge through
+# global memory: at most MMA_MAX_SPLITS of them (the largest cluster the
+# H100 runs), each of at least MMA_MIN_TILES stages of 32 keys. At
+# recurrentgemma's and paligemma's steps on an H100, in turns over CUDA
+# graphs: 16 splits 0.0135 / 0.0096 ms, 8 0.0158 / 0.0103, 4 0.0220 /
+# 0.0136; 8 splits whose partials the last block merged through global
+# memory 0.0236 / 0.0149 (PERF.md).
+MMA_MIN_TILES, MMA_MAX_SPLITS = 2, 16
 
 
 @functools.cache
@@ -100,41 +116,68 @@ def split_plan(batch: int, hkv: int, s: int, sm_count: int, blocks_per_sm: int =
     return max(1, min(blocks_per_sm * sm_count // pairs, math.ceil(s / MIN_KEYS_PER_SPLIT)))
 
 
+def uses_mma(d: int, g: int) -> bool:
+    """Whether the ring kernel's tensor-core consumer serves head dim ``d``
+    with ``g`` query rows a KV head (bf16 q and cache)."""
+    return d in MMA_DIMS and g in MMA_GROUPS
+
+
+def mma_split_plan(batch: int, hkv: int, s: int, sm_count: int) -> int:
+    """Splits of each (batch row, kv head)'s keys for the tensor-core
+    consumer, one cluster: no more than one block an SM in one wave, no
+    more than MMA_MAX_SPLITS, and no split of fewer than MMA_MIN_TILES
+    stages of 32 keys."""
+    pairs = max(batch * hkv, 1)
+    tiles = math.ceil(s / (RING_STAGE_BYTES // (2 * 2 * MMA_DIMS[0])))
+    return max(1, min(sm_count // pairs, MMA_MAX_SPLITS, tiles // MMA_MIN_TILES))
+
+
 def uses_ring(q_dtype, kv_dtype, d: int) -> bool:
     """Whether a call goes to the ring kernel (bf16 q and cache at D 64, 128
     and 256) rather than the split + combine kernels."""
     return q_dtype == kv_dtype == torch.bfloat16 and d in RING_DIMS
 
 
-def plan_for(b: int, hkv: int, s: int, d: int, q_dtype, kv_dtype, sm_count: int) -> int:
-    """The splits a call takes: one block an SM for the ring kernel,
-    SPLIT_BLOCKS_PER_SM for the split kernel."""
-    per_sm = 1 if uses_ring(q_dtype, kv_dtype, d) else SPLIT_BLOCKS_PER_SM
-    return split_plan(b, hkv, s, sm_count, per_sm)
+def plan_for(b: int, hkv: int, s: int, d: int, q_dtype, kv_dtype, sm_count: int,
+             g: int = 1) -> int:
+    """The splits a call with ``g`` query rows a KV head takes: one block
+    an SM for the ring kernel (``mma_split_plan`` for its tensor-core
+    consumer), SPLIT_BLOCKS_PER_SM for the split kernel."""
+    ring = uses_ring(q_dtype, kv_dtype, d)
+    if ring and uses_mma(d, g):
+        return mma_split_plan(b, hkv, s, sm_count)
+    return split_plan(b, hkv, s, sm_count, 1 if ring else SPLIT_BLOCKS_PER_SM)
 
 
-def split_range(length: int, s: int, splits: int, split: int):
+def split_range(length: int, s: int, splits: int, split: int, tile: int = 1):
     """(start, end) of the keys that split ``split`` streams, as the kernels
     compute it: an equal share of the row's valid slots, or of all ``s``
-    when ``length`` <= 0 (every score masked, the softmax uniform)."""
+    when ``length`` <= 0 (every score masked, the softmax uniform); with
+    ``tile`` > 1 (the tensor-core consumer's ``split_range_tiles``) an equal
+    share of the row's tiles of ``tile`` slots, the last one partial."""
     n = s if length <= 0 else min(length, s)
+    if tile > 1:
+        tiles = -(-n // tile)
+        return min(n, split * tiles // splits * tile), min(n, (split + 1) * tiles // splits * tile)
     return split * n // splits, (split + 1) * n // splits
 
 
 @dataclasses.dataclass(frozen=True)
 class RingShape:
     """The ring kernel's shape at head dim ``d`` and ``g`` query rows a KV
-    head, as decode_attn.cu's ``RingShape`` and ``kRingRows`` give it."""
+    head, as decode_attn.cu's ``RingShape`` gives it, or
+    at the tensor-core consumer's shapes (``mma``) its key groups."""
     d: int
     g: int
     row_bytes: int      # one K or V row
     tile_keys: int      # keys a stage holds: 8192 / d
     lane_groups: int    # PV: keys a warp takes at once, d / 8 lanes each
-    rows: int           # query rows a consumer warp holds (R)
-    row_groups: int     # warps that share a key, one a group of R rows (H)
+    rows: int           # query rows a consumer warp holds: all G
     warp_keys: int      # keys of a stage a consumer warp walks
-    box: tuple          # the TMA box over (D, Hkv, S, B), innermost first
-    smem_bytes: int     # the ring, q as f32, the mbarriers and a flag
+    box: tuple          # a TMA box over (D, Hkv, S, B), innermost first
+    smem_bytes: int     # the ring, then q as f32, the mbarriers and a flag (mma: the barriers)
+    mma: bool = False   # decode_ring_mma_kernel: tensor cores, swizzled boxes
+    boxes: int = 1      # boxes a K (or V) row takes: D / 64 when mma
 
 
 def ring_shape(d: int, g: int) -> RingShape:
@@ -143,9 +186,14 @@ def ring_shape(d: int, g: int) -> RingShape:
         raise ValueError(f"the ring kernel takes no head_dim {d} with group {g}")
     row = 2 * d
     tile = RING_STAGE_BYTES // (2 * row)
-    rows = min(g, 8)
-    return RingShape(d=d, g=g, row_bytes=row, tile_keys=tile, lane_groups=256 // d, rows=rows,
-                     row_groups=g // rows, warp_keys=tile * (g // rows) // RING_CONSUMERS,
+    if uses_mma(d, g):
+        return RingShape(d=d, g=g, row_bytes=row, tile_keys=tile, lane_groups=1, rows=g,
+                         warp_keys=MMA_GROUP_KEYS,
+                         box=(MMA_BOX_COLS, 1, tile, 1),
+                         smem_bytes=RING_STAGES * RING_STAGE_BYTES + 16 * RING_STAGES,
+                         mma=True, boxes=d // MMA_BOX_COLS)
+    return RingShape(d=d, g=g, row_bytes=row, tile_keys=tile, lane_groups=256 // d, rows=g,
+                     warp_keys=tile // RING_CONSUMERS,
                      box=(d, 1, tile, 1),
                      smem_bytes=RING_STAGES * RING_STAGE_BYTES + g * d * 4 + 16 * RING_STAGES + 16)
 
@@ -162,8 +210,19 @@ def ring_plan(d: int, g: int, length: int, s: int, splits: int):
     ``scores`` the (lane group, key) pairs scored, 8 lanes 8j .. 8j + 7 for
     lane group j, and ``pv`` the (lane, key, first column) of each V chunk
     of 8 columns a lane accumulates. Keys at or past ``n`` are neither
-    scored nor accumulated."""
+    scored nor accumulated.
+
+    At the tensor-core consumer's shapes (``shape.mma``) every tile, the
+    row's partial last one too, is ``shape.boxes`` swizzled boxes of K and
+    of V (``copy`` "tma"), the splits are whole tiles (``split_range`` with
+    ``tile``), and a tile's ``passes`` are its key groups' warps: warp w
+    scores the keys ``base`` = 8 (w % 4) .. + 8 below ``n`` for all ``rows``
+    (an M = 16 tile, G of them real) and accumulates them into the columns
+    ``cols`` (its half of D, w // 4); ``pv`` lists (warp, key, first
+    column) of each 8-column block of V it reads."""
     shape = ring_shape(d, g)
+    if shape.mma:
+        return shape, _mma_plan(shape, length, s, splits)
     per_row = d // 8                  # lanes a V row spans
     plan = []
     for split in range(splits):
@@ -174,8 +233,7 @@ def ring_plan(d: int, g: int, length: int, s: int, splits: int):
             whole = n == shape.tile_keys
             passes = []
             for warp in range(RING_CONSUMERS):
-                half = warp % shape.row_groups
-                key0 = shape.warp_keys * (warp // shape.row_groups)
+                key0 = shape.warp_keys * warp
                 for u in range(shape.warp_keys // RING_PASS_KEYS):
                     base = key0 + RING_PASS_KEYS * u
                     if base >= n:
@@ -187,7 +245,7 @@ def ring_plan(d: int, g: int, length: int, s: int, splits: int):
                           if base + lane // per_row + shape.lane_groups * w < n]
                     passes.append({
                         "warp": warp, "pass": u, "base": base,
-                        "rows": range(half * shape.rows, (half + 1) * shape.rows),
+                        "rows": range(shape.rows),
                         "scores": [(j, base + j) for j in range(RING_PASS_KEYS) if base + j < n],
                         "pv": pv})
             tiles.append({"stage": i % RING_STAGES, "t0": t0, "n": n,
@@ -197,6 +255,32 @@ def ring_plan(d: int, g: int, length: int, s: int, splits: int):
                           "passes": passes})
         plan.append({"split": split, "start": start, "end": end, "tiles": tiles})
     return shape, plan
+
+
+def _mma_plan(shape, length: int, s: int, splits: int):
+    """``ring_plan`` at the tensor-core consumer's shapes."""
+    t = shape.tile_keys
+    half = shape.d // (RING_CONSUMERS // MMA_KEY_GROUPS)
+    plan = []
+    for split in range(splits):
+        start, end = split_range(length, s, splits, split, tile=t)
+        tiles = []
+        for i, t0 in enumerate(range(start, end, t)):
+            n = min(t, end - t0)
+            passes = []
+            for warp in range(RING_CONSUMERS):
+                base = MMA_GROUP_KEYS * (warp % MMA_KEY_GROUPS)
+                if base >= n:
+                    continue
+                keys = [base + j for j in range(MMA_GROUP_KEYS) if base + j < n]
+                cols = range(half * (warp // MMA_KEY_GROUPS), half * (warp // MMA_KEY_GROUPS + 1))
+                passes.append({"warp": warp, "pass": 0, "base": base, "rows": range(shape.g),
+                               "scores": list(enumerate(keys)), "cols": cols,
+                               "pv": [(warp, key, c0) for key in keys for c0 in cols[::8]]})
+            tiles.append({"stage": i % RING_STAGES, "t0": t0, "n": n, "copy": "tma",
+                          "row_copies": {}, "passes": passes})
+        plan.append({"split": split, "start": start, "end": end, "tiles": tiles})
+    return plan
 
 
 _SCRATCH = {}
@@ -249,7 +333,8 @@ def decode_attention_cuda(q, cache_k, cache_v, lengths, *, scale: float,
         if t.data_ptr() % 16:
             raise ValueError("decode_attention_cuda needs 16-byte aligned tensors")
 
-    splits = plan_for(b, hkv, s, d, q.dtype, cache_k.dtype, _sm_count(q.device.index or 0))
+    splits = plan_for(b, hkv, s, d, q.dtype, cache_k.dtype, _sm_count(q.device.index or 0),
+                      g=hq // hkv)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q, dtype=torch.float32 if return_lse else q.dtype)
     n_acc = b * hq * splits * d      # part_acc, then part_ml (b * hq * splits * 2)

@@ -633,48 +633,87 @@ def forward_train(cfg: ModelConfig, params, batch, run, env=None) -> torch.Tenso
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
-def _gold(logits, targets):
-    """The logit of each target (clamped at 0). With the vocab of a
-    DTensor split over a mesh dimension, each rank picks from its slice
-    (zero for a target outside it) and the picks sum over that dimension:
-    the reference's ``take_along_axis`` on sharded logits."""
+class _LseGold(torch.autograd.Function):
+    """(lse, gold) of f32 logits (B, S, V): ``lse`` is each row's
+    log-sum-exp, computed beforehand without a graph and passed through;
+    ``gold`` each row's logit at ``idx`` (B, S, 1), 0 where ``mine`` (a
+    bool like ``idx``, or None for all) is false. The backward writes
+    ``exp(logits - lse) * g_lse`` into one new tensor and adds ``g_gold``
+    at the targets in place (``scatter_add_`` on that tensor), so the
+    saved logits and that gradient are the only (B, S, V) tensors the loss
+    keeps (autograd of ``logsumexp`` and ``gather`` keeps four: the
+    logits, the exponent, a zeroed gradient and its scatter copy)."""
+
+    @staticmethod
+    def forward(ctx, logits, lse, idx, mine):
+        ctx.save_for_backward(logits, lse, idx, mine)
+        gold = logits.gather(-1, idx)
+        if mine is not None:
+            gold = torch.where(mine, gold, 0.0)
+        return lse.clone(), gold[..., 0]
+
+    @staticmethod
+    def backward(ctx, g_lse, g_gold):
+        logits, lse, idx, mine = ctx.saved_tensors
+        grad = logits - lse[..., None]
+        grad.exp_().mul_(g_lse[..., None])
+        g_gold = g_gold[..., None]
+        if mine is not None:
+            g_gold = torch.where(mine, g_gold, 0.0)
+        grad.scatter_add_(-1, idx, g_gold)
+        return grad, None, None, None
+
+
+def _lse_gold(logits, lse, targets):
+    """``_LseGold`` of the f32 ``logits`` and their ``lse`` at ``targets``
+    (clamped at 0). With the vocab of a DTensor split over a mesh
+    dimension it runs on each rank's slice under ``local_map``: a rank
+    picks only the targets inside its slice (from ``v0``), and the gold
+    logit comes back ``Partial`` over that dimension, to be summed as the
+    reference's ``take_along_axis`` on sharded logits is."""
     idx = targets.clamp_min(0).long()[..., None]
     if not isinstance(logits, DTensor):
-        return logits.gather(-1, idx)[..., 0]
+        return _LseGold.apply(logits, lse, idx, None)
     vocab_dim = logits.dim() - 1
     split = [i for i, p in enumerate(logits.placements) if p == Shard(vocab_dim)]
     if len(split) > 1:
         raise NotImplementedError("the vocab split over more than one mesh dimension")
-    out_placements = [Partial() if i in split else p for i, p in enumerate(idx.placements)]
+    gold_placements = [Partial() if i in split else p for i, p in enumerate(idx.placements)]
 
-    def pick(lg, ix):
+    def local(lg, ls, ix):
+        if not split:
+            return _LseGold.apply(lg, ls, ix, None)
         v = lg.shape[-1]
-        v0 = logits.device_mesh.get_local_rank(split[0]) * v if split else 0
-        mine = (ix >= v0) & (ix < v0 + v)
-        return torch.where(mine, lg.gather(-1, (ix - v0).clamp(0, v - 1)), 0.0)[..., 0]
+        v0 = logits.device_mesh.get_local_rank(split[0]) * v
+        return _LseGold.apply(lg, ls, (ix - v0).clamp(0, v - 1), (ix >= v0) & (ix < v0 + v))
 
-    return local_map(pick, out_placements=out_placements,
-                     in_placements=(logits.placements, idx.placements),
-                     device_mesh=logits.device_mesh)(logits, idx)
+    return local_map(local, out_placements=(lse.placements, gold_placements),
+                     in_placements=(logits.placements, lse.placements, idx.placements),
+                     device_mesh=logits.device_mesh)(logits, lse, idx)
 
 
+@torch.no_grad()
 def _logsumexp(logits):
-    """``logsumexp`` over the last (vocab) dimension. A DTensor split over
-    the vocab stays split, as the reference's under GSPMD: the row maximum
-    and the sum of exponents are all-reduced (both (B, S)), where DTensor's
-    own ``logsumexp`` would gather the (B, S, V) logits whole."""
-    if not isinstance(logits, DTensor):
-        return torch.logsumexp(logits, dim=-1)
-    m = SH.reduced(logits.detach().amax(dim=-1, keepdim=True))
-    return m[..., 0] + torch.log(SH.reduced(torch.exp(logits - m).sum(dim=-1)))
+    """``logsumexp`` over the last (vocab) dimension, without a graph (the
+    loss's backward is ``_LseGold``'s), its exponent taken in place so no
+    more than one (B, S, V) temporary exists beside the logits. A DTensor
+    split over the vocab stays split, as the reference's under GSPMD: the
+    row maximum and the sum of exponents are all-reduced (both (B, S)),
+    where DTensor's own ``logsumexp`` would gather the (B, S, V) logits
+    whole."""
+    m = SH.reduced(logits.amax(dim=-1, keepdim=True))
+    e = logits - m
+    total = SH.reduced(e.exp_().sum(dim=-1))
+    del e
+    return m[..., 0] + torch.log(total)
 
 
 def _ce(logits, targets, weights):
     """Summed cross-entropy of ``targets`` (clamped at 0) weighted by
     ``weights``, and the summed weights; in f32."""
     logits = logits.float()
-    lse = _logsumexp(logits)
-    gold = SH.reduced(_gold(logits, targets))     # summed over the vocab's split, as GSPMD's
+    lse, gold = _lse_gold(logits, _logsumexp(logits), targets)
+    gold = SH.reduced(gold)     # summed over the vocab's split, as GSPMD's
     return ((lse - gold) * weights).sum(), weights.sum()
 
 

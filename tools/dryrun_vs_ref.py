@@ -324,7 +324,7 @@ def port_cell(arch: str, shape: str, mesh: str, ops: int = 0):
 # at its heap simulator's peak.
 MODEL = 16                      # the production meshes' ``model`` axis
 RATIOS = {"same": 1.0, "f32": 2.0, "3 copies": 3.0, "slots whole": float(MODEL),
-          "split:model": 1.0 / MODEL, "moe:model": float(MODEL), "2 copies": 2.0, "F8": 0.5,
+          "split:model": 1.0 / MODEL, "moe:model": float(MODEL), "2 copies": 2.0,
           "f32, moe:model": 2.0 * MODEL}
 BEYOND_HEAP = ("XLA's allocations beyond the buffers live at its heap simulator's peak "
                "(buffers in allocations of their own, fragmentation)")
@@ -724,28 +724,6 @@ _ZOO = [
      r"^(?!argument )(?!(cat|_to_copy)\.default models/moe.py:(gathered|forward) .* torch.\w+ "
      r"\(<E>, (<d>, <mff16>|<mff16>, <d>)\)$)(?!.*rows_product < )\S+ (parallel/sharding.py:\w+ < )*"
      r"models/(model|layers|attention|ssd|moe)\.py:"),
-    ((S,), ("train",), "peak", "arguments: parameters, optimizer state and the batch (not the "
-     "optimizer's int32 step count)", "same", r"^parameter ", r"^argument (?!torch.int32 \(\) )"),
-    ((S,), ("train",), "peak", "the loss's whole-vocab f32 logits: the reference holds two "
-     "tensors of (B/16 · S, V), the port four (F8: the loss's f32 logits and log-sum-exp "
-     "exponent, the gold logit's zeroed gradient and its scatter_add copy)", "F8",
-     r"^fusion f32\[((?!<d>,)\d+,<V>|<V>,\d+)\] \?$", r"torch.float32 \(\d+, \d+, <V>\)$"),
-    ((S,), ("train",), "peak", "the tied table gathered over data for the logits, the "
-     "reference's in f32", "f32", r"^fusion f32\[<d>,<V>\] \?$",
-     r"^cat\.default parallel/sharding.py:fsdp_gathered < parallel/sharding.py:product < "
-     r"models/layers.py:unembed .* torch.bfloat16 \(<V>, <d>\)$"),
-    ((S,), ("train",), "peak", "the tied table's f32 gradients, the lookup's and the logits': live "
-     "at the reference's peak, not yet made at the port's", "ref only",
-     r"^\S+ f32\[<V>,<d16>\] (transpose\(jvp\(jit\(_take\)\)\)/scatter-add|"
-     r"transpose\(jvp\(\)\)/dot_general)$", r"$^"),
-    ((S,), ("train",), "peak", "activations: the encoder's and the decoder's layer inputs kept "
-     "for the backward (the reference's in f32), the norms' buffers, the chunked attention's "
-     "and the loss's temporaries, indices, masks and scalars", "plan",
-     r"^(?!fusion f32\[(\d+,<V>|<V>,\d+|<d>,<V>)\] \?$)(?!\S+ f32\[<V>,<d16>\] )"
-     r"(fusion|copy|dot|constant|partition-id|all-gather|broadcast|convert|\(s32|\S+) "
-     r"(\(s32\[\], )?(pred|s32|u32|f32|bf16)\[[\d,]*\] (?!state\[|batch\[|params\[)",
-     r"^(?!.*torch.float32 \(\d+, \d+, <V>\)$)\S+ (bwd )?models/(model|layers|attention)\.py:"
-     r"|^ones_like\.default  |^argument torch.int32 \(\) "),
 ]
 
 

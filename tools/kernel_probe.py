@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Check and time the CIAO gather (K1) and decode attention (K2) kernels on the card.
 
-    python3 tools/kernel_probe.py [--check] [--broken [KERNEL ...]] [--variants] [--parent DIR]
-                                  [--source KERNEL:NAME=PATH ...] [--decode [ARCH ...]]
-                                  [--scaling] [--build-times DIR] [--split-blocks N [N ...]]
+    python3 tools/kernel_probe.py [--check] [--broken [KERNEL ...]] [--variants [NAME ...]]
+                                  [--parent DIR] [--source KERNEL:NAME=PATH ...]
+                                  [--cases LABEL ...] [--decode [ARCH ...]] [--scaling]
+                                  [--build-times DIR] [--split-blocks N [N ...]]
+                                  [--profile-windows N]
 
---check     build the kernels and run phase 2 of chip_smoke.py (each kernel
-            against its plain version at its grid and edge cases);
+--check [KERNEL ...]
+            build the kernels and run phase 2 of chip_smoke.py (each kernel,
+            or those named, against its plain version at its grid and edge
+            cases);
 --broken [KERNEL ...]
             build broken copies of K1, K2 and K3, or of the kernels named
             (ciao_gather, decode_attn, flash_attn) (text edits of the sources,
@@ -17,9 +21,11 @@
             wait also with a slowed producer, and the slowed producer alone;
             K2's ring kernel without a stage's keys at D 64 and without one
             lane group's partials at D 128);
---variants  time text-edited variants of both kernels in turns at the main
-            paths' shapes; those marked "wrong" leave out part of the work on
-            purpose and only say what that part costs;
+--variants [NAME ...]
+            time text-edited variants of both kernels (all of them, or those
+            named) in turns at the main paths' shapes; those marked "wrong"
+            leave out part of the work on purpose and only say what that
+            part costs;
 --parent    DIR is an older revision of src/repro_torch/kernels (for example
             `git archive HEAD~1 src/repro_torch/kernels` unpacked): its
             decode_attn and ciao_gather wrappers, built from its own sources,
@@ -31,6 +37,10 @@
 --source    another source of one kernel (decode_attn or ciao_gather),
             bound through the current wrapper, timed in turns like the
             parent;
+--cases LABEL ...
+            time K2 only at the ``decode_cases`` of these labels (e.g.
+            local global recurrentgemma-9b "paligemma-3b last step"), and
+            K1 not at all unless a K1 library is timed;
 --decode [ARCH ...]
             (with --parent) full-width decode after one prefill, with the
             parent's K2 and the current one in turns, and a profiled step of
@@ -53,6 +63,19 @@
             with its plan aimed at each N blocks an SM
             (kernel.SPLIT_BLOCKS_PER_SM), in turns, each held against the
             plain version.
+--mma-plans NAME=VALUE[,NAME=VALUE] ...
+            K2's tensor-core consumer (D 256, G 8 and 16) at its ``--cases``
+            (recurrentgemma's and paligemma's steps by default) with each
+            set of ``kernel`` constants (MMA_MIN_TILES, MMA_MAX_SPLITS) in
+            turn, in turns: a CUDA graph of 100 calls and
+            events around 50, and max |err| against the plain version;
+--profile-windows N
+            why phase 6's profiler windows can show no device work: at each
+            K2 case (``--cases``), a CUDA graph of the kernel is timed and
+            then N windows of phase 6's shape are profiled, in a process
+            with kineto's CUPTI teardown between sessions (torch's default)
+            and in one without (TEARDOWN_CUPTI=0), counting the windows
+            that saw no device work.
 
 K2 is timed three ways: CUDA events around 50 back-to-back calls (as
 chip_smoke.py's phase 6 times it, host launch cost included), a CUDA graph
@@ -111,12 +134,25 @@ BROKEN = [
     ("flash_attn", "skip_k_stage_wait", [K3_SKIP_K_WAIT]),
     ("flash_attn", "skip_k_stage_wait_slow_producer", [K3_SKIP_K_WAIT, K3_SLOW_PRODUCER]),
     ("flash_attn", "slow_producer_alone_right", [K3_SLOW_PRODUCER]),
+    # both ring kernels' consumers skip the wait on stage 1's full barrier
     ("decode_attn", "skip_stage1_full_wait", [(
         "      mbar_wait(full0 + 8 * st, (i / kStages) & 1);\n",
-        "      if (st != 1) mbar_wait(full0 + 8 * st, (i / kStages) & 1);\n")]),
+        "      if (st != 1) mbar_wait(full0 + 8 * st, (i / kStages) & 1);\n", 2)]),
+    # the last block's merge leaves out the last split's (or cluster's) partial
     ("decode_attn", "drop_last_split", [(
-        "    for (int s = 0; s < nsplit; ++s) {\n      const float4 a = __ldcg(",
-        "    for (int s = 0; s < nsplit - 1; ++s) {\n      const float4 a = __ldcg(")]),
+        "    for (int s = 0; s < nparts; ++s) {\n      const float4 a = __ldcg(",
+        "    for (int s = 0; s < nparts - 1; ++s) {\n      const float4 a = __ldcg(")]),
+    # the tensor-core consumer: a k-step of Q K^T dropped (columns 112-127),
+    # the accumulator not rescaled when the row maximum moves, and the
+    # cluster's merge without its last block's partial
+    ("decode_attn", "mma_drop_qk_kstep", [(
+        "          mma_16816(s1, qa[2 * kk + 1], b2, b3);\n",
+        "          if (kk != 3) mma_16816(s1, qa[2 * kk + 1], b2, b3);\n")]),
+    ("decode_attn", "mma_no_rescale", [(
+        "            o[j][2 * h] *= corr;\n            o[j][2 * h + 1] *= corr;\n", "")]),
+    ("decode_attn", "mma_lose_cluster_partial", [(
+        "    for (int r = 0; r < nsplit; ++r) {\n      const float c = ex2(",
+        "    for (int r = 0; r < nsplit - 1; ++r) {\n      const float c = ex2(")]),
     # the ring kernel's consumers skip a split's second stage at D 64
     ("decode_attn", "drop_second_stage_d64", [(
         "        if (base >= n) break;\n",
@@ -169,6 +205,17 @@ VARIANTS = [
         "#pragma unroll kPassUnroll\n", "#pragma unroll 1\n")]),
     ("decode_attn", "passes_unrolled", True, [(
         "#pragma unroll kPassUnroll\n", "#pragma unroll\n")]),
+    # the tensor-core consumer (D 256, G 8 and 16) without its math, and
+    # without its tiles (neither loads nor math: launch, prologue, the key
+    # groups' and the splits' merges)
+    ("decode_attn", "mma_no_math", False, [("      if (key0 < n) {\n",
+                                            "      if (false) {\n")]),
+    ("decode_attn", "mma_no_tiles", False, [(
+        "  const int ntiles = end > start ? (end - start + T - 1) / T : 0;",
+        "  const int ntiles = 0;")]),
+    # P rounded to bf16 once, without its remainder's product
+    ("decode_attn", "mma_p_bf16_once", False, [(
+        "            mma_1688(o[4 * jj + j], e0, e1, v[j]);\n", "")]),
 ]
 
 
@@ -187,6 +234,7 @@ def bind(module, so):
 def load_module(path: Path, name: str):
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod       # dataclasses look their module up there
     spec.loader.exec_module(mod)
     return mod
 
@@ -273,7 +321,7 @@ def host_breakdown(dq, ck, cv, lens, args):
     from repro_torch.kernels.decode_attn import kernel as DK
     b, _, hq, d = dq.shape
     s, hkv = ck.shape[1], ck.shape[2]
-    splits = DK.plan_for(b, hkv, s, d, dq.dtype, ck.dtype, DK._sm_count(0))
+    splits = DK.plan_for(b, hkv, s, d, dq.dtype, ck.dtype, DK._sm_count(0), g=hq // hkv)
     stream = torch.cuda.current_stream().cuda_stream
     out = torch.empty_like(dq)
     n_acc = b * hq * splits * d
@@ -304,7 +352,7 @@ def per_launch(prof):
     return "; ".join(f"{k[:60]} {ms / n:.4f} ms ({n} launches)" for k, ms, n in prof["top"])
 
 
-def decode_cases(gen):
+def decode_cases(gen, labels=None):
     """K2's bf16 shapes on the serving paths, {label: ((q, cache_k, cache_v,
     lengths), args)}: gemma2-2b's last decode step on a local and a global
     layer (G 2, softcap 50), each zoo path's last step that phase 6 times
@@ -328,17 +376,22 @@ def decode_cases(gen):
         if kernel == "decode_attn" and (name, call) in C.FRONTEND_TIMED:
             *inputs, args = C.frontend_inputs(kernel, shape, scale, torch.bfloat16, gen)
             cases[f"{name} {call}"] = (tuple(inputs), args)
+    if labels:
+        missing = set(labels) - set(cases)
+        if missing:
+            raise SystemExit(f"--cases: no K2 case {sorted(missing)}; have {sorted(cases)}")
+        cases = {k: v for k, v in cases.items() if k in labels}
     return cases
 
 
-def time_decode(libs_k2, card, profile):
+def time_decode(libs_k2, card, profile, labels=None):
     """K2 at the serving shapes (``decode_cases``): events (host launch cost
     included), a CUDA graph (device time) and the host's time a call, each
     library in turns."""
     import torch
     from repro_torch.kernels.decode_attn import ops as DO
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for kind, ((dq, ck, cv, lens), args) in decode_cases(gen).items():
+    for kind, ((dq, ck, cv, lens), args) in decode_cases(gen, labels).items():
         ref = DO.decode_attention_plain(dq, ck, cv, lens, **args).float()
         atol, rtol, _ = C.TOL["bfloat16"]["decode_attn"]
         limit = atol + rtol * ref.abs()
@@ -389,6 +442,8 @@ def time_gather(libs_k1, card, profile, shapes):
     turns, and with ``profile`` the device time of each of its kernels."""
     import torch
     from repro_torch.kernels.ciao_gather import ops as CO
+    if not libs_k1:
+        return
     for label, scale, c_main, c_iso in shapes:
         table, idx, st, isos = gather_inputs(scale)
         for iso_label, iso in isos.items():
@@ -544,6 +599,39 @@ def build_times(parent: Path) -> None:
               f"({srcs[tag].resolve().relative_to(ROOT)})")
 
 
+def time_mma_plans(plans, card, labels=None):
+    """The tensor-core consumer's split plan with each set of ``kernel``
+    constants in ``plans`` ("NAME=VALUE,NAME=VALUE"), in turns (the plans,
+    then reversed)."""
+    import torch
+    from repro_torch.kernels.decode_attn import kernel as DK, ops as DO
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    sets = {p: dict((k, int(v)) for k, v in (kv.split("=") for kv in p.split(","))) for p in plans}
+    keep = {k: getattr(DK, k) for kvs in sets.values() for k in kvs}
+    cases = decode_cases(gen, labels or ["recurrentgemma-9b", "paligemma-3b last step"])
+    for kind, ((dq, ck, cv, lens), args) in cases.items():
+        plain = DO.decode_attention_plain(dq, ck, cv, lens, **args)
+        times = {p: [] for p in plans}
+        b, s, hkv = dq.shape[0], ck.shape[1], ck.shape[2]
+        splits = {}
+        for p in list(plans) + list(plans)[::-1]:
+            for k, v in sets[p].items():
+                setattr(DK, k, v)
+            splits[p] = DK.mma_split_plan(b, hkv, s, DK._sm_count(0))
+            call = lambda: DK.decode_attention_cuda(dq, ck, cv, lens, **args)  # noqa: E731
+            err = C.max_err(call(), plain)
+            times[p].append((C.graph_ms(call, 100), C.cuda_ms(call, 50, warmup=5), err))
+            for k, v in keep.items():
+                setattr(DK, k, v)
+        b_ms, by = C.bound_ms(*C.decode_bound(dq, ck, lens))
+        C.log(f"K2 mma {kind} (B {b}, S {s}, {dq.shape[2]}/{hkv} heads of {dq.shape[3]}), "
+              f"bound {b_ms:.4f} ms ({by}), {card}:")
+        for p, ts in times.items():
+            C.log(f"  {p} ({splits[p]} splits): graph "
+                  f"{', '.join(f'{t[0]:.4f}' for t in ts)} ms; events "
+                  f"{', '.join(f'{t[1]:.4f}' for t in ts)} ms; max|err| {max(t[2] for t in ts):.3g}")
+
+
 def time_split_blocks(values, card):
     """K2's split kernel (f32 queries, a bf16 cache) at the zoo's decode
     shapes at D 64 and 128 with SPLIT_BLOCKS_PER_SM at each of ``values``,
@@ -581,21 +669,64 @@ def time_split_blocks(values, card):
         del dq, ck, cv
 
 
+def profile_windows(n: int, labels) -> None:
+    """Phase 6's profiler window (``chip_smoke.time_decode``: a spin kernel,
+    five K2 calls, 50 ms of host time on each side) ``n`` times at each K2
+    case, each after a CUDA graph of the kernel was captured and replayed as
+    phase 6 does, in this process; logs how many windows saw no device work
+    and how many saw the K2 kernel."""
+    import os
+    import torch
+    from repro_torch.kernels.decode_attn import kernel as DK
+    C.build_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    teardown = os.environ.get("TEARDOWN_CUPTI", "unset")
+    for kind, ((dq, ck, cv, lens), args) in decode_cases(gen, labels).items():
+        def k2():
+            return DK.decode_attention_cuda(dq, ck, cv, lens, **args)
+
+        def window():
+            time.sleep(0.05)
+            torch.cuda._sleep(1_000_000)
+            for _ in range(5):
+                k2()
+            C.sync()
+            time.sleep(0.05)
+
+        C.graph_ms(k2, 100)
+        empty = seen = 0
+        names = set()
+        for _ in range(n):
+            prof = C.device_profile(window)
+            empty += not prof["top"]
+            seen += C.k2_path(prof) is not None
+            names |= {name for name, _, _ in prof["top"] if "decode" in name}
+        C.log(f"profiler windows, TEARDOWN_CUPTI={teardown}, K2 {kind}: {n} windows, {empty} "
+              f"saw no device work, {seen} saw K2 ({sorted(names)})")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--check", nargs="*", metavar="KERNEL")
     ap.add_argument("--broken", nargs="*", metavar="KERNEL")
-    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--variants", nargs="*", metavar="NAME")
     ap.add_argument("--parent", type=Path)
     ap.add_argument("--source", action="append", default=[], metavar="KERNEL:NAME=PATH")
     ap.add_argument("--decode", nargs="*", metavar="ARCH")
     ap.add_argument("--scaling", action="store_true")
     ap.add_argument("--build-times", type=Path, metavar="DIR")
     ap.add_argument("--split-blocks", type=int, nargs="+", metavar="N")
+    ap.add_argument("--cases", nargs="+", metavar="LABEL")
+    ap.add_argument("--mma-plans", nargs="+", metavar="NAME=VALUE[,NAME=VALUE]")
+    ap.add_argument("--profile-windows", type=int, metavar="N")
+    ap.add_argument("--profile-windows-one", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--broken-one", nargs=2, metavar=("KERNEL", "LIB"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.broken_one:
         run_broken_one(args.broken_one[0], Path(args.broken_one[1]))
+        return
+    if args.profile_windows_one:
+        profile_windows(args.profile_windows_one, args.cases)
         return
     if args.decode is not None and not args.parent:
         ap.error("--decode needs --parent")
@@ -606,9 +737,9 @@ def main() -> None:
     card = C.card_line()
     C.log(card)
     OUT.mkdir(parents=True, exist_ok=True)
-    if args.check:
+    if args.check is not None:
         C.build_kernels()
-        _, failed = C.check_kernels()
+        _, failed = C.check_kernels(only=tuple(args.check) or C.KERNELS)
         C.log(f"phase 2: {len(failed)} checks fail: {failed}")
     if args.broken is not None:
         run_broken(args.broken)
@@ -617,12 +748,27 @@ def main() -> None:
     if args.split_blocks:
         C.build_kernels()
         time_split_blocks(args.split_blocks, card)
-    if not (args.variants or args.parent or args.source or args.scaling):
+    if args.mma_plans:
+        C.build_kernels()
+        time_mma_plans(args.mma_plans, card, args.cases)
+    if args.profile_windows:
+        import os
+        for teardown in (None, "0"):
+            env = {k: v for k, v in os.environ.items() if k != "TEARDOWN_CUPTI"}
+            if teardown is not None:
+                env["TEARDOWN_CUPTI"] = teardown
+            proc = subprocess.run([sys.executable, __file__, "--profile-windows-one",
+                                   str(args.profile_windows), *(["--cases", *args.cases]
+                                                                if args.cases else [])],
+                                  env=env, capture_output=True, text=True)
+            C.log((proc.stdout + proc.stderr[-2000:]).strip())
+    if not (args.variants is not None or args.parent or args.source or args.scaling):
         return
     mods = wrappers()
     sources, planned = {}, {}     # library key -> (kernel, tag, wrapper module)
-    for kernel, name, ok, edits in VARIANTS if args.variants else \
-            [v for v in VARIANTS if v[1] == "kernel"]:
+    for kernel, name, ok, edits in [v for v in VARIANTS if (
+            v[1] in args.variants if args.variants else
+            args.variants is not None or v[1] == "kernel")]:
         path = OUT / f"{kernel}_{name}.cu"
         path.write_text(edited(_build.source(kernel).read_text(), edits))
         sources[path.stem] = path
@@ -650,7 +796,7 @@ def main() -> None:
     for key, (kernel, tag, mod) in planned.items():
         libs[kernel][tag] = (mod, bind(mod, built[key]))
     profile = bool(args.parent or args.source)
-    time_decode(libs["decode_attn"], card, profile)
+    time_decode(libs["decode_attn"], card, profile, args.cases)
     time_gather(libs["ciao_gather"], card, profile,
                 GATHER_PATH + (GATHER_SCALING if args.scaling else []))
     if args.decode is not None:
