@@ -75,8 +75,10 @@ Phases, each of which exits non-zero on failure:
  6. kernel times at the main paths' shapes (CUDA events around back-to-back
     calls) beside their bounds, the plain versions and one PyTorch library
     call of the same function, with the device time of K1's and K2's
-    launches under the profiler, and K2's time over a CUDA graph of 100
-    calls (``device_ms``: without the host's launch cost); K2 also at the
+    launches under the profiler, K2's time over a CUDA graph of 100 calls
+    and every K3 row's over one of 20 (``device_ms``: without the host's
+    launch cost; each K3 row also names its launch, ``kernel.launch_plan``'s
+    mode); K2 also at the
     last decode step of granite-moe, qwen3, nemotron, command-r, arctic and
     recurrentgemma (the ring kernel at G 16), K3 also at recurrentgemma's
     prefill; K3 at seamless's encoder and cross prefill and paligemma's
@@ -354,6 +356,14 @@ FLASH_GRID += [case for hq, hkv, d in ((24, 8, 64), (32, 8, 128)) for case in (
     (1, 300, 300, hq, hkv, d, True, 100, 0.0), (1, 333, 333, hq, hkv, d, True, 0, 30.0),
     (1, 300, 300, hq, hkv, d, True, 100, 50.0), (2, 129, 700, hq, hkv, d, False, 0, 0.0))]
 FLASH_GRID += [(2, 1, 257, 16, 16, 64, False, 0, 0.0), (1, 193, 127, 16, 16, 64, False, 0, 0.0)]
+# K3's split launch (kernel.launch_plan): seamless's cross prefill (Sq 64
+# against 4,096 keys, both warpgroups on alternate key tiles), its edges
+# (Sq 63 against a ragged 4,001, Sq 1), a softcap at a ragged Sq 33
+# against 700 keys, 192 items (more than SMs); and seamless's self prefill
+# (Sq 64 causal on 64 keys: one tile, warpgroup 1 with none)
+FLASH_GRID += [(4, 64, 4096, 16, 16, 64, False, 0, 0.0), (4, 63, 4001, 16, 16, 64, False, 0, 0.0),
+               (4, 1, 4096, 16, 16, 64, False, 0, 0.0), (2, 33, 700, 16, 16, 64, False, 0, 30.0),
+               (12, 50, 1000, 16, 16, 64, False, 0, 0.0), (4, 64, 64, 16, 16, 64, True, 0, 0.0)]
 # (b, sq, hq, hkv, d, prefix): K3 causal with a prefix-LM prefix at a ragged
 # Sq, at paligemma-3b's heads (8 q on 1 kv head of 256), at D 32 (the
 # 64-byte swizzle) and at the D 64 and D 128 plans (granite's and qwen3's
@@ -362,6 +372,8 @@ FLASH_GRID += [(2, 1, 257, 16, 16, 64, False, 0, 0.0), (1, 193, 127, 16, 16, 64,
 FLASH_PREFIX_GRID = [(2, 333, hq, hkv, d, p)
                      for hq, hkv, d in ((8, 1, 256), (4, 2, 32), (24, 8, 64), (32, 8, 128))
                      for p in (1, 100, 200, 300, 333, 400)]
+# paligemma's heads at 4 x 1,000 tokens (256 items), prefixes of 256 and 300
+FLASH_PREFIX_GRID += [(4, 1000, 8, 1, 256, 256), (4, 1000, 8, 1, 256, 300)]
 # (b, s, hq, hkv, d, lengths or None for random ones): the kernel tests'
 # grid, then the edges of the bf16 ring kernel (D = 256, 32-key tiles, one
 # split per SM's share): length 1 (all but one split empty), length S,
@@ -1662,6 +1674,7 @@ def time_kernels(errs, launches, card, gather, paths):
     for kind, window in (("local", WINDOW), ("global", 0)):
         args = dict(scale=SCALE, causal=True, window=window, softcap=50.0)
         ms = cuda_ms(lambda: FK.flash_attention_cuda(q, k, v, **args), 5)
+        device = graph_ms(lambda: FK.flash_attention_cuda(q, k, v, **args), 20)
         plain = cuda_ms(lambda: FO.flash_attention_plain(q, k, v, **args), 2)
         lib = lib_err = None
         try:
@@ -1671,9 +1684,13 @@ def time_kernels(errs, launches, card, gather, paths):
         except Exception as e:  # the yardstick only; the port does not depend on it
             log(f"  flex_attention unavailable ({type(e).__name__}: {e}); library_ms null")
         b_ms, by = bound_ms(*flash_bound(q, k, v, window))
-        rows["flash_attn"].append((ms, plain, lib, b_ms, by, {}))
-        log(f"  flash_attn {kind}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"flex_attention {lib} ms (max|diff| {lib_err}), bound {b_ms:.4f} ms ({by})")
+        mode = FK.launch_plan(q.shape[0], q.shape[2], q.shape[1], k.shape[1], True, window,
+                              0, q.shape[3])[0]
+        rows["flash_attn"].append((ms, plain, lib, b_ms, by, {"device_ms": device,
+                                                              "launch": mode}))
+        log(f"  flash_attn {kind}: kernel {ms:.4f} ms (events), {device:.4f} ms (CUDA graph of "
+            f"20 calls, {mode}), plain {plain:.4f} ms, flex_attention {lib} ms (max|diff| "
+            f"{lib_err}), bound {b_ms:.4f} ms ({by})")
     del q, k, v
     k2_rows, k2_targets = {}, []     # K2's rows for observe_k2_paths, where each path goes
     for kind in ("local", "global"):
@@ -1708,7 +1725,8 @@ def time_kernels(errs, launches, card, gather, paths):
                                        "window": window},
                              "launches": paths[name]["flash_attn"], "ms": ms, "device_ms": device,
                              "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-                             "bound_by": by}
+                             "bound_by": by,
+                             "launch": FK.launch_plan(b, hq, sq, sq, True, window, 0, d)[0]}
         log(f"  flash_attn {name} prefill (B {b}, S {sq}, {hq}/{hkv} heads of {d}, window "
             f"{window}): kernel {ms:.4f} ms (events), {device:.4f} ms (CUDA graph of 20 calls), "
             f"plain {plain:.4f} ms, flex_attention {lib} ms (max|diff| {lib_err}), bound "
@@ -1765,16 +1783,20 @@ def time_kernels(errs, launches, card, gather, paths):
             except Exception as e:  # the yardstick only; the port does not depend on it
                 log(f"  flex_attention unavailable ({type(e).__name__}: {e}); library_ms null")
             b_ms, by = bound_ms(*flash_bound(q, k, v, 0, causal, prefix))
-            extra = {}
+            device = graph_ms(lambda: FK.flash_attention_cuda(q, k, v, **args), 20)
+            mode = FK.launch_plan(shape[0], shape[3], shape[1], shape[2], causal, 0, prefix,
+                                  shape[5])[0]
+            extra = {"device_ms": device, "launch": mode}
             log(f"  flash_attn {label} (B {shape[0]}, Sq {shape[1]}, Skv {shape[2]}, "
                 f"{shape[3]}/{shape[4]} heads of {shape[5]}, causal {causal}, prefix {prefix}): "
-                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, flex_attention {lib} ms (max|diff| "
-                f"{lib_err}), bound {b_ms:.4f} ms ({by})")
+                f"kernel {ms:.4f} ms (events), {device:.4f} ms (CUDA graph of 20 calls, {mode}), "
+                f"plain {plain:.4f} ms, flex_attention {lib} ms (max|diff| {lib_err}), bound "
+                f"{b_ms:.4f} ms ({by})")
             del q, k, v
         frontend[kernel][label] = {
             "shape": list(shape), "path_launches": paths[name][kernel], "ms": ms,
             "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms, "bound_by": by,
-            **({"device_ms": extra["device_ms"]} if "device_ms" in extra else {})}
+            **{key: extra[key] for key in ("device_ms", "launch") if key in extra}}
         if kernel == "decode_attn":
             k2_targets.append((frontend[kernel][label], extra))
     observe_k2_paths(k2_rows)

@@ -45,7 +45,10 @@
 //      compares a score), and O is rescaled only when a row's maximum
 //      grows by more than 2^8;
 //    - the blocks late in the sequence, which have the most tiles, launch
-//      first.
+//      first;
+//    - a warpgroup's O / l goes out through its Q buffer by TMA stores;
+//    - at Sq <= 64 and D 64 (seamless's cross prefill) a block's keys are
+//      split over both warpgroups (the launch modes, kPerBlock below).
 //    P is rounded to bf16 for the PV product, as the reference's
 //    attention_core rounds p to V's dtype. At D 256 (64-key tiles, two
 //    warpgroups in ping-pong, 2 stages) the products alone run at ~89% of
@@ -257,24 +260,47 @@ constexpr float kRegrow = 8.f;    // log2 units a row maximum may grow before O 
 // warpgroups (64 query rows each, so a block takes 64 NWG rows; two for a
 // short sequence, short_block); FOLD: the row maximum taken on the raw
 // scores and the scale folded into the exponent's FMA (the masked tiles and
-// the softcap keep the plain form). D 32 and 256 keep the plan tuned at D
-// 256; D 64 and 128 have their own (PERF.md: each choice timed against
-// its neighbours at the zoo's prefills).
+// the softcap keep the plain form); SPLIT: at Sq <= 64, key splits over
+// both warpgroups (kSplit). D 32 and 256 keep the plan tuned at D 256; D 64
+// and 128 have their own (PERF.md: each choice timed against its
+// neighbours at the zoo's prefills).
 template <int D>
 struct Plan {
   static constexpr int BK = 64, NWG = 2;
-  static constexpr bool FOLD = false;
+  static constexpr bool FOLD = false, SPLIT = false;
 };
 template <>
 struct Plan<64> {
   static constexpr int BK = 128, NWG = 3;
-  static constexpr bool FOLD = true;
+  static constexpr bool FOLD = true, SPLIT = true;
 };
 template <>
 struct Plan<128> {
   static constexpr int BK = 128, NWG = 2;
-  static constexpr bool FOLD = true;
+  static constexpr bool FOLD = true, SPLIT = false;
 };
+
+// Launch modes of the bf16 kernel, chosen by shape in launch_wgmma_cap
+// (kernel.launch_plan mirrors the choice, kernel.work_plan the schedule).
+// Either way a block takes one item: 64 NWG query rows of one (batch, q
+// head) (64 under kSplit); items are numbered longest first (the last
+// q-block of every (batch, head), then the one before, and so on), and the
+// card hands them out in that order as SMs free.
+//  kPerBlock  the NWG consumer warpgroups take 64 rows each. Persistent
+//             blocks walking static lists of items were timed at
+//             paligemma's prefill and lost to this (PERF.md): once the
+//             stores went out by TMA, little fixed cost was left to hide,
+//             and the card's order balances items of unequal length better.
+//  kSplit     (Sq <= 64) the two consumer warpgroups take alternate key
+//             tiles of the same 64 rows (the second would otherwise compute
+//             rows past Sq) with a ring of kSplitStages (two stages a
+//             warpgroup); their partials (O unnormalised, m, l) merge in
+//             shared memory into warpgroup 0's, which stores the rows. With
+//             one tile (seamless's self prefill) the second has none, and
+//             this still beat kPerBlock's second warpgroup computing rows
+//             past Sq, in turns on an H100 (PERF.md, PR 29).
+constexpr int kPerBlock = 0, kSplit = 1;
+constexpr int kSplitStages = 4;
 
 // Shared-memory images of the tiles, as the TMA boxes write them: D is cut
 // into chunks of CW columns (64, or 32 at D = 32); a chunk holds a tile's
@@ -283,8 +309,8 @@ struct Plan<128> {
 // operands: K-major for Q and K (the reduction dimension D runs along a
 // row), MN-major for V in the PV product (its N dimension D runs along a
 // row). NWG: the block's consumer warpgroups (the plan's, or two for a
-// short query sequence: short_block).
-template <int D, int NWG>
+// short query sequence: short_block). MODE: the launch mode.
+template <int D, int NWG, int MODE = kPerBlock>
 struct Tile {
   using P = Plan<D>;
   static constexpr int CW = D < 64 ? D : 64;
@@ -295,7 +321,8 @@ struct Tile {
   static constexpr int KV_CHUNK_B = P::BK * ROW_B;
   static constexpr int KV_BYTES = NCH * KV_CHUNK_B;
   static constexpr uint64_t LAYOUT = ROW_B == 128 ? 1 : 2;   // descriptor: B128 or B64
-  static constexpr int BQ = NWG * kWgRows;                    // query rows a block
+  static constexpr int BQ = MODE == kSplit ? kWgRows : NWG * kWgRows;   // query rows an item
+  static constexpr int ST = MODE == kSplit ? kSplitStages : kStages;     // ring stages
   static constexpr int THREADS = 128 * (1 + NWG);             // producer warpgroup + consumers
   // Registers a thread after setmaxnreg: the producer's warpgroup gives up
   // all but 24, the consumers take what the SM's 64 K leave (240 of two,
@@ -303,10 +330,16 @@ struct Tile {
   static_assert(NWG == 2 || NWG == 3, "two or three consumer warpgroups");
   static constexpr int PRODUCER_REGS = 24;
   static constexpr int CONSUMER_REGS = NWG == 2 ? 240 : 160;
-  // Q (every warpgroup's rows), the K and V rings, 1 + 4 kStages mbarriers,
-  // and the slack to align the base to the swizzle pattern's 1024 bytes.
-  static constexpr size_t SMEM =
-      1024 + (size_t)NWG * Q_BYTES + (size_t)2 * kStages * KV_BYTES + 8 * (1 + 4 * kStages);
+  // kSplit: warpgroup 1's partial in f32, O (D/2 a thread) then m and l
+  // of a thread's two rows, at float (i * 128 + thread).
+  static constexpr int PART_B = MODE == kSplit ? 128 * (D / 2 + 4) * 4 : 0;
+  // mbarriers: Q full a warpgroup, K and V full and empty a stage.
+  static constexpr int NBAR = NWG + 4 * ST;
+  // Q (every warpgroup's rows), the K and V rings, the partial, the
+  // mbarriers, and the slack to align the base to the swizzle pattern's
+  // 1024 bytes.
+  static constexpr size_t SMEM = 1024 + (size_t)NWG * Q_BYTES + (size_t)2 * ST * KV_BYTES +
+                                 (size_t)PART_B + 8 * NBAR;
 };
 
 // A plan of three consumer warpgroups runs two when the query sequence fits
@@ -324,6 +357,28 @@ __device__ __forceinline__ void named_sync(int id) {
 }
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A TMA store of one box of a 4-D tensor map from shared memory, its
+// commit, and the wait until every committed store has read its source.
+// Threads that wrote the source first make their writes visible to the
+// async proxy (fence.proxy.async) and meet at a barrier.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_commit_and_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -640,44 +695,103 @@ __device__ __forceinline__ void to_p(const float (&s)[N], uint32_t (&p)[N / 8][4
     for (int j = 0; j < 4; ++j) p[ks][j] = pack_bf16(s[8 * ks + 2 * j], s[8 * ks + 2 * j + 1]);
 }
 
-// One block: 64 NWG query rows of one (batch, q head). Warpgroup 0 is the
-// producer (one thread issues every TMA load); warpgroups 1..NWG are the
-// consumers, 64 rows each. Tiles run from the block's last KV tile down to
-// its first, so the tiles that cross the diagonal come first.
-template <int D, bool CAP, int NWG>
-__global__ void __launch_bounds__(Tile<D, NWG>::THREADS, 1)
+// kSplit: a consumer thread's partial (its fragment's unnormalised O, and
+// m and l of its two rows) in a shared-memory image of a warpgroup's, at
+// float (i * 128 + tid): O[i] for i < N, then m[0..1], then l[0..1].
+template <int N>
+__device__ __forceinline__ void put_part(float* part, int tid, const float (&acc)[N],
+                                         const float (&m)[2], const float (&l)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) part[i * 128 + tid] = acc[i];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    part[(N + r) * 128 + tid] = m[r];
+    part[(N + 2 + r) * 128 + tid] = l[r];
+  }
+}
+
+// The partial that put_part laid out at `part` merged into this thread's:
+// each side scaled by 2^((m - M) u), M the larger m (u: the log2 units of
+// m). A side whose m is -1e30 (no valid key yet) is wiped wherever the
+// other has one.
+template <int N>
+__device__ __forceinline__ void merge_part(const float* part, int tid, float u, float (&acc)[N],
+                                           float (&m)[2], float (&l)[2]) {
+  float c1[2], c2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m2 = part[(N + r) * 128 + tid], mx = fmaxf(m[r], m2);
+    c1[r] = ex2((m[r] - mx) * u);
+    c2[r] = ex2((m2 - mx) * u);
+    l[r] = l[r] * c1[r] + part[(N + 2 + r) * 128 + tid] * c2[r];
+    m[r] = mx;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    acc[i] = acc[i] * c1[(i >> 1) & 1] + part[i * 128 + tid] * c2[(i >> 1) & 1];
+}
+
+// Item t (longest first) of a launch: its (batch, head), first query row,
+// and its KV tiles: nb tiles from key `last` down, BK apart.
+struct Item {
+  int b, h, q0, last, nb;
+};
+
+template <int D, int NWG, int MODE>
+__device__ __forceinline__ Item work_item(int t, int Sq, int Skv, int Hq, int BH, int causal,
+                                          int window, int prefix) {
+  using T = Tile<D, NWG, MODE>;
+  constexpr int kBK = Plan<D>::BK;
+  const int nqb = (Sq + T::BQ - 1) / T::BQ, bh = t % BH;
+  Item it;
+  it.b = bh / Hq;
+  it.h = bh % Hq;
+  it.q0 = (nqb - 1 - t / BH) * T::BQ;
+  int lo, hi;
+  kv_range(it.q0, min(it.q0 + T::BQ, Sq), Skv, causal, window, prefix, kBK, lo, hi);
+  it.nb = (hi - lo + kBK - 1) / kBK;
+  it.last = lo + (it.nb - 1) * kBK;
+  return it;
+}
+
+// One block: item blockIdx.x. Warpgroup 0 is the producer (one thread
+// issues every TMA load); warpgroups 1..NWG are the consumers, 64 rows
+// each (kSplit: the same 64 rows, alternate tiles). Tiles run from the
+// item's last KV tile down to its first, so the tiles that cross the
+// diagonal come first.
+template <int D, bool CAP, int NWG, int MODE>
+__global__ void __launch_bounds__(Tile<D, NWG, MODE>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
-                   const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                   int Sq, int Skv, int Hq, int Hkv, float mul, float cap2, int causal,
-                   int window, int prefix) {
-  using T = Tile<D, NWG>;
-  constexpr int kBK = Plan<D>::BK, kNWG = NWG;
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_o, int B, int Sq, int Skv, int Hq,
+                   int Hkv, float mul, float cap2, int causal, int window, int prefix) {
+  using T = Tile<D, NWG, MODE>;
+  constexpr int kBK = Plan<D>::BK, kNWG = NWG, kST = T::ST;
+  constexpr bool kSplitMode = MODE == kSplit;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sQ = base, sK = sQ + kNWG * T::Q_BYTES, sV = sK + kStages * T::KV_BYTES;
-  const uint32_t bars = sV + kStages * T::KV_BYTES;
-  const uint32_t barQ = bars;
-  auto full_k = [&](int s) { return bars + 8u * (1 + s); };
-  auto full_v = [&](int s) { return bars + 8u * (1 + kStages + s); };
-  auto empty_k = [&](int s) { return bars + 8u * (1 + 2 * kStages + s); };
-  auto empty_v = [&](int s) { return bars + 8u * (1 + 3 * kStages + s); };
-
-  const int b = blockIdx.x / Hq, h = blockIdx.x % Hq, kvh = h / (Hq / Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * T::BQ;   // the longest causal blocks first
-  int lo, hi;
-  kv_range(q0, min(q0 + T::BQ, Sq), Skv, causal, window, prefix, kBK, lo, hi);
-  const int n = (hi - lo + kBK - 1) / kBK;             // tiles; tile i starts at key kt(i)
-  const int last = lo + (n - 1) * kBK;
-  auto kt = [&](int i) { return last - i * kBK; };
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base, sK = sQ + kNWG * T::Q_BYTES, sV = sK + kST * T::KV_BYTES;
+  const uint32_t sW = sV + kST * T::KV_BYTES;   // kSplit: warpgroup 1's partial
+  const uint32_t bars = sW + T::PART_B;
+  auto q_full = [&](int w) { return bars + 8u * w; };
+  auto full_k = [&](int s) { return bars + 8u * (kNWG + s); };
+  auto full_v = [&](int s) { return bars + 8u * (kNWG + kST + s); };
+  auto empty_k = [&](int s) { return bars + 8u * (kNWG + 2 * kST + s); };
+  auto empty_v = [&](int s) { return bars + 8u * (kNWG + 3 * kST + s); };
+  const Item it = work_item<D, NWG, MODE>(blockIdx.x, Sq, Skv, Hq, B * Hq, causal, window,
+                                          prefix);
 
   if (threadIdx.x == 0) {
-    mbar_init(barQ, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int w = 0; w < kNWG; ++w) mbar_init(q_full(w), 1);
+    for (int s = 0; s < kST; ++s) {
       mbar_init(full_k(s), 1);
       mbar_init(full_v(s), 1);
-      mbar_init(empty_k(s), kNWG);   // one arrival from each consumer warpgroup
-      mbar_init(empty_v(s), kNWG);
+      // one arrival from each consumer warpgroup (kSplit: from the one
+      // that takes the tile)
+      mbar_init(empty_k(s), kSplitMode ? 1 : kNWG);
+      mbar_init(empty_v(s), kSplitMode ? 1 : kNWG);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -685,41 +799,47 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
-    // ---- producer: K of tile i+1 goes out before V of tile i, which the
-    // consumers need one step later.
+    // ---- producer: each warpgroup's Q, then K of tile i+1 before V of
+    // tile i, which the consumers need one step later.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(T::PRODUCER_REGS));
-    if (threadIdx.x == 0 && n > 0) {
-      mbar_expect_tx(barQ, kNWG * T::Q_BYTES);
-      for (int w = 0; w < kNWG; ++w)
+    if (threadIdx.x == 0) {
+      for (int w = 0; w < kNWG; ++w) {
+        mbar_expect_tx(q_full(w), T::Q_BYTES);
         for (int c = 0; c < T::NCH; ++c)
-          tma_load(sQ + w * T::Q_BYTES + c * T::Q_CHUNK_B, &tm_q, barQ, c * T::CW, h,
-                   q0 + kWgRows * w, b);
-      auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full, uint32_t empty,
-                      int i) {
-        mbar_wait(empty, ((i / kStages) & 1) ^ 1);
+          tma_load(sQ + w * T::Q_BYTES + c * T::Q_CHUNK_B, &tm_q, q_full(w), c * T::CW, it.h,
+                   it.q0 + (kSplitMode ? 0 : kWgRows * w), it.b);
+      }
+      auto load = [&](const CUtensorMap* map, uint32_t ring, bool is_k, int i) {
+        const int st = i % kST;
+        mbar_wait(is_k ? empty_k(st) : empty_v(st), ((i / kST) & 1) ^ 1);
+        const uint32_t full = is_k ? full_k(st) : full_v(st);
         mbar_expect_tx(full, T::KV_BYTES);
-        const uint32_t dst = ring + (i % kStages) * T::KV_BYTES;
         for (int c = 0; c < T::NCH; ++c)
-          tma_load(dst + c * T::KV_CHUNK_B, map, full, c * T::CW, kvh, kt(i), b);
+          tma_load(ring + st * T::KV_BYTES + c * T::KV_CHUNK_B, map, full, c * T::CW,
+                   it.h / (Hq / Hkv), it.last - i * kBK, it.b);
       };
-      load(&tm_k, sK, full_k(0), empty_k(0), 0);
-      for (int i = 0; i < n; ++i) {
-        if (i + 1 < n)
-          load(&tm_k, sK, full_k((i + 1) % kStages), empty_k((i + 1) % kStages), i + 1);
-        load(&tm_v, sV, full_v(i % kStages), empty_v(i % kStages), i);
+      if (it.nb > 0) load(&tm_k, sK, true, 0);
+      for (int i = 0; i < it.nb; ++i) {
+        if (i + 1 < it.nb) load(&tm_k, sK, true, i + 1);
+        load(&tm_v, sV, false, i);
       }
     }
   } else {
-    // ---- consumers. Step i issues S_i = Q K_i^T and O += P_{i-1} V_{i-1}
-    // together, then runs the softmax of S_i while the PV product is in
+    // ---- consumers. Step v issues S_v = Q K_v^T and O += P_{v-1} V_{v-1}
+    // together, then runs the softmax of S_v while the PV product is in
     // flight, then rescales O. The warpgroups take turns to issue (named
     // barrier 1 + cw waits for this one's turn, 1 + (cw + 1) % NWG passes it
-    // on), so one's softmax overlaps the others' products.
+    // on), so one's softmax overlaps the others' products; under kSplit
+    // they run different tiles, without turns.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::CONSUMER_REGS));
     const int cw = wg - 1, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int c0 = 2 * (lane % 4);
-    const int rmin = q0 + kWgRows * cw, ra = rmin + 16 * warp + lane / 4;
     const uint32_t sQw = sQ + cw * T::Q_BYTES;
+    const int next = 1 + (cw + 1) % kNWG;
+    const int i0 = kSplitMode ? cw : 0, di = kSplitMode ? 2 : 1;   // this warpgroup's tiles
+    // log2 units of m: the raw scores' scale under FOLD without a softcap
+    const float u = Plan<D>::FOLD && !CAP ? mul : 1.f;
+    const int rmin = it.q0 + (kSplitMode ? 0 : kWgRows * cw), ra = rmin + 16 * warp + lane / 4;
     // this thread's rows' key bounds, less its first column c0
     int klo[2], khi[2];
 #pragma unroll
@@ -728,7 +848,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       klo[r] -= c0;
       khi[r] -= c0;
     }
-    const int next = 1 + (cw + 1) % kNWG;
     // Tiles that need no mask: every key before Skv, at or below the
     // diagonal of every row of this warpgroup or wholly inside the prefix,
     // and inside its window.
@@ -737,89 +856,124 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
              (causal && ((k0 + kBK - 1 > rmin && k0 + kBK > prefix) ||
                          (window > 0 && rmin + kWgRows - 1 - k0 >= window)));
     };
-    float acc[D / 2], s[kBK / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2], psum[2];
+    const int cnt = it.nb > i0 ? (it.nb - i0 + di - 1) / di : 0;
+    auto key = [&](int v) { return it.last - (i0 + v * di) * kBK; };   // its v-th tile's
+    auto slot = [&](int v) { return i0 + v * di; };                    // and the item's count
+    float acc[D / 2], s[kBK / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2],
+        psum[2];
     uint32_t p[kBK / 16][4];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-    if (n > 0) {
-      if (cw == kNWG - 1) named_arrive(1);   // warpgroup 0 issues first
-      mbar_wait(barQ, 0);
-      mbar_wait(full_k(0), 0);
-      named_sync(1 + cw);
+    mbar_wait(q_full(cw), 0);
+    if (cnt > 0) {
+      if (!kSplitMode && cw == kNWG - 1) named_arrive(1);   // warpgroup 0 issues first
+      const int r0 = slot(0);
+      mbar_wait(full_k(r0 % kST), (r0 / kST) & 1);
+      if (!kSplitMode) named_sync(1 + cw);
       wgmma_fence();
-      gemm_qk<D>(s, sQw, sK);
-      named_arrive(next);
+      gemm_qk<D>(s, sQw, sK + (r0 % kST) * T::KV_BYTES);
+      if (!kSplitMode) named_arrive(next);
       wgmma_wait<0>();
       pin(s);
-      if (tid == 0) mbar_arrive(empty_k(0));
-      softmax_step<D, CAP>(masked(kt(0)), s, mul, cap2, kt(0), klo, khi, m, corr, psum);
+      if (tid == 0) mbar_arrive(empty_k(r0 % kST));
+      softmax_step<D, CAP>(masked(key(0)), s, mul, cap2, key(0), klo, khi, m, corr, psum);
       l[0] = psum[0];
       l[1] = psum[1];
       to_p(s, p);
 
-      for (int i = 1; i < n; ++i) {
-        const int sk = i % kStages, sv = (i - 1) % kStages;
-        mbar_wait(full_k(sk), (i / kStages) & 1);
-        mbar_wait(full_v(sv), ((i - 1) / kStages) & 1);
-        named_sync(1 + cw);
+      for (int v = 1; v < cnt; ++v) {
+        const int rk = slot(v), rv = slot(v - 1), sk = rk % kST, sv = rv % kST;
+        mbar_wait(full_k(sk), (rk / kST) & 1);
+        mbar_wait(full_v(sv), (rv / kST) & 1);
+        if (!kSplitMode) named_sync(1 + cw);
         wgmma_fence();
         gemm_qk<D>(s, sQw, sK + sk * T::KV_BYTES);
         gemm_pv<D>(acc, p, sV + sv * T::KV_BYTES);
-        named_arrive(next);
+        if (!kSplitMode) named_arrive(next);
         wgmma_wait<1>();
         pin(s);
         if (tid == 0) mbar_arrive(empty_k(sk));
-        softmax_step<D, CAP>(masked(kt(i)), s, mul, cap2, kt(i), klo, khi, m, corr, psum);
+        softmax_step<D, CAP>(masked(key(v)), s, mul, cap2, key(v), klo, khi, m, corr, psum);
         wgmma_wait<0>();
         pin(acc);
         pin(p);
         if (tid == 0) mbar_arrive(empty_v(sv));
         if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-          for (int j = 0; j < D / 2; ++j) acc[j] *= corr[(j >> 1) & 1];
+          for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
         }
         l[0] = l[0] * corr[0] + psum[0];
         l[1] = l[1] * corr[1] + psum[1];
         to_p(s, p);
       }
 
-      const int sv = (n - 1) % kStages;
-      mbar_wait(full_v(sv), ((n - 1) / kStages) & 1);
-      named_sync(1 + cw);
+      const int rv = slot(cnt - 1), sv = rv % kST;
+      mbar_wait(full_v(sv), (rv / kST) & 1);
+      if (!kSplitMode) named_sync(1 + cw);
       wgmma_fence();
       gemm_pv<D>(acc, p, sV + sv * T::KV_BYTES);
-      if (cw != kNWG - 1) named_arrive(next);   // the last warpgroup's turn passes to no one
+      // the last warpgroup's turn passes to no one
+      if (!kSplitMode && cw != kNWG - 1) named_arrive(next);
       wgmma_wait<0>();
       pin(acc);
       pin(p);
     }
 
-    // Epilogue: the rows' sums over the quad, O / l rounded to bf16, rows
-    // past Sq not stored.
+    if constexpr (kSplitMode) {
+      // warpgroup 1's partial merges into warpgroup 0's, which stores
+      float* wpart = reinterpret_cast<float*>(smem_raw + (sW - raw));
+      if (cw == 1) {
+        put_part(wpart, tid, acc, m, l);
+        named_arrive(1);
+        return;
+      }
+      named_sync(1);
+      merge_part(wpart, tid, u, acc, m, l);
+    }
+
+    // Epilogue: the rows' sums over the quad; O / l rounded to bf16 into
+    // this warpgroup's Q buffer (every QK product has read it) as the Q
+    // map's boxes lay it out (chunks of CW columns, rows swizzled: the
+    // 16-byte unit of a row XORed with the row's place in its 1024- or
+    // 512-byte pattern), then one TMA store a chunk of its 64 rows, which
+    // drops rows past Sq. Direct 4-byte stores, 8 rows a warp instruction,
+    // took ~16 us of paligemma's prefill on an H100 (PERF.md).
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       l[r] = 1.f / fmaxf(l[r], 1e-30f);
     }
-    const size_t q_row = (size_t)Hq * D;
+    constexpr uint32_t kSwz = T::ROW_B == 128 ? 7 : 3;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int qpos = ra + 8 * r;
-      if (qpos >= Sq) continue;
-      __nv_bfloat16* op = o + ((size_t)b * Sq + qpos) * q_row + (size_t)h * D + c0;
+      const uint32_t row = 16 * warp + lane / 4 + 8 * r;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<uint32_t*>(op + 8 * j) =
-            pack_bf16(acc[4 * j + 2 * r] * l[r], acc[4 * j + 2 * r + 1] * l[r]);
+      for (int i = 0; i < D / 8; ++i) {
+        const int col = c0 + 8 * i;
+        const uint32_t off = row * T::ROW_B + (col % T::CW) * 2;
+        const uint32_t val = pack_bf16(acc[4 * i + 2 * r] * l[r], acc[4 * i + 2 * r + 1] * l[r]);
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(sQw + (col / T::CW) * T::Q_CHUNK_B +
+                                                       (off ^ (((off >> 7) & kSwz) << 4))),
+                     "r"(val)
+                     : "memory");
+      }
+    }
+    fence_proxy_async();
+    bar_sync(5 + cw, 128);   // this warpgroup's rows are in shared memory
+    if (tid == 0) {
+      for (int c = 0; c < T::NCH; ++c)
+        tma_store(&tm_o, sQw + c * T::Q_CHUNK_B, c * T::CW, it.h, rmin, it.b);
+      tma_store_commit_and_wait_read();   // before the block's shared memory goes
     }
   }
 }
 
 // A 4-D map over a (B, S, H, D) bf16 tensor, innermost first, with a box of
 // CW columns of one head and `rows` rows, swizzled as Tile<D, *> lays it
-// out. Rows past S read as zeros; the next sequence is never read.
+// out. Rows past S read as zeros and are dropped by a store; the next
+// sequence is never read or written.
 template <int D>
 cudaError_t tensor_map(CUtensorMap* map, EncodeTiledFn encode, const void* ptr, int B, int S,
                        int H, int rows) {
@@ -852,32 +1006,40 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   return cudaGetLastError();
 }
 
-template <int D, bool CAP, int NWG>
-cudaError_t launch_wgmma_nwg(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                             void* o, int B, int Sq, int Skv, int Hq, int Hkv, float mul,
-                             float cap2, int causal, int window, int prefix, cudaStream_t st) {
-  using T = Tile<D, NWG>;
+template <int D, bool CAP, int NWG, int MODE>
+cudaError_t launch_wgmma_mode(const CUtensorMap& tq, const CUtensorMap& tk,
+                              const CUtensorMap& tv, const CUtensorMap& to, int B, int Sq, int Skv,
+                              int Hq, int Hkv, float mul, float cap2, int causal, int window,
+                              int prefix, cudaStream_t st) {
+  using T = Tile<D, NWG, MODE>;
+  static_assert(T::SMEM <= 232448, "Q, the ring, the partial and the barriers fit 227 KB");
   static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = allow_smem(flash_wgmma_kernel<D, CAP, NWG>, (int)T::SMEM, smem_set);
+  cudaError_t err = allow_smem(flash_wgmma_kernel<D, CAP, NWG, MODE>, (int)T::SMEM, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * Hq, (Sq + T::BQ - 1) / T::BQ);
-  flash_wgmma_kernel<D, CAP, NWG><<<grid, T::THREADS, T::SMEM, st>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hkv, mul, cap2, causal, window,
-      prefix);
+  const int items = B * Hq * ((Sq + T::BQ - 1) / T::BQ);
+  flash_wgmma_kernel<D, CAP, NWG, MODE><<<items, T::THREADS, T::SMEM, st>>>(
+      tq, tk, tv, to, B, Sq, Skv, Hq, Hkv, mul, cap2, causal, window, prefix);
   return cudaGetLastError();
 }
 
+// The launch mode by shape (kernel.launch_plan): kSplit at Sq <= 64 under a
+// plan with SPLIT; else kPerBlock, with two warpgroups where a plan of three
+// meets a short sequence (short_block).
 template <int D, bool CAP>
 cudaError_t launch_wgmma_cap(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                             void* o, int B, int Sq, int Skv, int Hq, int Hkv, float mul,
-                             float cap2, int causal, int window, int prefix, cudaStream_t st) {
-  if constexpr (Plan<D>::NWG == 3) {
-    if (short_block<D>(Sq))
-      return launch_wgmma_nwg<D, CAP, 2>(tq, tk, tv, o, B, Sq, Skv, Hq, Hkv, mul, cap2, causal,
-                                         window, prefix, st);
+                             const CUtensorMap& to, int B, int Sq, int Skv, int Hq, int Hkv,
+                             float mul, float cap2, int causal, int window, int prefix,
+                             cudaStream_t st) {
+  using P = Plan<D>;
+#define MODE_ARGS tq, tk, tv, to, B, Sq, Skv, Hq, Hkv, mul, cap2, causal, window, prefix, st
+  if constexpr (P::SPLIT) {
+    if (Sq <= kWgRows) return launch_wgmma_mode<D, CAP, 2, kSplit>(MODE_ARGS);
   }
-  return launch_wgmma_nwg<D, CAP, Plan<D>::NWG>(tq, tk, tv, o, B, Sq, Skv, Hq, Hkv, mul, cap2,
-                                                causal, window, prefix, st);
+  if constexpr (P::NWG == 3) {
+    if (short_block<D>(Sq)) return launch_wgmma_mode<D, CAP, 2, kPerBlock>(MODE_ARGS);
+  }
+  return launch_wgmma_mode<D, CAP, P::NWG, kPerBlock>(MODE_ARGS);
+#undef MODE_ARGS
 }
 
 template <int D>
@@ -887,16 +1049,17 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
   EncodeTiledFn encode;
   cudaError_t err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
-  CUtensorMap tq, tk, tv;
+  CUtensorMap tq, tk, tv, to;   // the output's map is the queries' (same shape and boxes)
   constexpr int kBK = Plan<D>::BK;
   if ((err = tensor_map<D>(&tq, encode, q, B, Sq, Hq, kWgRows)) != cudaSuccess) return err;
   if ((err = tensor_map<D>(&tk, encode, k, B, Skv, Hkv, kBK)) != cudaSuccess) return err;
   if ((err = tensor_map<D>(&tv, encode, v, B, Skv, Hkv, kBK)) != cudaSuccess) return err;
+  if ((err = tensor_map<D>(&to, encode, o, B, Sq, Hq, kWgRows)) != cudaSuccess) return err;
   if (softcap != 0.f)
-    return launch_wgmma_cap<D, true>(tq, tk, tv, o, B, Sq, Skv, Hq, Hkv,
+    return launch_wgmma_cap<D, true>(tq, tk, tv, to, B, Sq, Skv, Hq, Hkv,
                                      2.f * kLog2e * scale / softcap, softcap * kLog2e, causal,
                                      window, prefix, st);
-  return launch_wgmma_cap<D, false>(tq, tk, tv, o, B, Sq, Skv, Hq, Hkv, scale * kLog2e, 0.f,
+  return launch_wgmma_cap<D, false>(tq, tk, tv, to, B, Sq, Skv, Hq, Hkv, scale * kLog2e, 0.f,
                                     causal, window, prefix, st);
 }
 

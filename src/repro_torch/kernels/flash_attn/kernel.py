@@ -23,11 +23,13 @@ WG_ROWS = 64      # query rows a consumer warpgroup
 class Plan:
     """The bf16 kernel's plan at one head dim (``Plan<D>`` in
     ``flash_attn.cu``): keys a tile, consumer warpgroups of WG_ROWS query
-    rows, and the row maximum on the raw scores with the scale folded into
-    the exponent's FMA."""
+    rows, the row maximum on the raw scores with the scale folded into the
+    exponent's FMA, and key splits over both warpgroups at Sq <= WG_ROWS
+    (``split``; ``launch_plan`` gives the mode a shape takes)."""
     block_k: int
     warpgroups: int
     fold: bool
+    split: bool = False
 
     @property
     def block_q(self) -> int:
@@ -36,9 +38,10 @@ class Plan:
 
 # D 32 and 256 share the plan tuned at D 256; D 64 and 128 have their own.
 _D256_PLAN = Plan(block_k=64, warpgroups=2, fold=False)
-PLANS = {32: _D256_PLAN, 64: Plan(block_k=128, warpgroups=3, fold=True),
+PLANS = {32: _D256_PLAN, 64: Plan(block_k=128, warpgroups=3, fold=True, split=True),
          128: Plan(block_k=128, warpgroups=2, fold=True), 256: _D256_PLAN}
-STAGES = 2        # K and V ring stages
+STAGES = 2        # K and V ring stages (kStages)
+SPLIT_STAGES = 4  # the ring's stages under key splits (kSplitStages)
 # D 256's tiles: a block takes BLOCK_Q query rows, WG_ROWS to a consumer
 # warpgroup, and walks its keys in tiles of BLOCK_K (``tile_plan``'s default)
 BLOCK_Q, BLOCK_K = _D256_PLAN.block_q, _D256_PLAN.block_k
@@ -86,6 +89,43 @@ def tile_plan(sq: int, skv: int, causal: bool = True, window: int = 0, prefix_le
             wgs.append((row0, [(k0, masked(k0)) for k0 in starts]))
         plan.append((q0, wgs))
     return plan
+
+
+def launch_plan(batch: int, heads: int, sq: int, skv: int, causal: bool = True, window: int = 0,
+                prefix_len: int = 0, head_dim: int = 256):
+    """The bf16 kernel's launch at a shape, as ``launch_wgmma_cap`` chooses
+    it: (mode, consumer warpgroups, blocks), one block an item. Modes:
+    "split" at Sq <= WG_ROWS under a plan with ``split`` (both warpgroups on
+    alternate key tiles of the same rows); else "per block"."""
+    if PLANS[head_dim].split and sq <= WG_ROWS:
+        return "split", 2, batch * heads
+    wgs = block_warpgroups(head_dim, sq)
+    return "per block", wgs, batch * heads * -(-sq // (WG_ROWS * wgs))
+
+
+def work_plan(batch: int, heads: int, sq: int, skv: int, causal: bool = True, window: int = 0,
+              prefix_len: int = 0, head_dim: int = 256):
+    """Each block's item in launch order (``flash_wgmma_kernel`` under
+    ``launch_plan``'s mode), longest first: the last q-block of every
+    (batch, head), then the one before, ... An item's tiles are
+    ``tile_plan``'s for its q-block; under "split" the item is the 64 rows
+    of one (batch, head), and warpgroup w takes every other of its tiles
+    from the w-th.
+    Returns ``[(bh, q0, [(row0, [(k0, masked), ...]), ...]), ...]`` a block,
+    bh = batch * heads + head."""
+    mode = launch_plan(batch, heads, sq, skv, causal, window, prefix_len, head_dim)[0]
+    per_q = dict(tile_plan(sq, skv, causal, window, prefix_len, head_dim))
+    q0s = [0] if mode == "split" else sorted(per_q, reverse=True)
+    bh_n = batch * heads
+    blocks = []
+    for t in range(bh_n * len(q0s)):
+        bh, q0 = t % bh_n, q0s[t // bh_n]
+        wgs = per_q[q0]
+        if mode == "split":
+            tiles = wgs[0][1]                  # descending keys
+            wgs = [(q0, tiles[w::2]) for w in range(2)]
+        blocks.append((bh, q0, wgs))
+    return blocks
 
 
 @functools.cache

@@ -188,77 +188,187 @@ def _source_plans():
 
 
 def test_plans_match_the_source():
-    """``kernel.PLANS`` is ``Plan<D>`` of ``flash_attn.cu`` at every head dim,
-    and ``kernel.STAGES`` its ring's depth."""
-    assert f"constexpr int kStages = {FK.STAGES};" in _build.source("flash_attn").read_text()
+    """``kernel.PLANS`` is ``Plan<D>`` of ``flash_attn.cu`` at every head dim
+    (with the split launch it allows), and ``kernel.STAGES`` and
+    ``SPLIT_STAGES`` the source's ring depths of the two launches."""
+    text = _build.source("flash_attn").read_text()
+    assert f"constexpr int kStages = {FK.STAGES};" in text
+    assert f"constexpr int kSplitStages = {FK.SPLIT_STAGES};" in text
     src = _source_plans()
     for d in FK.HEAD_DIMS:
         fields = src.get(d, src["default"])
         p = FK.PLANS[d]
-        assert (int(fields["BK"]), int(fields["NWG"]), fields["FOLD"] == "true") == \
-            (p.block_k, p.warpgroups, p.fold), d
+        assert (int(fields["BK"]), int(fields["NWG"]), fields["FOLD"] == "true",
+                fields["SPLIT"] == "true") == (p.block_k, p.warpgroups, p.fold, p.split), d
         # shared memory: Q, the K and V rings and the mbarriers within 227 KB
         st = FK.STAGES
-        smem = 1024 + p.block_q * d * 2 + 2 * st * p.block_k * d * 2 + 8 * (1 + 4 * st)
+        smem = (1024 + p.block_q * d * 2 + 2 * st * p.block_k * d * 2
+                + 8 * (p.warpgroups + 4 * st))
         assert smem <= 232448 and p.block_k <= 256 and p.warpgroups in (2, 3)
+        if p.split:   # two warpgroups' Q, the deeper ring and one partial
+            st = FK.SPLIT_STAGES
+            smem = (1024 + 2 * FK.WG_ROWS * d * 2 + 2 * st * p.block_k * d * 2
+                    + 128 * (d // 2 + 4) * 4 + 8 * (2 + 4 * st))
+            assert smem <= 232448 and st % 2 == 0
+
+
+# (batch, heads, sq, skv, causal, window, prefix, head_dim): paligemma's
+# prefill (256 items) and seamless's cross prefill (split: 64 items; at
+# batch 1, 16), then the edges of phase 2's cases: Sq 63 against a ragged
+# 4,001, Sq 1, four heads, Sq 33 against 700, 192 split items, the D 256
+# and D 32 plans with a window, non-causal Sq != Skv, prefixes of 300 and
+# 256 at 1,000 tokens, causal Sq <= 64 at D 64 with a prefix and seamless's
+# self prefill (one tile: warpgroup 1 has none), and gemma2's local layer
+WORK_CASES = [(4, 8, 1024, 1024, True, 0, 256, 256), (4, 16, 64, 4096, False, 0, 0, 64),
+              (1, 16, 64, 4096, False, 0, 0, 64),
+              (4, 16, 63, 4001, False, 0, 0, 64), (4, 16, 1, 4096, False, 0, 0, 64),
+              (1, 4, 64, 4096, False, 0, 0, 64), (2, 16, 33, 700, False, 0, 0, 64),
+              (12, 16, 50, 1000, False, 0, 0, 64), (4, 8, 1000, 1000, True, 300, 0, 256),
+              (4, 8, 700, 900, False, 0, 0, 256), (4, 8, 600, 600, True, 0, 0, 32),
+              (4, 8, 1000, 1000, True, 0, 300, 256), (2, 24, 50, 50, True, 0, 40, 64),
+              (2, 24, 64, 64, True, 0, 0, 64), (1, 8, 4608, 4608, True, 4096, 0, 256)]
+
+
+@pytest.mark.parametrize("batch,heads,sq,skv,causal,window,prefix,head_dim", WORK_CASES)
+def test_work_plan_covers_each_allowed_pair_once(batch, heads, sq, skv, causal, window, prefix,
+                                                head_dim):
+    """Over every block and warpgroup of ``work_plan``, each (batch, head)
+    reaches each pair the mask allows exactly once and unmasked tiles hold
+    only allowed pairs; one block an item, longest first across the grid;
+    under "split" both warpgroups on the same rows, with alternate tiles."""
+    mode, wgs, grid = FK.launch_plan(batch, heads, sq, skv, causal, window, prefix, head_dim)
+    blocks = FK.work_plan(batch, heads, sq, skv, causal, window, prefix, head_dim)
+    assert len(blocks) == grid
+    bk = FK.PLANS[head_dim].block_k
+    allowed = _allowed(sq, skv, causal, window, prefix)
+    by_bh = {}
+    for bh, q0, wl in blocks:
+        by_bh.setdefault(bh, []).append(wl)
+    assert sorted(by_bh) == list(range(batch * heads))
+    for bh, wls in by_bh.items():
+        cover = np.zeros((sq, skv), np.int16)
+        bad = 0
+        for wl in wls:
+            assert len(wl) == wgs
+            for row0, tiles in wl:
+                rows = slice(row0, min(row0 + FK.WG_ROWS, sq))
+                for k0, masked in tiles:
+                    keys = slice(k0, min(k0 + bk, skv))
+                    cover[rows, keys] += 1
+                    if not masked:
+                        bad += int((~allowed[rows, keys]).sum())
+        assert (cover[allowed] == 1).all() and bad == 0, bh
+    if mode == "split":
+        # both warpgroups on the same rows, alternate tiles, warpgroup 0 the first
+        assert all(wl[0][0] == wl[1][0] == 0 and len(wl[0][1]) - 1 <= len(wl[1][1])
+                   <= len(wl[0][1]) for wls in by_bh.values() for wl in wls)
+    # longest first across the grid
+    sizes = [max(len(ts) for _, ts in wl) for _, _, wl in blocks]
+    assert sizes == sorted(sizes, reverse=True)
+
+
+@pytest.mark.parametrize("batch,heads,sq,skv,causal,prefix,head_dim,want", [
+    (4, 8, 1024, 1024, True, 256, 256, ("per block", 2, 256)),     # paligemma's prefill
+    (4, 16, 64, 4096, False, 0, 64, ("split", 2, 64)),             # seamless's cross prefill
+    (1, 16, 64, 4096, False, 0, 64, ("split", 2, 16)),             # ... at batch 1
+    (4, 8, 4608, 4608, True, 0, 256, ("per block", 2, 1152)),      # gemma2's prefill
+    (4, 16, 4096, 4096, False, 0, 64, ("per block", 3, 1408)),     # seamless's encoder
+    (4, 24, 4608, 4608, True, 0, 64, ("per block", 3, 2304)),      # granite's prefill
+    (2, 32, 1024, 1024, True, 0, 128, ("per block", 2, 512)),      # qwen3's prefill
+    (4, 16, 64, 64, True, 0, 64, ("split", 2, 64)),                # seamless's self prefill
+    (12, 16, 50, 1000, False, 0, 64, ("split", 2, 192))])
+def test_launch_plan_by_shape(batch, heads, sq, skv, causal, prefix, head_dim, want):
+    """The launch each main-path shape takes (``launch_wgmma_cap``): the
+    decoder prompts of seamless split their keys over both warpgroups (the
+    self prefill's one tile to warpgroup 0), every other prefill takes one
+    block of 64 rows a warpgroup."""
+    assert FK.launch_plan(batch, heads, sq, skv, causal, 0, prefix, head_dim) == want
 
 
 def _bf16(a):
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16).float().numpy()
 
 
+def _units(scale, softcap, head_dim):
+    """(mul, cap2, u, raw): the kernel's exponent scale, the softcap in log2
+    units, the log2 units of m and whether the scores stay raw."""
+    log2e = 1.4426950408889634
+    raw = FK.PLANS[head_dim].fold and not softcap
+    mul = np.float32(2 * log2e * scale / softcap if softcap else scale * log2e)
+    return mul, np.float32(softcap * log2e), mul if raw else np.float32(1), raw
+
+
+def _partial(q, k, v, row0, tiles, scale, causal, window, softcap, head_dim, prefix=0):
+    """A consumer warpgroup's walk of its ``tiles`` for rows row0.. in the
+    kernel's arithmetic: (m, l, acc) of its 64 rows, O unnormalised."""
+    bk, sq, skv = FK.PLANS[head_dim].block_k, q.shape[0], k.shape[0]
+    mul, cap2, u, raw = _units(scale, softcap, head_dim)
+    rows = row0 + np.arange(FK.WG_ROWS)
+    kk = np.arange(bk)
+    qr = np.where((rows < sq)[:, None], q[np.minimum(rows, sq - 1)], 0)
+    hi = np.full(FK.WG_ROWS, skv - 1)
+    lo = np.full(FK.WG_ROWS, -2 ** 30)
+    if causal:
+        hi = np.minimum(hi, np.maximum(rows, prefix - 1))
+        if window:
+            lo = rows - window + 1
+    m = np.full(FK.WG_ROWS, -1e30, np.float32)
+    l = np.zeros(FK.WG_ROWS, np.float32)
+    acc = np.zeros((FK.WG_ROWS, q.shape[1]), np.float32)
+    for k0, masked in tiles:
+        keys = k0 + kk
+        inside = (keys < skv)[:, None]
+        kt = np.where(inside, k[np.minimum(keys, skv - 1)], 0)
+        vt = np.where(inside, v[np.minimum(keys, skv - 1)], 0)
+        x = (qr.astype(np.float64) @ kt.T).astype(np.float32)
+        if softcap:
+            x = (cap2 - 2 * cap2 / (np.exp2(x * mul) + 1)).astype(np.float32)
+        elif not raw:
+            x = x * mul
+        if masked:
+            ok = (keys[None] >= lo[:, None]) & (keys[None] <= hi[:, None])
+            x = np.where(ok, x, np.float32(-1e30))
+        mx = np.maximum(m, x.max(1))
+        grow = (mx - m) * u > 8
+        corr = np.where(grow, np.exp2((m - mx) * u), np.float32(1)).astype(np.float32)
+        m = np.where(grow, mx, m)
+        if masked:
+            e = ((x - m[:, None]) * u).astype(np.float32)
+        else:
+            e = (x.astype(np.float64) * u - (m * u)[:, None]).astype(np.float32)
+        p = np.exp2(e).astype(np.float32)
+        acc = acc * corr[:, None] + (_bf16(p).astype(np.float64) @ vt).astype(np.float32)
+        l = l * corr + p.sum(1)
+    return m, l, acc
+
+
+def _merge(a, b, u):
+    """Two partials merged as ``merge_part`` merges them: each side scaled by
+    2^((m - M) u), M the larger m."""
+    (m1, l1, acc1), (m2, l2, acc2) = a, b
+    mx = np.maximum(m1, m2)
+    c1 = np.exp2((m1 - mx) * u).astype(np.float32)
+    c2 = np.exp2((m2 - mx) * u).astype(np.float32)
+    return (mx, (l1 * c1 + l2 * c2).astype(np.float32),
+            (acc1 * c1[:, None] + acc2 * c2[:, None]).astype(np.float32))
+
+
+def _store(out, row0, part):
+    rows = row0 + np.arange(FK.WG_ROWS)
+    keep = rows < out.shape[0]
+    _, l, acc = part
+    out[rows[keep]] = (acc / np.maximum(l, 1e-30)[:, None])[keep]
+
+
 def _walk(q, k, v, scale, causal, window, softcap, head_dim):
     """One head through ``tile_plan`` in the kernel's arithmetic: q (Sq, D),
     k and v (Skv, D) as f32 arrays of bf16 values; returns (Sq, D) f32."""
-    plan_d = FK.PLANS[head_dim]
-    bk, sq, skv = plan_d.block_k, q.shape[0], k.shape[0]
-    log2e = 1.4426950408889634
-    raw = plan_d.fold and not softcap
-    mul = np.float32(2 * log2e * scale / softcap if softcap else scale * log2e)
-    cap2 = np.float32(softcap * log2e)
-    u = mul if raw else np.float32(1)
-    rows_in = np.arange(FK.WG_ROWS)
-    kk = np.arange(bk)
+    sq, skv = q.shape[0], k.shape[0]
     out = np.zeros_like(q)
     for _, wgs in FK.tile_plan(sq, skv, causal, window, 0, head_dim):
         for row0, tiles in wgs:
-            rows = row0 + rows_in
-            qr = np.where((rows < sq)[:, None], q[np.minimum(rows, sq - 1)], 0)
-            hi = np.full(FK.WG_ROWS, skv - 1)
-            lo = np.full(FK.WG_ROWS, -2 ** 30)
-            if causal:
-                hi = np.minimum(hi, rows)
-                if window:
-                    lo = rows - window + 1
-            m = np.full(FK.WG_ROWS, -1e30, np.float32)
-            l = np.zeros(FK.WG_ROWS, np.float32)
-            acc = np.zeros((FK.WG_ROWS, q.shape[1]), np.float32)
-            for k0, masked in tiles:
-                keys = k0 + kk
-                inside = (keys < skv)[:, None]
-                kt = np.where(inside, k[np.minimum(keys, skv - 1)], 0)
-                vt = np.where(inside, v[np.minimum(keys, skv - 1)], 0)
-                x = (qr.astype(np.float64) @ kt.T).astype(np.float32)
-                if softcap:
-                    x = (cap2 - 2 * cap2 / (np.exp2(x * mul) + 1)).astype(np.float32)
-                elif not raw:
-                    x = x * mul
-                if masked:
-                    ok = (keys[None] >= lo[:, None]) & (keys[None] <= hi[:, None])
-                    x = np.where(ok, x, np.float32(-1e30))
-                mx = np.maximum(m, x.max(1))
-                grow = (mx - m) * u > 8
-                corr = np.where(grow, np.exp2((m - mx) * u), np.float32(1)).astype(np.float32)
-                m = np.where(grow, mx, m)
-                if masked:
-                    e = ((x - m[:, None]) * u).astype(np.float32)
-                else:
-                    e = (x.astype(np.float64) * u - (m * u)[:, None]).astype(np.float32)
-                p = np.exp2(e).astype(np.float32)
-                acc = acc * corr[:, None] + (_bf16(p).astype(np.float64) @ vt).astype(np.float32)
-                l = l * corr + p.sum(1)
-            keep = rows < sq
-            out[rows[keep]] = (acc / np.maximum(l, 1e-30)[:, None])[keep]
+            _store(out, row0, _partial(q, k, v, row0, tiles, scale, causal, window, softcap,
+                                       head_dim))
     return out
 
 
@@ -293,6 +403,67 @@ def test_walk_matches_repro_attention_ref(head_dim, sq, skv, causal, window, sof
                                   **args))
     got = np.stack([_bf16(_walk(q[h], k[h], v[h], scale, causal, window, softcap, head_dim))
                     for h in range(2)])
+    limit = 1e-4 + 2 ** -7 * np.abs(ref) + 2 ** -8 * pv
+    assert np.isfinite(got).all()
+    assert (np.abs(got - ref) <= limit).all(), (np.abs(got - ref) / limit).max()
+
+
+def _walk_work(q, k, v, heads, scale, causal, window, softcap, head_dim):
+    """Every head of one batch row through ``work_plan`` in the kernel's
+    arithmetic: each block's warpgroups' partials, under "split" warpgroup
+    1's merged into warpgroup 0's before the rows are stored. q (heads, Sq,
+    D), k and v (heads, Skv, D); returns (heads, Sq, D) f32."""
+    prefix = 0
+    sq, skv = q.shape[1], k.shape[1]
+    mode = FK.launch_plan(1, heads, sq, skv, causal, window, prefix, head_dim)[0]
+    u = _units(scale, softcap, head_dim)[2]
+    out = np.zeros_like(q)
+    for bh, q0, wl in FK.work_plan(1, heads, sq, skv, causal, window, prefix, head_dim):
+        args = (scale, causal, window, softcap, head_dim, prefix)
+        parts = [_partial(q[bh], k[bh], v[bh], row0, tiles, *args) for row0, tiles in wl]
+        if mode == "split":
+            _store(out[bh], q0, _merge(*parts, u))
+        else:
+            for (row0, _), part in zip(wl, parts):
+                _store(out[bh], row0, part)
+    return out
+
+
+# (head_dim, heads, sq, skv, causal, window, softcap, input scale):
+# seamless's cross prefill reduced (Sq 64 against 900 keys: 8 tiles, 4 a
+# warpgroup), ragged Sq and Skv with a softcap, Sq 1, one head of 17 tiles
+# with scores large enough to grow the row maxima by more than 2^8, causal
+# Sq <= 64 (one tile: warpgroup 1 has none), two tiles (one a warpgroup),
+# three heads of ragged 800 keys, and the D 256 and D 32 plans' blocks with
+# a window and a softcap
+WORK_WALK_CASES = [(64, 2, 64, 900, False, 0, 0.0, 1.0),
+                   (64, 2, 33, 700, False, 0, 30.0, 1.0),
+                   (64, 2, 1, 500, False, 0, 0.0, 1.0),
+                   (64, 1, 64, 2100, False, 0, 0.0, 4.0),
+                   (64, 2, 50, 50, True, 0, 0.0, 1.0),
+                   (64, 2, 64, 200, False, 0, 0.0, 1.0),
+                   (64, 3, 60, 800, False, 0, 0.0, 1.0),
+                   (256, 2, 500, 500, True, 100, 50.0, 1.0),
+                   (32, 2, 400, 400, True, 0, 30.0, 1.0)]
+
+
+@pytest.mark.parametrize("head_dim,heads,sq,skv,causal,window,softcap,amp", WORK_WALK_CASES)
+def test_split_walk_matches_repro_attention_ref(head_dim, heads, sq, skv, causal, window, softcap,
+                                                amp):
+    """``work_plan``'s blocks, their warpgroups' partials and, under "split",
+    the merge in shared memory walked in the kernel's arithmetic against
+    ``repro``'s ``attention_ref`` on the same bf16 inputs, within
+    chip_smoke's TOL["bfloat16"] for K3."""
+    rng = np.random.default_rng(head_dim * 7 + heads * 1000 + sq + skv)
+    q = _bf16(rng.standard_normal((heads, sq, head_dim)) * amp)
+    k = _bf16(rng.standard_normal((heads, skv, head_dim)) * amp)
+    v = _bf16(rng.standard_normal((heads, skv, head_dim)))
+    scale = 1.0 / math.sqrt(head_dim)
+    args = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    ref = np.asarray(ref_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **args))
+    pv = np.asarray(ref_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(np.abs(v)),
+                                  **args))
+    got = _bf16(_walk_work(q, k, v, heads, scale, causal, window, softcap, head_dim))
     limit = 1e-4 + 2 ** -7 * np.abs(ref) + 2 ** -8 * pv
     assert np.isfinite(got).all()
     assert (np.abs(got - ref) <= limit).all(), (np.abs(got - ref) / limit).max()

@@ -19,6 +19,8 @@ purpose and only say what that part costs.
 Shape groups (``--shapes``, default all):
   gemma2    gemma2-2b's prefill (4 x 4608 tokens, 8 q / 4 kv heads of 256):
             local window 4096 and global with softcap 50, global without;
+            recurrentgemma-9b's (4 x 4608, 16 / 1 heads of 256, window
+            2048);
   d64       granite-moe-3b-a800m's prefill (4 x 4608 causal, 24 / 8 heads of
             64) and seamless-m4t-medium's encoder (4 x 4096 x 4096,
             non-causal, 16 heads of 64);
@@ -26,7 +28,8 @@ Shape groups (``--shapes``, default all):
             arctic-480b (2 x 1024 causal, 32 / 48 / 64 / 56 q on 8 kv heads
             of 128);
   frontend  seamless's cross prefill (Sq 64 against 4096 keys, D 64) and
-            paligemma-3b's prefill (4 x 1024, prefix 256, D 256).
+            self prefill (Sq 64 causal, one key tile), and paligemma-3b's
+            prefill (4 x 1024, prefix 256, D 256).
 
 --check     phase 2 of chip_smoke.py for K3 alone (the current source)
             before the variants are built;
@@ -41,8 +44,9 @@ Shape groups (``--shapes``, default all):
             of each;
 --timeline  the kernel and the no-softmax variant again with clock64 stamps
             in the consumer loop of one block (the longest q-block of head
-            0) at gemma2's global softcap shape and at the two d64 shapes,
-            printed as mean cycles of each phase of a step.
+            0) at gemma2's global softcap shape, the two d64 shapes and the
+            two frontend shapes, printed as mean cycles of each phase of a
+            step.
 """
 from __future__ import annotations
 
@@ -110,7 +114,7 @@ def plan(d, **changes):
         fields = source_plan(src, d)
         fields.update({k.upper(): str(v).lower() for k, v in changes.items()})
         body = (f"  static constexpr int BK = {fields['BK']}, NWG = {fields['NWG']};\n"
-                f"  static constexpr bool FOLD = {fields['FOLD']};\n")
+                f"  static constexpr bool FOLD = {fields['FOLD']}, SPLIT = {fields['SPLIT']};\n")
         block = src[src.index("struct Plan<64> {\n"):]
         block = block[:block.index("};\n") + 3]
         if d == 64:
@@ -122,6 +126,24 @@ def plan(d, **changes):
             return [(old, f"struct Plan<{d}> {{\n" + body + "};\n")]
         return [(block, block + f"template <>\nstruct Plan<{d}> {{\n" + body + "};\n")]
     return edits
+
+
+# Each block loads its Q and runs its epilogue (and, under key splits, its
+# merge), but no KV tile: the producer issues no K or V load and the
+# consumers wait for Q alone.
+NO_TILES = [("      if (it.nb > 0) load(&tm_k, sK, true, 0);\n"
+             "      for (int i = 0; i < it.nb; ++i) {\n",
+             "      for (int i = 0; i < 0; ++i) {\n"),
+            ("    const int cnt = it.nb > i0 ? (it.nb - i0 + di - 1) / di : 0;\n",
+             "    const int cnt = 0;\n")]
+# The epilogue stages O / l in shared memory but stores no row.
+NO_STORE = ("        tma_store(&tm_o, sQw + c * T::Q_CHUNK_B, c * T::CW, it.h, rmin, it.b);\n",
+            "        if (false) tma_store(&tm_o, sQw + c * T::Q_CHUNK_B, c * T::CW, it.h, rmin, "
+            "it.b);\n")
+# Each block runs only the first of its KV tiles.
+ONE_TILE = [("  it.nb = (hi - lo + kBK - 1) / kBK;", "  it.nb = min(1, (hi - lo + kBK - 1) / kBK);")]
+# The split launch at Sq <= 64 under D 64's plan.
+SPLIT_IF = "    if (Sq <= kWgRows) return launch_wgmma_mode<D, CAP, 2, kSplit>(MODE_ARGS);\n"
 
 
 # (name, right function?, edits or a function of the source giving them)
@@ -148,39 +170,52 @@ VARIANTS = [
     # the ring's depth (not at D 256: 3 stages of 32 KB tiles overflow
     # shared memory) and the turns between warpgroups, at every D
     ("stages3", True, [("constexpr int kStages = 2;", "constexpr int kStages = 3;")]),
-    ("no_pingpong", True, [("named_sync(1 + cw);", "", 3),
-                           ("      if (cw != kNWG - 1) named_arrive(next);   // the last "
-                            "warpgroup's turn passes to no one\n", ""),
-                           ("named_arrive(next);", "", 2),
-                           ("if (cw == kNWG - 1) named_arrive(1);", "")]),
+    ("no_pingpong", True, [("if (!kSplitMode) named_sync(1 + cw);", "", 3),
+                           ("if (!kSplitMode && cw != kNWG - 1) named_arrive(next);", ""),
+                           ("if (!kSplitMode) named_arrive(next);", "", 2),
+                           ("if (!kSplitMode && cw == kNWG - 1) named_arrive(1);", "")]),
     # exponentials on the FMA pipe
     ("emu1", True, emu(1)),
     ("emu2", True, emu(2)),
+    # a block's fixed costs: launch, setup, the Q load and the epilogue
+    # (no_tiles: no KV tile at all), and those with one tile (one_tile)
+    ("no_tiles", False, NO_TILES),
+    ("one_tile", False, ONE_TILE),
+    # the epilogue's stores left out, with and without the tiles
+    ("no_store", False, [NO_STORE]),
+    ("no_tiles_no_store", False, NO_TILES + [NO_STORE]),
+    # the split launch (Sq <= 64 at D 64) left out (one block of two
+    # warpgroups, the second on rows past Sq), and run with a ring of 2
+    # stages (one a warpgroup)
+    ("no_split", True, [(SPLIT_IF, "")]),
+    ("split_stages2", True, [("constexpr int kSplitStages = 4;", "constexpr int kSplitStages = 2;")]),
 ]
 NSTAMP = 128     # steps stamped a warpgroup
 STAMPS = [  # (anchor, replacement, count): clock64 stamps for --timeline
     ("namespace {\n", "namespace {\n__device__ long long g_stamp[3 * 128 * 8];\n"
-     "#define STAMP(k) do { if (probe && tid == 0 && i < 128) { long long c_; asm volatile("
+     "#define STAMP(k) do { if (probe && tid == 0 && v < 128) { long long c_; asm volatile("
      "\"mov.u64 %0, %%clock64;\" : \"=l\"(c_) :: \"memory\"); "
-     "g_stamp[(cw * 128 + i) * 8 + (k)] = c_; } } while (0)\n", 1),
-    ("    const uint32_t sQw = sQ + cw * T::Q_BYTES;\n",
-     "    const uint32_t sQw = sQ + cw * T::Q_BYTES;\n"
-     "    const bool probe = blockIdx.x == 0 && blockIdx.y == 0;\n", 1),
-    ("        mbar_wait(full_k(sk), (i / kStages) & 1);\n",
-     "        STAMP(0);\n        mbar_wait(full_k(sk), (i / kStages) & 1);\n", 1),
-    ("        named_sync(1 + cw);\n        wgmma_fence();\n"
+     "g_stamp[(cw * 128 + v) * 8 + (k)] = c_; } } while (0)\n", 1),
+    # block 0
+    ("    const int cnt = it.nb > i0 ? (it.nb - i0 + di - 1) / di : 0;\n",
+     "    const int cnt = it.nb > i0 ? (it.nb - i0 + di - 1) / di : 0;\n"
+     "    const bool probe = blockIdx.x == 0;\n", 1),
+    ("        mbar_wait(full_k(sk), (rk / kST) & 1);\n",
+     "        STAMP(0);\n        mbar_wait(full_k(sk), (rk / kST) & 1);\n", 1),
+    ("        if (!kSplitMode) named_sync(1 + cw);\n        wgmma_fence();\n"
      "        gemm_qk<D>(s, sQw, sK + sk * T::KV_BYTES);\n",
-     "        STAMP(1);\n        named_sync(1 + cw);\n        STAMP(2);\n        wgmma_fence();\n"
-     "        gemm_qk<D>(s, sQw, sK + sk * T::KV_BYTES);\n", 1),
-    ("        named_arrive(next);\n        wgmma_wait<1>();\n        pin(s);\n",
-     "        named_arrive(next);\n        STAMP(3);\n        wgmma_wait<1>();\n        pin(s);\n"
-     "        STAMP(4);\n", 1),
+     "        STAMP(1);\n        if (!kSplitMode) named_sync(1 + cw);\n        STAMP(2);\n"
+     "        wgmma_fence();\n        gemm_qk<D>(s, sQw, sK + sk * T::KV_BYTES);\n", 1),
+    ("        if (!kSplitMode) named_arrive(next);\n        wgmma_wait<1>();\n"
+     "        pin(s);\n",
+     "        if (!kSplitMode) named_arrive(next);\n        STAMP(3);\n"
+     "        wgmma_wait<1>();\n        pin(s);\n        STAMP(4);\n", 1),
     ("        wgmma_wait<0>();\n        pin(acc);\n        pin(p);\n"
      "        if (tid == 0) mbar_arrive(empty_v(sv));\n",
      "        STAMP(5);\n        wgmma_wait<0>();\n        pin(acc);\n        pin(p);\n"
-     "        STAMP(6);\n"
-     "        if (tid == 0) mbar_arrive(empty_v(sv));\n", 1),
-    ("        to_p(s, p);\n      }\n", "        to_p(s, p);\n        STAMP(7);\n      }\n", 1),
+     "        STAMP(6);\n        if (tid == 0) mbar_arrive(empty_v(sv));\n", 1),
+    ("        to_p(s, p);\n      }\n", "        to_p(s, p);\n        STAMP(7);\n      }\n",
+     1),
 ]
 STAMP_READ = ('\nextern "C" int flash_probe_read(void* host) {\n'
               "  return (int)cudaMemcpyFromSymbol(host, g_stamp, sizeof(g_stamp));\n}\n"
@@ -205,7 +240,8 @@ def probe_shapes(groups):
             out.append((label, "gemma2", dims,
                         dict(scale=C.SCALE, causal=True, window=window, softcap=cap)))
     paths = {name: rest for name, *rest in C.zoo_paths()}
-    for name, group in ((C.GRANITE, "d64"), *((a, "d128") for a in C.ZOO_ARCHS)):
+    for name, group in ((C.GRANITE, "d64"), *((a, "d128") for a in C.ZOO_ARCHS),
+                        (C.RECURRENTGEMMA, "gemma2")):
         if group not in groups:
             continue
         b, sq, _, hq, hkv, d, scale, window = paths[name]
@@ -213,6 +249,7 @@ def probe_shapes(groups):
                     dict(scale=scale, causal=True, window=window, softcap=0.0)))
     for name, call, kernel, shape, scale in C.frontend_calls():
         group = {(C.SEAMLESS, "encoder"): "d64", (C.SEAMLESS, "cross prefill"): "frontend",
+                 (C.SEAMLESS, "self prefill"): "frontend",
                  (C.PALIGEMMA, "prefill"): "frontend"}.get((name, call))
         if group in groups:
             b, sq, skv, hq, hkv, d, causal, prefix = shape
@@ -313,8 +350,8 @@ def timeline(libs, gen, use):
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attn import kernel as FK
-    shapes = [s for s in probe_shapes(("gemma2", "d64")) if s[0] != "gemma2 local cap 50"
-              and s[0] != "gemma2 global"]
+    shapes = [s for s in probe_shapes(("gemma2", "d64", "frontend"))
+              if s[0] != "gemma2 local cap 50" and s[0] != "gemma2 global"]
     for label, _, (b, sq, skv, hq, hkv, d), args in shapes:
         q = torch.randn(b, sq, hq, d, generator=gen, device="cuda").to(torch.bfloat16)
         k, v = (torch.randn(b, skv, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)

@@ -19,8 +19,9 @@
             tile from the ring's first stage and folding the exponent with
             the stale row maximum; without the K stage
             wait also with a slowed producer, and the slowed producer alone;
-            K2's ring kernel without a stage's keys at D 64 and without one
-            lane group's partials at D 128);
+            its split launch merging warpgroup 0's partial without warpgroup
+            1's; K2's ring kernel without a stage's keys at D 64 and without
+            one lane group's partials at D 128);
 --variants [NAME ...]
             time text-edited variants of both kernels (all of them, or those
             named) in turns at the main paths' shapes; those marked "wrong"
@@ -111,21 +112,21 @@ from probe_util import OUT, build_all, edited  # noqa: E402
 # hidden by timing; with the producer issuing V first and sleeping before
 # each K load, the checks catch the copy. The slow producer alone is a
 # right kernel and must pass.
-K3_SKIP_K_WAIT = ("        mbar_wait(full_k(sk), (i / kStages) & 1);\n", "")
+K3_SKIP_K_WAIT = ("        mbar_wait(full_k(sk), (rk / kST) & 1);\n", "")
 K3_SLOW_PRODUCER = (
-    "        if (i + 1 < n)\n"
-    "          load(&tm_k, sK, full_k((i + 1) % kStages), empty_k((i + 1) % kStages), i + 1);\n"
-    "        load(&tm_v, sV, full_v(i % kStages), empty_v(i % kStages), i);\n",
-    "        load(&tm_v, sV, full_v(i % kStages), empty_v(i % kStages), i);\n"
-    "        if (i + 1 < n) {\n"
+    "        if (i + 1 < it.nb) load(&tm_k, sK, true, i + 1);\n"
+    "        load(&tm_v, sV, false, i);\n",
+    "        load(&tm_v, sV, false, i);\n"
+    "        if (i + 1 < it.nb) {\n"
     "          __nanosleep(20000);\n"
-    "          load(&tm_k, sK, full_k((i + 1) % kStages), empty_k((i + 1) % kStages), i + 1);\n"
+    "          load(&tm_k, sK, true, i + 1);\n"
     "        }\n")
 BROKEN = [
     # the consumers read every K tile from the ring's first stage (the
     # 128-key tiles of the D 64 and 128 plans, and the rest)
     ("flash_attn", "k_ring_one_stage", [(
-        "        gemm_qk<D>(s, sQw, sK + sk * T::KV_BYTES);\n", "        gemm_qk<D>(s, sQw, sK);\n")]),
+        "        gemm_qk<D>(s, sQw, sK + sk * T::KV_BYTES);\n",
+        "        gemm_qk<D>(s, sQw, sK);\n")]),
     # the folded exponent x u - m u taken with the row maximum before this
     # tile's update (D 64's and D 128's unmasked tiles)
     ("flash_attn", "fold_stale_max", [(
@@ -134,6 +135,10 @@ BROKEN = [
     ("flash_attn", "skip_k_stage_wait", [K3_SKIP_K_WAIT]),
     ("flash_attn", "skip_k_stage_wait_slow_producer", [K3_SKIP_K_WAIT, K3_SLOW_PRODUCER]),
     ("flash_attn", "slow_producer_alone_right", [K3_SLOW_PRODUCER]),
+    # the split launch stores warpgroup 0's partial without merging
+    # warpgroup 1's (the other half of the key tiles)
+    ("flash_attn", "drop_second_warpgroup_partial", [(
+        "      merge_part(wpart, tid, u, acc, m, l);\n", "")]),
     # both ring kernels' consumers skip the wait on stage 1's full barrier
     ("decode_attn", "skip_stage1_full_wait", [(
         "      mbar_wait(full0 + 8 * st, (i / kStages) & 1);\n",
